@@ -8,16 +8,25 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases (any failure exits non-zero; nothing is caught and carried on):
 
 1. Card and build: prints the card's name and power limit, builds the CUDA
-   tile kernel (K1) from `lidar_brdf_tpu_torch/kernels/csrc/` into
-   `build/kernels/` and launches it once on a one-tile input.
-2. Kernel vs plain version: K1 and its plain PyTorch version on the card,
-   on random tiles, a fan of rays over boxes, and the `tls` workload's real
-   bucket chunk: every face equal, t to rtol 1e-6 where a face is hit.
-   Times both on the `tls` chunk with CUDA events.
+   tile kernel (K1) and pulse-ladder kernel (K2) from
+   `lidar_brdf_tpu_torch/kernels/csrc/` into `build/kernels/` (one nvcc
+   each, started together) and launches each once on a one-triangle input.
+2. Kernel vs plain version on the card: every face equal, t to rtol 1e-6
+   where a face is hit.  K1 on random tiles, a fan of rays over boxes and
+   the `tls` workload's real bucket chunk; K2 on a fan over boxes (group 1
+   and 4), a grazing fan with fat ladders, a chunk with padded pulses and
+   one real `als` chunk of 131,072 pulses culled as `Simulator._prep` does
+   it.  Both timed with CUDA events on their real chunk; then K1 and K2 on
+   the same pulses of both scenes (the traverser-choice figures).
 3. The `tls` forward scan at full width through `api.simulate` (1,310,720
-   rays over a ~40k-face city), warm, then timed; K1's launch count is
-   reset just before the timed run and must have risen.
-4. Card vs CPU at a small size (L = 1 and 2): same seed, same rays.
+   rays over a ~40k-face city), warm, then timed; the launch counts are
+   reset just before the timed run: K1's must have risen, K2's not.
+4. The `als` forward scan at full width through `api.simulate` (1,048,576
+   pulses x 10 rays, 2 returns, over the 4,999,122-face terrain, in chunks
+   of 131,072), warm on one chunk, then timed: K2's count must have risen,
+   K1's not.
+5. Card vs CPU at a small size (L = 1 and 2): same seed, same rays, for
+   the TLS tile path and the ALS pulse path.
 
 The line before the last is `{"kernels": [...]}`; the last line is
 `{"ok": true, "device": {...}}`.  It imports nothing of JAX.
@@ -37,6 +46,10 @@ OPS_PER_PAIR = 50               # f32 operations per (ray, candidate) test
 TLS_PULSES = 131072
 TLS_RAYS_PULSE = 10
 TLS_TRIS = 40_000
+ALS_PULSES = 1_048_576          # the flight plan's 1,109,056, sliced
+ALS_TRIS = 5_000_000
+ALS_CHUNK = 131072
+ALS_SUB_PULSES = 8192           # K1 vs K2 on the same als pulses
 DEVICE = "cuda"                 # a rehearsal on the CPU may set "cpu"
 
 
@@ -104,6 +117,54 @@ def tls_workload(device):
     return scene, bvh, cfg, mats, rays
 
 
+def als_workload(device):
+    """The `als` configuration as bench.py builds it (bench.py:153-176,
+    200-201), except that it runs in chunks of ALS_CHUNK pulses."""
+    import numpy as np
+    from lidar_brdf_tpu_torch import api
+    from lidar_brdf_tpu_torch.core.config import (LiDARType, SensorConfig,
+                                                  ShadingMode)
+    from lidar_brdf_tpu_torch.core.types import as_numpy
+    from lidar_brdf_tpu_torch.io import synthetic
+    from lidar_brdf_tpu_torch.io.materials import MaterialLibrary
+    from lidar_brdf_tpu_torch.sensors.als import build_als_rays, plan_flight
+    from lidar_brdf_tpu_torch.utils import noise as noise_mod
+    scene = synthetic.rough_terrain(np.random.default_rng(0),
+                                    num_tris=ALS_TRIS, half=500.0)
+    scene = api.attach_face_neighbors(scene)
+    bvh = api.build_scene_bvh(scene)
+    cfg = SensorConfig(
+        lidar_type=LiDARType.AERIAL_ZIGZAG, als_position=(0.0, 120.0, 0.0),
+        als_fov_horizontal=70.0, als_fov_vertical=4.5,
+        als_scan_frequency=40, als_pulse_frequency=2560, als_speed=30.0,
+        max_range=400.0, rays_per_pulse=10, max_returns=2,
+        chunk_pulses=ALS_CHUNK, shading_mode=ShadingMode.MEASURED,
+        include_shiny_surface_error=True)
+    mats = MaterialLibrary.default().table_at(1064)
+    # what api.build_rays does, with the slice to ALS_PULSES as the count
+    lo, hi = scene.aabb()
+    plan = plan_flight(cfg, as_numpy(lo), as_numpy(hi),
+                       np.random.default_rng(cfg.seed))
+    rays = build_als_rays(cfg, plan,
+                          noise_mod.make_raygen_noise(cfg.seed + 1).to(device),
+                          count=min(ALS_PULSES, plan.num_pulses))
+    log(f"[setup] als: {scene.num_faces} faces, flight plan "
+        f"{plan.num_pulses} pulses, {rays.num_pulses} used")
+    return scene, bvh, cfg, mats, rays
+
+
+def head(rays, n):
+    """The first ``n`` pulses of a RayBundle."""
+    from lidar_brdf_tpu_torch.core.types import RayBundle
+    return RayBundle(origin=rays.origin[:n], direction=rays.direction[:n],
+                     gps_time=rays.gps_time[:n])
+
+
+def host_rays(rays) -> dict:
+    return {k: getattr(rays, k).cpu().numpy()
+            for k in ("origin", "direction", "gps_time")}
+
+
 def fan_rays(n_side):
     import numpy as np
     o0 = np.array([0.0, 9.0, 0.0], np.float32)
@@ -134,7 +195,10 @@ def random_tiles(rng):
 def phase_card_and_build():
     import numpy as np
     import torch
+    from concurrent.futures import ThreadPoolExecutor
     from lidar_brdf_tpu_torch.geom.beamcull import wald_rows_np
+    from lidar_brdf_tpu_torch.kernels import cuda_build
+    from lidar_brdf_tpu_torch.kernels import pulse as pp
     from lidar_brdf_tpu_torch.kernels import traverse as tr
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -143,27 +207,40 @@ def phase_card_and_build():
     card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() \
         else "nvidia-smi unavailable"
     log(card)
+    # one nvcc per kernel source, started together
+    libs = (("K1", tr.KERNEL), ("K2", pp.KERNEL))
     t0 = time.perf_counter()
-    tr.build_kernel(force=True)
-    log(f"[build] K1 built in {time.perf_counter() - t0:.2f} s "
-        f"({tr.NVCC_FLAGS})")
-    for line in tr.KERNEL.build_log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log("[build]", line.strip())
-    # one tile, one triangle at z = 50: K3's compile-and-launch role
+    with ThreadPoolExecutor(max_workers=len(libs)) as pool:
+        for fut in [pool.submit(k.build, True) for _, k in libs]:
+            fut.result()
+    log(f"[build] K1 and K2 built in {time.perf_counter() - t0:.2f} s "
+        f"({cuda_build.NVCC_FLAGS})")
+    for name, k in libs:
+        log(f"[build] {name} {os.path.basename(k.source)}: "
+            f"{k.build_seconds:.2f} s")
+        for line in k.build_log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"[build] {name}", line.strip())
+    # one triangle at z = 50: K3's compile-and-launch role
     v = np.array([[-1, -1, 50], [1, -1, 50], [0, 1, 50]], np.float32)
     wald = torch.from_numpy(wald_rows_np(v, np.array([[0, 1, 2]]))).cuda()
     o = torch.zeros((128, 3), device="cuda")
     d = torch.tensor([[0.0, 0.0, 1.0]], device="cuda").repeat(128, 1)
-    bucket = (torch.zeros(1, dtype=torch.int32, device="cuda"),
-              torch.tensor([[0] + [-1] * 7], dtype=torch.int32,
-                           device="cuda"),
+    ladder = torch.tensor([[0] + [-1] * 7], dtype=torch.int32, device="cuda")
+    bucket = (torch.zeros(1, dtype=torch.int32, device="cuda"), ladder,
               torch.zeros((1, 1), device="cuda"))
     t, f = tr.tile_traverse(wald, o, d, [bucket], 100.0, 128)
     torch.cuda.synchronize()
     if not (bool((f == 0).all()) and bool(((t - 50.0).abs() < 1e-5).all())):
-        fail(f"one-tile launch gave faces {f.unique().tolist()}")
-    log("[build] one-tile launch ok")
+        fail(f"K1 one-tile launch gave faces {f.unique().tolist()}")
+    # 128 pulses x 1 ray, each with the one-candidate ladder
+    bucket = (torch.arange(128, dtype=torch.int32, device="cuda"),
+              ladder.repeat(128, 1))
+    t, f = pp.pulse_traverse(wald, o, d, [bucket], 100.0, 1)
+    torch.cuda.synchronize()
+    if not (bool((f == 0).all()) and bool(((t - 50.0).abs() < 1e-5).all())):
+        fail(f"K2 one-ladder launch gave faces {f.unique().tolist()}")
+    log("[build] K1 one-tile and K2 one-ladder launches ok")
     return card
 
 
@@ -229,6 +306,14 @@ def work_counts(data, t_best, t_max, tile_rays, n_faces, n_rays):
     return needed, padded, nbytes
 
 
+def bound(pairs, nbytes):
+    """(bound ms, "bytes" or "operations", ops ms, bytes ms)."""
+    ops_ms = pairs * OPS_PER_PAIR / H100_F32_OPS_PER_S * 1e3
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes", ops_ms, bytes_ms)
+
+
 def phase_kernel_vs_plain(tls):
     import numpy as np
     import torch
@@ -260,10 +345,8 @@ def phase_kernel_vs_plain(tls):
     sim = Simulator(scene=scene, bvh=bvh, materials=mats, cfg=cfg,
                     device=DEVICE)
     from lidar_brdf_tpu_torch.runtime.simulate import bsp_order
-    host = {k: getattr(rays, k).cpu().numpy()
-            for k in ("origin", "direction", "gps_time")}
     order = bsp_order(rays, sim.block_pulses)
-    host = {k: v[order] for k, v in host.items()}
+    host = {k: v[order] for k, v in host_rays(rays).items()}
     t0 = time.perf_counter()
     sl, data, _ = sim._prep(host, 0, rays.num_pulses, rays.num_pulses)
     cull_s = time.perf_counter() - t0
@@ -285,9 +368,7 @@ def phase_kernel_vs_plain(tls):
     sync()
     needed, padded, nbytes = work_counts(data, t_best, tr_.t_max, R,
                                          tr_.wald.shape[0], og.shape[0])
-    bound_ops_ms = needed * OPS_PER_PAIR / H100_F32_OPS_PER_S * 1e3
-    bound_bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
-    bound_ms = max(bound_ops_ms, bound_bytes_ms)
+    bound_ms, bound_by, bound_ops_ms, bound_bytes_ms = bound(needed, nbytes)
     log(f"[kernel] tls chunk: K1 {ms:.4f} / {ms2:.4f} ms (two runs of 20), "
         f"plain {plain_ms:.4f} ms, launches per call {len(data)}, "
         f"pairs needed {needed} of {padded} without exit, bytes {nbytes}, "
@@ -298,65 +379,293 @@ def phase_kernel_vs_plain(tls):
                 source="lidar_brdf_tpu_torch/kernels/csrc/tile_traverse.cu",
                 replaces="lidar_brdf_tpu/kernels/traverse_pallas.py:117",
                 launches=None, max_abs_err=max(errs), ms=min(ms, ms2),
-                plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by="operations" if bound_ops_ms >= bound_bytes_ms
-                else "bytes", library_ms=None,
-                launches_per_chunk=len(data), pairs_needed=needed,
-                pairs_without_exit=padded)
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None, launches_per_chunk=len(data),
+                pairs_needed=needed,
+                pairs_without_exit=padded, cull_s=cull_s)
 
 
-def phase_tls_forward(tls):
+def compare_k2(name, wald, o, d, data, t_max, R):
+    """K2 vs its plain version on one input set; returns the max |dt|."""
+    import torch
+    from lidar_brdf_tpu_torch.kernels import pulse as pp
+    t_k, f_k = pp.pulse_traverse(wald, o, d, data, t_max, R)
+    t_p, f_p = pp.pulse_traverse_plain(wald, o, d, data, t_max, R)
+    sync()
+    diff = (f_k != f_p).nonzero().flatten()
+    if diff.numel():
+        w = wald.cpu().numpy()
+        for i in diff[:5].tolist():
+            oi, di = o[i].cpu().numpy(), d[i].cpu().numpy()
+            log(f"[kernel] {name}: ray {i} K2 face {int(f_k[i])} "
+                f"(margin {barycentric_margin(w, oi, di, int(f_k[i])):.3e})"
+                f" vs plain face {int(f_p[i])} "
+                f"(margin {barycentric_margin(w, oi, di, int(f_p[i])):.3e})")
+        fail(f"{name}: {diff.numel()} faces differ between K2 and plain")
+    hit = f_p >= 0
+    if not torch.allclose(t_k[hit], t_p[hit], rtol=1e-6, atol=0.0):
+        fail(f"{name}: t differs beyond rtol 1e-6")
+    err = float((t_k[hit] - t_p[hit]).abs().max()) if bool(hit.any()) \
+        else 0.0
+    log(f"[kernel] {name}: {o.shape[0]} rays, {int(hit.sum())} hits, "
+        f"{len(data)} buckets (rows x candidates) "
+        f"{[tuple(c.shape) for _, c in data]}: faces equal, max |dt| "
+        f"{err:.3e}")
+    return err
+
+
+def k2_work(data, n_groups, R):
+    """(real pairs, padded pairs, bytes, distinct faces) of one K2 call.
+
+    Bytes count each input the function needs once and each output once:
+    the rays of groups in a bucket (24 B each), the buckets, the Wald rows
+    of the distinct real candidates (48 B each) and the (t, face) of every
+    ray (8 B each).
+    """
+    import torch
+    real = padded = covered = nbytes = 0
+    faces = []
+    for pidx, cand in data:
+        keep = (pidx >= 0) & (pidx < n_groups)
+        c = cand[keep]
+        real += int((c >= 0).sum()) * R
+        padded += c.numel() * R
+        covered += int(keep.sum())
+        nbytes += pidx.numel() * 4 + cand.numel() * 4
+        faces.append(c[c >= 0])
+    uniq = int(torch.unique(torch.cat(faces)).numel()) if faces else 0
+    nbytes += covered * R * 24 + uniq * 48 + n_groups * R * 8
+    return real, padded, nbytes, uniq
+
+
+def phase_k2_vs_plain(als):
+    import numpy as np
     import torch
     from lidar_brdf_tpu_torch import api
+    from lidar_brdf_tpu_torch.io import synthetic
+    from lidar_brdf_tpu_torch.kernels import pulse as pp
+    from lidar_brdf_tpu_torch.runtime.simulate import Simulator
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)
+    errs = []
+
+    def case(name, scene, o, d, R, group=1):
+        tt = pp.PulseLadderTraverser(scene, rays_per_pulse=R, group=group,
+                                     device=DEVICE)
+        data = tt.prepare(api.build_scene_bvh(scene), o, d, t_max=500.0)
+        errs.append(compare_k2(name, tt.wald, put(o), put(d), data,
+                               tt.t_max, tt.kernel_rays))
+        return data
+
+    boxes = synthetic.terrain_with_boxes(np.random.default_rng(1234),
+                                         num_boxes=6)
+    o, d = fan_rays(16)                                 # 64 pulses of 4
+    for group in (1, 4):
+        case(f"K2 fan over boxes, group {group}", boxes, o, d, 4, group)
+    # tests/test_pallas.py:208-236: grazing fan, fat ladders
+    rough = synthetic.rough_terrain(np.random.default_rng(1234),
+                                    num_tris=20_000, half=30.0)
+    az = np.linspace(0, 2 * np.pi, 16, endpoint=False)
+    el = np.linspace(-0.25, -0.02, 16)
+    aa, ee = np.meshgrid(az, el, indexing="ij")
+    dg = np.stack([np.cos(ee) * np.cos(aa), np.sin(ee),
+                   np.cos(ee) * np.sin(aa)], -1).reshape(-1, 3)
+    dg = (dg / np.linalg.norm(dg, axis=1, keepdims=True)).astype(np.float32)
+    og = np.tile(np.array([0.0, 3.0, 0.0], np.float32), (dg.shape[0], 1))
+    data = case("K2 grazing fan", rough, og, dg, 2)
+    if max(c.shape[1] for _, c in data) < 64:
+        fail("the grazing fan made no fat ladder")
+    # the last two pulses padded as Simulator pads a chunk, group 4
+    o2, d2 = o.copy(), d.copy()
+    o2[-8:], d2[-8:] = 1e10, 0.0
+    case("K2 padded chunk", boxes, o2, d2, 4, 4)
+
+    # one real als chunk, culled and permuted as Simulator._prep does it
+    scene, bvh, cfg, mats, rays = als
+    sim = Simulator(scene=scene, bvh=bvh, materials=mats, cfg=cfg,
+                    device=DEVICE)
+    if not sim.use_pulse:
+        fail("the auto rule did not pick the ladders for the als scene")
+    n = min(ALS_CHUNK, rays.num_pulses)
+    t0 = time.perf_counter()
+    sl, data, _ = sim._prep(host_rays(head(rays, n)), 0, n, n)
+    cull_s = time.perf_counter() - t0
+    tr_ = sim.traverser
+    R = tr_.kernel_rays
+    og = sl.origin.reshape(-1, 3).contiguous()
+    dg = sl.direction.reshape(-1, 3).contiguous()
+    errs.append(compare_k2("K2 als chunk", tr_.wald, og, dg, data,
+                           tr_.t_max, R))
+    call = lambda: pp.pulse_traverse(tr_.wald, og, dg, data, tr_.t_max, R)
+    plain = lambda: pp.pulse_traverse_plain(tr_.wald, og, dg, data,
+                                            tr_.t_max, R)
+    ms = cuda_ms(call, 20)
+    plain_ms = cuda_ms(plain, 3)
+    ms2 = cuda_ms(call, 20)
+    real, padded, nbytes, uniq = k2_work(data, og.shape[0] // R, R)
+    bound_ms, bound_by, ops_ms, bytes_ms = bound(real, nbytes)
+    log(f"[kernel] als chunk ({n} pulses x {R} rays, {scene.num_faces} "
+        f"faces): host cull {cull_s:.3f} s; K2 {ms:.4f} / {ms2:.4f} ms "
+        f"(two runs of 20), plain {plain_ms:.4f} ms, launches per chunk "
+        f"{len(data)}, real pairs {real} of {padded} padded, {uniq} "
+        f"distinct faces, bytes {nbytes}, bound {bound_ms:.4f} ms (ops "
+        f"{ops_ms:.4f}, bytes {bytes_ms:.4f}), "
+        f"{real / (min(ms, ms2) * 1e-3) / 1e9:.2f} G real pairs/s")
+    return sim, dict(
+        name="pulse_traverse", route="cuda",
+        source="lidar_brdf_tpu_torch/kernels/csrc/pulse_traverse.cu",
+        replaces="lidar_brdf_tpu/kernels/pulse_pallas.py:114",
+        launches=None, max_abs_err=max(errs), ms=min(ms, ms2),
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None, launches_per_chunk=len(data), pairs_real=real,
+        pairs_padded=padded, bytes=nbytes, cull_s=cull_s)
+
+
+def phase_traverser_choice(tls, als, k1, als_sim):
+    """K1 and K2 on the same pulses of both scenes: device ms and host cull
+    seconds.  Figures only; the auto rule stays the JAX package's."""
+    from lidar_brdf_tpu_torch.kernels import pulse as pp
     from lidar_brdf_tpu_torch.kernels import traverse as tr
+    from lidar_brdf_tpu_torch.runtime.simulate import Simulator, bsp_order
+    out = {}
+    # tls chunk: K1 figures from phase 2; K2 on ladders in scan order
     scene, bvh, cfg, mats, rays = tls
+    sim = Simulator(scene=scene, bvh=bvh, materials=mats, cfg=cfg,
+                    device=DEVICE, use_pulse=True)
+    n = rays.num_pulses
+    t0 = time.perf_counter()
+    sl, data, _ = sim._prep(host_rays(rays), 0, n, n)
+    cull2 = time.perf_counter() - t0
+    t2 = sim.traverser
+    og = sl.origin.reshape(-1, 3).contiguous()
+    dg = sl.direction.reshape(-1, 3).contiguous()
+    ms2 = cuda_ms(lambda: pp.pulse_traverse(t2.wald, og, dg, data, t2.t_max,
+                                            t2.kernel_rays), 20)
+    out["tls"] = dict(faces=scene.num_faces, pulses=n, k1_ms=k1["ms"],
+                      k1_cull_s=k1["cull_s"], k2_ms=ms2, k2_cull_s=cull2,
+                      k2_buckets=[tuple(c.shape) for _, c in data])
+    # als sub-chunk: K1 on BSP order as the tile Simulator orders it, K2
+    # on ladders in scan order
+    scene, bvh, cfg, mats, rays = als
+    sub = head(rays, min(ALS_SUB_PULSES, rays.num_pulses))
+    n = sub.num_pulses
+    sim1 = Simulator(scene=scene, bvh=bvh, materials=mats, cfg=cfg,
+                     device=DEVICE, use_pulse=False)
+    t0 = time.perf_counter()
+    host = host_rays(sub)
+    order = bsp_order(sub, sim1.block_pulses)
+    host1 = {k: v[order] for k, v in host.items()}
+    sl1, data1, _ = sim1._prep(host1, 0, n, n)
+    cull1 = time.perf_counter() - t0
+    t1 = sim1.traverser
+    o1 = sl1.origin.reshape(-1, 3).contiguous()
+    d1 = sl1.direction.reshape(-1, 3).contiguous()
+    ms1 = cuda_ms(lambda: tr.tile_traverse(t1.wald, o1, d1, data1, t1.t_max,
+                                           t1.tile_rays), 10)
+    t0 = time.perf_counter()
+    sl2, data2, _ = als_sim._prep(host, 0, n, n)
+    cull2 = time.perf_counter() - t0
+    t2 = als_sim.traverser
+    o2 = sl2.origin.reshape(-1, 3).contiguous()
+    d2 = sl2.direction.reshape(-1, 3).contiguous()
+    ms2 = cuda_ms(lambda: pp.pulse_traverse(t2.wald, o2, d2, data2, t2.t_max,
+                                            t2.kernel_rays), 20)
+    out["als"] = dict(faces=scene.num_faces, pulses=n, k1_ms=ms1,
+                      k1_cull_s=cull1, k2_ms=ms2, k2_cull_s=cull2,
+                      k1_buckets=[tuple(c.shape) for _, c, _ in data1],
+                      k2_buckets=[tuple(c.shape) for _, c in data2])
+    for name, r in out.items():
+        log(f"[choice] {name} ({r['faces']} faces, {r['pulses']} pulses): "
+            f"K1 {r['k1_ms']:.4f} ms + host cull {r['k1_cull_s']:.3f} s; "
+            f"K2 {r['k2_ms']:.4f} ms + host cull {r['k2_cull_s']:.3f} s")
+    return out
+
+
+def phase_forward(name, workload, warm_pulses, kernel):
+    """One forward scan at full width through `api.simulate`, after a warm
+    run on the first ``warm_pulses`` pulses.  Both launch counts are set to
+    0 just before the timed run and read just after: ``kernel`` ("K1" or
+    "K2") must have launched, the other kernel not."""
+    import torch
+    from lidar_brdf_tpu_torch import api
+    from lidar_brdf_tpu_torch.kernels import pulse as pp
+    from lidar_brdf_tpu_torch.kernels import traverse as tr
+    scene, bvh, cfg, mats, rays = workload
     n_rays = rays.num_pulses * rays.rays_per_pulse
     t0 = time.perf_counter()
-    api.simulate(scene, cfg, materials=mats, bvh=bvh, rays=rays,
-                 device=DEVICE)
+    api.simulate(scene, cfg, materials=mats, bvh=bvh,
+                 rays=head(rays, warm_pulses), device=DEVICE)
     warm_s = time.perf_counter() - t0
-    tr.KERNEL.launches = 0                         # main path starts here
     stats = {}
     sync()
+    tr.KERNEL.launches = pp.KERNEL.launches = 0    # main path starts here
     t0 = time.perf_counter()
     cloud = api.simulate(scene, cfg, materials=mats, bvh=bvh, rays=rays,
                          device=DEVICE, stats=stats)
     wall = time.perf_counter() - t0
-    launches = tr.KERNEL.launches                  # main path ends here
+    launches = dict(K1=tr.KERNEL.launches, K2=pp.KERNEL.launches)
     m = cloud.mask
     n_pts = int(m.sum())
     inten = cloud.intensity[m]
-    log(f"[tls] {n_rays} rays, {scene.num_faces} faces: {n_pts} valid "
-        f"points; warm run {warm_s:.3f} s, timed run {wall:.3f} s = "
-        f"{n_rays / wall:.0f} rays/s wall-clock; BSP order "
-        f"{stats['order_s']:.3f} s, host cull "
-        f"{stats['cull_s']:.3f} s, device {stats['device_s']:.3f} s, "
-        f"readback {stats['readback_s']:.3f} s; K1 launches {launches}")
-    if launches <= 0 and DEVICE == "cuda":
-        fail("the tls forward scan launched K1 no time")
+    log(f"[{name}] {n_rays} rays, {scene.num_faces} faces, L = "
+        f"{cfg.max_returns}: {n_pts} valid points "
+        f"({int((cloud.return_number[m] == 1).sum())} second returns); "
+        f"warm run ({warm_pulses} pulses) {warm_s:.3f} s, timed run "
+        f"{wall:.3f} s = {n_rays / wall:.0f} rays/s wall-clock; order "
+        f"{stats['order_s']:.3f} s, host cull {stats['cull_s']:.3f} s, "
+        f"device {stats['device_s']:.3f} s, readback "
+        f"{stats['readback_s']:.3f} s; launches {launches}")
+    other = "K2" if kernel == "K1" else "K1"
+    if DEVICE == "cuda" and (launches[kernel] <= 0 or launches[other]):
+        fail(f"the {name} forward scan launched {launches}: expected "
+             f"{kernel} only")
     if n_pts <= 0:
-        fail("the tls forward scan produced no points")
+        fail(f"the {name} forward scan produced no points")
     if not (bool(torch.isfinite(inten).all()) and bool((inten >= 0).all())):
-        fail("tls intensities are not finite and non-negative")
+        fail(f"{name} intensities are not finite and non-negative")
     if not bool(torch.isfinite(cloud.position[m]).all()):
-        fail("tls positions are not finite")
-    return launches, dict(rays=n_rays, faces=scene.num_faces, points=n_pts,
-                          wall_s=wall, rays_per_s=n_rays / wall, **stats)
+        fail(f"{name} positions are not finite")
+    return launches[kernel], dict(
+        rays=n_rays, faces=scene.num_faces, points=n_pts, wall_s=wall,
+        rays_per_s=n_rays / wall, launches=launches, **stats)
+
+
+def compare_clouds(what, g, c):
+    """Card cloud ``g`` vs CPU cloud ``c``, slot by slot."""
+    import torch
+    for k in ("mask", "comp_id", "return_number"):
+        if not torch.equal(getattr(g, k), getattr(c, k)):
+            fail(f"card vs CPU ({what}): {k} differs")
+    if not torch.allclose(g.position, c.position, rtol=0, atol=1e-4):
+        fail(f"card vs CPU ({what}): positions differ beyond 1e-4")
+    if not torch.allclose(g.intensity, c.intensity, rtol=1e-4, atol=0):
+        fail(f"card vs CPU ({what}): intensity differs beyond rtol 1e-4")
+    m = c.mask
+    log(f"[card-vs-cpu] {what}: {int(m.sum())} points "
+        f"({int((c.return_number[m] == 1).sum())} second returns) "
+        f"equal; max |dpos| "
+        f"{float((g.position - c.position).abs().max()):.3e}, max "
+        f"|dI| {float((g.intensity - c.intensity).abs().max()):.3e}")
 
 
 def phase_card_vs_cpu():
     import numpy as np
-    import torch
     from lidar_brdf_tpu_torch import api
     from lidar_brdf_tpu_torch.core.config import (LiDARType, SensorConfig,
                                                   ShadingMode)
     from lidar_brdf_tpu_torch.io import synthetic
     from lidar_brdf_tpu_torch.io.materials import MaterialLibrary
+    from lidar_brdf_tpu_torch.kernels import pulse as pp
     from lidar_brdf_tpu_torch.runtime.simulate import Simulator
+    mats = MaterialLibrary.default().table_at(1064)
+
+    def both(scene, bvh, cfg, rays, **kw):
+        return [Simulator(scene=scene, bvh=bvh, materials=mats, cfg=cfg,
+                          device=dev, **kw).run(rays.to(dev))
+                for dev in (DEVICE, "cpu")]
+
     scene = synthetic.terrain_with_boxes(np.random.default_rng(1234),
                                          num_boxes=4)
     bvh = api.build_scene_bvh(scene)
-    mats = MaterialLibrary.default().table_at(1064)
     for L, radius in ((1, 0.001), (2, 0.1)):
         # 90 x 40 degrees keeps every tile beam narrow (no packet walk)
         cfg = SensorConfig(
@@ -367,23 +676,27 @@ def phase_card_vs_cpu():
             rays_per_pulse=2, pulse_radius=radius, max_returns=L,
             chunk_pulses=512, shading_mode=ShadingMode.MEASURED)
         rays = api.build_rays(cfg, scene, device="cpu")
-        out = {dev: Simulator(scene=scene, bvh=bvh, materials=mats, cfg=cfg,
-                              device=dev).run(rays.to(dev))
-               for dev in (DEVICE, "cpu")}
-        g, c = out[DEVICE], out["cpu"]
-        for k in ("mask", "comp_id", "return_number"):
-            if not torch.equal(getattr(g, k), getattr(c, k)):
-                fail(f"card vs CPU (L={L}): {k} differs")
-        if not torch.allclose(g.position, c.position, rtol=0, atol=1e-4):
-            fail(f"card vs CPU (L={L}): positions differ beyond 1e-4")
-        if not torch.allclose(g.intensity, c.intensity, rtol=1e-4, atol=0):
-            fail(f"card vs CPU (L={L}): intensity differs beyond rtol 1e-4")
-        m = c.mask
-        log(f"[card-vs-cpu] L={L}: {int(m.sum())} points "
-            f"({int((c.return_number[m] == 1).sum())} second returns) "
-            f"equal; max |dpos| "
-            f"{float((g.position - c.position).abs().max()):.3e}, max "
-            f"|dI| {float((g.intensity - c.intensity).abs().max()):.3e}")
+        compare_clouds(f"TLS L={L}", *both(scene, bvh, cfg, rays))
+
+    # ALS zig-zag over a small rough terrain through the pulse ladders
+    scene = synthetic.rough_terrain(np.random.default_rng(0),
+                                    num_tris=20_000, half=30.0)
+    bvh = api.build_scene_bvh(scene)
+    for L in (1, 2):
+        cfg = SensorConfig(
+            lidar_type=LiDARType.AERIAL_ZIGZAG, als_position=(0.0, 40.0, 0.0),
+            als_fov_horizontal=70.0, als_fov_vertical=4.5,
+            als_scan_frequency=40, als_pulse_frequency=2560, als_speed=30.0,
+            max_range=400.0, rays_per_pulse=4, pulse_radius=0.3,
+            max_returns=L, chunk_pulses=1024,
+            shading_mode=ShadingMode.MEASURED,
+            include_shiny_surface_error=True)
+        rays = head(api.build_rays(cfg, scene, device="cpu"), 2048)
+        before = pp.KERNEL.launches
+        clouds = both(scene, bvh, cfg, rays, use_pulse=True)
+        if DEVICE == "cuda" and pp.KERNEL.launches <= before:
+            fail("the ALS card-vs-CPU run launched K2 no time")
+        compare_clouds(f"ALS L={L}", *clouds)
 
 
 def main() -> int:
@@ -402,12 +715,19 @@ def main() -> int:
     tls = tls_workload("cuda")
     log(f"[setup] tls workload built in {time.perf_counter() - t0:.2f} s")
     k1 = phase_kernel_vs_plain(tls)
-    launches, fwd = phase_tls_forward(tls)
-    k1["launches"] = launches
+    t0 = time.perf_counter()
+    als = als_workload("cuda")
+    log(f"[setup] als workload built in {time.perf_counter() - t0:.2f} s")
+    als_sim, k2 = phase_k2_vs_plain(als)
+    choice = phase_traverser_choice(tls, als, k1, als_sim)
+    del als_sim
+    k1["launches"], tls_fwd = phase_forward("tls", tls, TLS_PULSES, "K1")
+    k2["launches"], als_fwd = phase_forward("als", als, ALS_CHUNK, "K2")
     phase_card_vs_cpu()
-    log(json.dumps({"card": card, "tls_forward": fwd,
+    log(json.dumps({"card": card, "tls_forward": tls_fwd,
+                    "als_forward": als_fwd, "traverser_choice": choice,
                     "seconds": time.perf_counter() - t_start}))
-    log(json.dumps({"kernels": [k1]}))
+    log(json.dumps({"kernels": [k1, k2]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from .core.config import LiDARType, SensorConfig
@@ -17,6 +18,7 @@ from .core.types import (BVH, MaterialTable, PointCloud, RayBundle,
 from .geom.bvh import build_bvh
 from .io.materials import MaterialLibrary
 from .runtime.simulate import Simulator
+from .sensors.als import build_als_rays, plan_flight
 from .sensors.tls import build_tls_rays, num_tls_pulses
 from .utils import noise as noise_mod
 
@@ -48,21 +50,26 @@ def build_rays(cfg: SensorConfig, scene: TriangleScene | None = None,
     """The full scan's rays for the configured sensor.  The ray-generation
     buffer is drawn from a CPU generator seeded with ``seed + 1`` (seed
     defaults to ``cfg.seed``), so a seed gives the same rays on every
-    device; ``raygen_noise`` overrides it."""
+    device; ``raygen_noise`` overrides it.  Aerial modes plan the flight
+    over ``scene``'s bounding box with ``np.random.default_rng(seed)``."""
     dev = resolve_device(device)
     seed = cfg.seed if seed is None else seed
     if raygen_noise is None:
         raygen_noise = noise_mod.make_raygen_noise(seed + 1)
     raygen_noise = raygen_noise.to(dev)
-    if cfg.lidar_type != LiDARType.TERRESTRIAL_SPHERICAL:
-        raise NotImplementedError(
-            "aerial (ALS) ray generation is not ported yet")
-    count = None
-    if cfg.use_simulation_time:
-        # time-based ray budget (`getNumSimulatedRays`)
-        count = int(num_tls_pulses(cfg) * cfg.scan_frequency_hz
-                    * cfg.simulation_time)
-    return build_tls_rays(cfg, raygen_noise, count=count)
+    if cfg.lidar_type == LiDARType.TERRESTRIAL_SPHERICAL:
+        count = None
+        if cfg.use_simulation_time:
+            # time-based ray budget (`getNumSimulatedRays`)
+            count = int(num_tls_pulses(cfg) * cfg.scan_frequency_hz
+                        * cfg.simulation_time)
+        return build_tls_rays(cfg, raygen_noise, count=count)
+    if scene is None:
+        raise ValueError("aerial scans need the scene to plan the flight")
+    lo, hi = scene.aabb()
+    plan = plan_flight(cfg, as_numpy(lo), as_numpy(hi),
+                       np.random.default_rng(seed))
+    return build_als_rays(cfg, plan, raygen_noise)
 
 
 def simulate(scene: TriangleScene, cfg: SensorConfig,

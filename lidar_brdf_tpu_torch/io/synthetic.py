@@ -139,6 +139,41 @@ def city_scene(rng, num_buildings=64, half=None, ground_cells=8) -> TriangleScen
         comp_asprs=np.asarray(comp_asprs, np.int32))
 
 
+def rough_terrain(rng, num_tris=5_000_000, half=500.0,
+                  amp=6.0) -> TriangleScene:
+    """Displaced-heightfield terrain with ~``num_tris`` triangles.
+
+    Multi-octave sinusoidal relief (random phases) — a BVH-meaningful
+    stand-in for the reference's large ALS terrain scenes without
+    redistributable assets (the `als` workload's scene).
+    """
+    import math
+    cells = max(int(math.sqrt(num_tris / 2)), 1)
+    xs = np.linspace(-half, half, cells + 1, dtype=np.float32)
+    zs = np.linspace(-half, half, cells + 1, dtype=np.float32)
+    gx, gz = np.meshgrid(xs, zs, indexing="ij")
+    y = np.zeros_like(gx)
+    for freq, a in ((0.008, 1.0), (0.023, 0.55), (0.061, 0.3), (0.17, 0.12)):
+        px, pz = rng.uniform(0.0, 2.0 * np.pi, 2)
+        y += a * np.sin(gx * freq * 2 * np.pi + px) \
+            * np.cos(gz * freq * 2 * np.pi + pz)
+    y *= amp / max(float(np.abs(y).max()), 1e-6)
+    verts = np.stack([gx, y, gz], axis=-1).reshape(-1, 3)
+    idx = np.arange((cells + 1) ** 2,
+                    dtype=np.int64).reshape(cells + 1, cells + 1)
+    a_ = idx[:-1, :-1].ravel()
+    b_ = idx[1:, :-1].ravel()
+    c_ = idx[:-1, 1:].ravel()
+    d_ = idx[1:, 1:].ravel()
+    faces = np.concatenate([np.stack([a_, c_, b_], -1),
+                            np.stack([b_, c_, d_], -1)]).astype(np.int32)
+    return scene_from_arrays(
+        verts, faces,
+        comp_surface=np.array([SURFACE_TERRAIN], np.int32),
+        comp_material=np.array([7], np.int32),          # STONE
+        comp_asprs=np.array([2], np.int32))             # GROUND
+
+
 def terrain_with_boxes(rng, num_boxes=8, half=40.0,
                        water_patch=False) -> TriangleScene:
     """Ground plane + scattered boxes, with component/material structure.

@@ -29,13 +29,7 @@
 //
 // Exactness contract (the plain PyTorch version in kernels/traverse.py and
 // the Pallas kernel give identical faces):
-//   * same Wald test, operation order and association as
-//     traverse_pallas.py:86-97; |n.d| >= EPSILON, else the divisor is +-1;
-//   * IEEE f32 division, built with --fmad=false and without fast math, so
-//     no multiply-add is contracted;
-//   * tie rule: within each block of 8 candidates the min t, then among
-//     candidates with t_m <= t_c the min face id; across blocks a strict <,
-//     starting from t_max;
+//   * the Wald test and tie rule of wald.cuh, shared with K2;
 //   * early exit: a ray skips every block whose lower distance bound
 //     exceeds its best t (the bounds are a conservative, monotone prefix,
 //     so no skipped block can hold a nearer hit), and the block stops once
@@ -45,14 +39,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "wald.cuh"
+
 namespace {
 
-constexpr int CAND_BLOCK = 8;     // candidates per tie-rule block
+using lbt::BIG;
+using lbt::CAND_BLOCK;
 constexpr int CHUNK = 256;        // candidates staged in shared memory
 constexpr int CHUNK_BLOCKS = CHUNK / CAND_BLOCK;
-constexpr float EPSILON = 1e-8f;
-constexpr float BIG = 3.4e38f;
-constexpr int INT_MISS = 1 << 30;
 
 template <int RPT>
 __global__ void __launch_bounds__(1024)
@@ -73,18 +67,15 @@ tile_traverse_kernel(const float* __restrict__ wald,      // (F, 12)
   const int tile = tidx[row];
   if (tile < 0 || tile >= n_tiles) return;   // dummy row: uniform per block
 
-  float ox[RPT], oy[RPT], oz[RPT], dx[RPT], dy[RPT], dz[RPT];
+  lbt::Ray ray[RPT];
   float t_best[RPT];
   int32_t f_best[RPT];
 #pragma unroll
   for (int k = 0; k < RPT; ++k) {
     const int64_t g = (int64_t)tile * tile_rays + threadIdx.x + k * blockDim.x;
-    ox[k] = origin[3 * g + 0];
-    oy[k] = origin[3 * g + 1];
-    oz[k] = origin[3 * g + 2];
-    dx[k] = direction[3 * g + 0];
-    dy[k] = direction[3 * g + 1];
-    dz[k] = direction[3 * g + 2];
+    ray[k] = {origin[3 * g + 0], origin[3 * g + 1], origin[3 * g + 2],
+              direction[3 * g + 0], direction[3 * g + 1],
+              direction[3 * g + 2]};
     t_best[k] = t_max;
     f_best[k] = -1;
   }
@@ -119,36 +110,13 @@ tile_traverse_kernel(const float* __restrict__ wald,      // (F, 12)
     for (int k = 0; k < RPT; ++k) {
       for (int b = 0; b < nb; ++b) {
         if (s_bnd[b] > t_best[k]) break;     // nothing nearer in this block
-        float t_m[CAND_BLOCK];
-        float t_c = 0.0f;
-#pragma unroll
-        for (int m = 0; m < CAND_BLOCK; ++m) {
+        auto load = [&](int m, float* w) {
           const float* r = s_rows + (b * CAND_BLOCK + m) * 12;
-          const float nd = dx[k] * r[0] + dy[k] * r[1] + dz[k] * r[2];
-          const float no = ox[k] * r[0] + oy[k] * r[1] + oz[k] * r[2];
-          const bool ok_det = fabsf(nd) >= EPSILON;
-          const float div = ok_det ? nd : (nd < 0.0f ? -1.0f : 1.0f);
-          const float t = __fdiv_rn(r[3] - no, div);
-          const float u = (ox[k] * r[4] + oy[k] * r[5] + oz[k] * r[6]) + r[7]
-                          + t * (dx[k] * r[4] + dy[k] * r[5] + dz[k] * r[6]);
-          const float v = (ox[k] * r[8] + oy[k] * r[9] + oz[k] * r[10]) + r[11]
-                          + t * (dx[k] * r[8] + dy[k] * r[9] + dz[k] * r[10]);
-          const bool ok = ok_det && u >= 0.0f && u <= 1.0f && v >= 0.0f &&
-                          u + v <= 1.0f && t >= -EPSILON &&
-                          s_ids[b * CAND_BLOCK + m] >= 0;
-          t_m[m] = ok ? t : t_max;
-          t_c = (m == 0 || t_m[m] < t_c) ? t_m[m] : t_c;
-        }
-        int32_t f_c = INT_MISS;
 #pragma unroll
-        for (int m = 0; m < CAND_BLOCK; ++m) {
-          const int32_t id = s_ids[b * CAND_BLOCK + m];
-          if (t_m[m] <= t_c && id < f_c) f_c = id;
-        }
-        if (t_c < t_best[k]) {
-          t_best[k] = t_c;
-          f_best[k] = f_c;
-        }
+          for (int j = 0; j < 12; ++j) w[j] = r[j];
+          return s_ids[b * CAND_BLOCK + m];
+        };
+        lbt::wald_block(ray[k], load, t_max, t_best[k], f_best[k]);
       }
     }
     __syncthreads();   // the next chunk overwrites shared memory

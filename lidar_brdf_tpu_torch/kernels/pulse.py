@@ -1,0 +1,304 @@
+"""Pulse-ladder traverser: host cull half + the hand-written CUDA kernel (K2).
+
+Counterpart of `lidar_brdf_tpu/kernels/pulse_pallas.py`, the traversal the
+JAX package takes on dense scenes scanned by structured pulses (the `als`
+workload's 5M-face terrain), where one 640-ray tile's beam would cover
+thousands of triangles but one pulse's narrow cone covers a handful.
+
+* Host half (`build_pulse_ladders`, `permute_pulse_ladders`): each pulse
+  group's bounding cone is culled against the BVH (`geom/beamcull.py` and
+  the native culler) into a near-to-far candidate ladder; ladders are
+  bucketed by padded size K = 8 * 2**k.  Bit-equal to the JAX package.
+* Device half (`pulse_traverse`): per bucket, the nearest (t, face) of
+  every ray of every group against the group's ladder.  On a CUDA tensor
+  it launches `csrc/pulse_traverse.cu` (built with nvcc at first use into
+  `build/kernels/`, loaded with ctypes); on a CPU tensor it runs
+  `pulse_traverse_plain`, the same semantics in plain PyTorch.  It never
+  falls back from one to the other.
+
+What the TPU layout needed and the card does not: the JAX package copies
+every candidate's 12-float Wald row per pulse into an (NB, KB, 12, 8, 128)
+block on the host (`_pack_bucket`, ~400 MB per 1M pulses at K = 8), and
+reorders pulses bucket-contiguously so that results come back by slicing
+(`PermutedLayout`, one compiled executable per layout) because TPU scatter
+is slow.  Here a bucket on the device is just ``(pidx (B,) i32, cand (B, K)
+i32)``: the kernel gathers rows from the (F, 12) Wald table itself and
+writes through ``pidx``.  The multi-device `prepare_sharded` waits for the
+multi-GPU slice.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ..core.types import BVH, Hit, TriangleScene, as_numpy, resolve_device
+from ..geom.beamcull import (_collect_candidates, beams_are_narrow,
+                             tile_beams, wald_rows_np)
+from ..geom.intersect import BIG
+from .cuda_build import CudaLibrary, check_tensor
+from .traverse import CAND_BLOCK, wald_blocks_plain
+
+LANES = 128          # bucket rows are padded to a multiple of this
+
+
+def _declare(lib):
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.lbt_pulse_traverse.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci,
+                                       cf, vp, vp, vp]
+    lib.lbt_pulse_traverse.restype = ci
+
+
+KERNEL = CudaLibrary("pulse_traverse.cu", _declare)
+
+
+# ---------------------------------------------------------------------------
+# host half
+# ---------------------------------------------------------------------------
+
+def build_pulse_ladders(bvh: BVH, origins: np.ndarray, directions: np.ndarray,
+                        rays_per_pulse: int, *, t_max: float,
+                        pad_to: int = CAND_BLOCK):
+    """Host cull: per-pulse candidate lists, bucketed by padded size K.
+
+    Returns a tuple of (pidx (Bp,) int32, cand (Bp, K) int32) buckets with
+    K = pad_to * 2^k and Bp a multiple of 128 (padding rows: pidx =
+    num_pulses, cand = -1).  Candidates are near-to-far sorted along the
+    pulse axis (same contract as `build_bucketed_candidates`).
+    """
+    o = np.asarray(origins, np.float64).reshape(-1, 3)
+    d = np.asarray(directions, np.float64).reshape(-1, 3)
+    if o.shape[0] % rays_per_pulse:
+        raise ValueError("ray count not a multiple of rays_per_pulse")
+    beams = tile_beams(o, d, rays_per_pulse)
+    num_pulses = beams.center.shape[0]
+    tiles, faces_out, counts = _collect_candidates(bvh, beams, t_max)
+    offsets = np.zeros(num_pulses + 1, np.int64)
+    np.cumsum(counts, out=offsets[1:])
+
+    padded = np.maximum(
+        pad_to * (2 ** np.ceil(np.log2(np.maximum(
+            (counts + pad_to - 1) // pad_to, 1))).astype(np.int64)),
+        pad_to)
+    buckets = []
+    for size in np.unique(padded[counts > 0]):
+        pidx = ((padded == size) & (counts > 0)).nonzero()[0]
+        B = pidx.shape[0]
+        B_pad = -(-B // LANES) * LANES
+        cand = np.full((B_pad, int(size)), -1, np.int32)
+        # vectorized ragged fill (a per-pulse Python loop costs seconds at
+        # 1M pulses)
+        cnt = counts[pidx].astype(np.int64)
+        rows = np.repeat(np.arange(B, dtype=np.int64), cnt)
+        ends = np.cumsum(cnt)
+        cols = np.arange(ends[-1] if B else 0, dtype=np.int64) \
+            - np.repeat(ends - cnt, cnt)
+        cand[rows, cols] = faces_out[np.repeat(offsets[pidx], cnt) + cols]
+        pidx_arr = np.full(B_pad, num_pulses, np.int32)
+        pidx_arr[:B] = pidx
+        buckets.append((pidx_arr, cand))
+    return tuple(buckets)
+
+
+def permute_pulse_ladders(buckets, num_pulses: int):
+    """Bucket-contiguous pulse order, as the JAX package orders pulses.
+
+    Returns ``(perm, layout)``: ``perm`` (num_pulses,) int64 — new pulse i
+    is old pulse ``perm[i]``, zero-candidate pulses at the tail — and
+    ``layout`` a tuple of ``(start, B, B_pad)`` per bucket (B real pulses
+    at [start, start+B) in the new order).  The `Simulator` reorders its
+    pulses by ``perm`` so that every pulse sits in the slot (and draws the
+    noise) it has in the JAX package; `renumber_pulse_ladders` then points
+    the buckets at the new slots.
+    """
+    perm_parts, layout, start = [], [], 0
+    for pidx, _ in buckets:
+        B = int((pidx < num_pulses).sum())      # real rows come first
+        perm_parts.append(pidx[:B].astype(np.int64))
+        layout.append((start, B, int(pidx.shape[0])))
+        start += B
+    covered = (np.concatenate(perm_parts) if perm_parts
+               else np.zeros(0, np.int64))
+    miss = np.ones(num_pulses, bool)
+    miss[covered] = False
+    perm = np.concatenate([covered, np.nonzero(miss)[0].astype(np.int64)])
+    return perm, tuple(layout)
+
+
+def renumber_pulse_ladders(buckets, perm: np.ndarray):
+    """Buckets with each real ``pidx`` replaced by that pulse's position in
+    the order ``perm`` (dummy rows keep ``num_pulses``)."""
+    num_pulses = perm.shape[0]
+    where = np.empty(num_pulses + 1, np.int32)
+    where[perm] = np.arange(num_pulses, dtype=np.int32)
+    where[num_pulses] = num_pulses
+    return tuple((where[pidx], cand) for pidx, cand in buckets)
+
+
+# ---------------------------------------------------------------------------
+# device half
+# ---------------------------------------------------------------------------
+
+def _validate(wald, origin, direction, buckets, kernel_rays):
+    dev = origin.device
+    check_tensor("wald", wald, torch.float32, 2, dev)
+    check_tensor("origin", origin, torch.float32, 2, dev)
+    check_tensor("direction", direction, torch.float32, 2, dev)
+    if wald.shape[1] != 12 or origin.shape[1] != 3 \
+            or direction.shape != origin.shape:
+        raise ValueError("wald must be (F, 12); origin/direction (N, 3)")
+    if kernel_rays <= 0 or origin.shape[0] % kernel_rays:
+        raise ValueError(f"ray count {origin.shape[0]} must be a multiple "
+                         f"of kernel_rays={kernel_rays}")
+    for pidx, cand in buckets:
+        check_tensor("pidx", pidx, torch.int32, 1, dev)
+        check_tensor("cand", cand, torch.int32, 2, dev)
+        if pidx.shape[0] != cand.shape[0] or cand.shape[1] % CAND_BLOCK:
+            raise ValueError("bucket shapes disagree: pidx (B,), cand "
+                             "(B, K) with K % 8 == 0")
+
+
+def pulse_traverse(wald, origin, direction, buckets, t_max: float,
+                   kernel_rays: int):
+    """Nearest (t, face) per ray over per-pulse-group candidate ladders.
+
+    ``wald`` (F, 12) f32 Wald rows; ``origin``/``direction`` (N, 3) f32
+    with N = P * kernel_rays (P pulse groups, each ``kernel_rays``
+    consecutive rays); ``buckets`` a sequence of (pidx (B,) i32, cand (B, K)
+    i32, -1 padded) on the same device.  Rows with pidx outside [0, P) are
+    dummies.  Returns (t (N,) f32, face (N,) i32); misses and groups in no
+    bucket are (BIG, -1).  CUDA tensors launch K2 once per bucket; CPU
+    tensors take `pulse_traverse_plain`.
+    """
+    _validate(wald, origin, direction, buckets, kernel_rays)
+    if origin.device.type == "cpu":
+        return pulse_traverse_plain(wald, origin, direction, buckets, t_max,
+                                    kernel_rays)
+    if origin.device.type != "cuda":
+        raise ValueError(f"unsupported device {origin.device}")
+    lib = KERNEL.build()
+    n = origin.shape[0]
+    out_t = torch.full((n,), BIG, dtype=torch.float32, device=origin.device)
+    out_f = torch.full((n,), -1, dtype=torch.int32, device=origin.device)
+    stream = torch.cuda.current_stream(origin.device).cuda_stream
+    for pidx, cand in buckets:
+        B, K = cand.shape
+        rc = lib.lbt_pulse_traverse(
+            wald.data_ptr(), origin.data_ptr(), direction.data_ptr(),
+            pidx.data_ptr(), cand.data_ptr(), B, K, n // kernel_rays,
+            kernel_rays, float(t_max), out_t.data_ptr(), out_f.data_ptr(),
+            stream)
+        KERNEL.check(rc, "pulse_traverse")
+        KERNEL.launches += 1
+    return out_t, out_f
+
+
+def pulse_traverse_plain(wald, origin, direction, buckets, t_max: float,
+                         kernel_rays: int, max_pairs: int = 1 << 22):
+    """Plain PyTorch version of K2: same signature and results.
+
+    Takes bucket rows in slices of at most ``max_pairs`` (ray, candidate)
+    pairs to bound its temporaries; each slice gathers ``wald[cand]``
+    (zero rows for padding), evaluates (B, R, K) Wald tests, the block min
+    and min id, and merges the blocks by a first-occurrence argmin (strict
+    <, starting from t_max) in `wald_blocks_plain`.
+    """
+    dev = origin.device
+    n = origin.shape[0]
+    R = kernel_rays
+    P = n // R
+    out_t = torch.full((n,), BIG, dtype=torch.float32, device=dev)
+    out_f = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    o_all = origin.reshape(P, R, 3)
+    d_all = direction.reshape(P, R, 3)
+    tm = torch.tensor(t_max, dtype=torch.float32, device=dev)
+    for pidx, cand in buckets:
+        step = max(1, max_pairs // (R * max(cand.shape[1], 1)))
+        for lo in range(0, int(pidx.shape[0]), step):
+            sl = slice(lo, lo + step)
+            keep = (pidx[sl] >= 0) & (pidx[sl] < P)
+            if not bool(keep.any()):
+                continue
+            pid = pidx[sl][keep].long()
+            t_best = tm.expand(pid.shape[0], R).clone()
+            f_best = torch.full_like(t_best, -1, dtype=torch.int32)
+            t_best, f_best = wald_blocks_plain(
+                wald, o_all[pid][:, :, None, :], d_all[pid][:, :, None, :],
+                cand[sl][keep], tm, t_best, f_best)
+            out_t.view(P, R)[pid] = torch.where(
+                f_best < 0, torch.full_like(t_best, BIG), t_best)
+            out_f.view(P, R)[pid] = f_best
+    return out_t, out_f
+
+
+class PulseLadderTraverser:
+    """Scene-bound pulse-ladder traverser: host prep + device call.
+
+    Same traverse_fn interface as `TileTraverser`::
+
+        tr = PulseLadderTraverser(scene, rays_per_pulse=10, device="cuda")
+        data = tr.prepare(bvh, origins, directions, t_max=...)   # host
+        hits = tr(origin, direction, data)                       # device
+
+    ``group`` adjacent pulses share one candidate ladder (group = 1 is the
+    exact per-pulse scheme); a ladder entity is ``kernel_rays =
+    rays_per_pulse * group`` consecutive rays.  Bounce continuation rays
+    stay on the level-0 lines, so the same ladders serve every return level.
+    """
+
+    def __init__(self, scene: TriangleScene, rays_per_pulse: int, *,
+                 group: int = 1, device="cuda"):
+        self.rays_per_pulse = int(rays_per_pulse)
+        self.group = int(group)
+        self.device = resolve_device(device)
+        self.wald = torch.from_numpy(wald_rows_np(
+            as_numpy(scene.vertices), as_numpy(scene.faces))).to(self.device)
+        self.t_max = None
+
+    @property
+    def kernel_rays(self) -> int:
+        """Rays per ladder entity (one pulse group)."""
+        return self.rays_per_pulse * self.group
+
+    def beams_ok(self, origin, direction) -> bool:
+        """Per-group cones narrow enough for culling to pay off (same
+        MIN_COS_HALF contract as the tile culler)."""
+        o = np.asarray(as_numpy(origin), np.float32).reshape(-1, 3)
+        d = np.asarray(as_numpy(direction), np.float32).reshape(-1, 3)
+        return beams_are_narrow(tile_beams(o, d, self.kernel_rays))
+
+    def _resolve_t_max(self, bvh: BVH, o: np.ndarray,
+                       t_max: float | None) -> float:
+        if t_max is None:
+            nmin = np.asarray(bvh.node_min)[0]
+            nmax = np.asarray(bvh.node_max)[0]
+            far = np.linalg.norm(o - np.clip(o, nmin, nmax), axis=-1).max()
+            t_max = float(np.linalg.norm(nmax - nmin) + far + 1.0)
+        self.t_max = float(t_max)
+        return self.t_max
+
+    def upload(self, buckets) -> tuple:
+        """Host buckets -> ((pidx, cand) per bucket) on the device."""
+        put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(
+            self.device, non_blocking=True)
+        return tuple((put(p), put(c)) for p, c in buckets)
+
+    def prepare(self, bvh: BVH, origin, direction,
+                t_max: float | None = None):
+        """Host cull for one chunk: ((pidx, cand) per bucket) on the
+        traverser's device.  Sets ``self.t_max``."""
+        o = np.asarray(as_numpy(origin), np.float32).reshape(-1, 3)
+        d = np.asarray(as_numpy(direction), np.float32).reshape(-1, 3)
+        t_max = self._resolve_t_max(bvh, o, t_max)
+        return self.upload(build_pulse_ladders(bvh, o, d, self.kernel_rays,
+                                               t_max=t_max))
+
+    def __call__(self, origin, direction, traverse_data) -> Hit:
+        shape = origin.shape[:-1]
+        o = origin.detach().reshape(-1, 3).contiguous()
+        d = direction.detach().reshape(-1, 3).contiguous()
+        t, f = pulse_traverse(self.wald, o, d, traverse_data, self.t_max,
+                              self.kernel_rays)
+        return Hit(t=t.reshape(shape), face=f.reshape(shape))

@@ -18,116 +18,38 @@ Counterpart of `lidar_brdf_tpu/kernels/traverse_pallas.py`.
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
-import time
 
 import numpy as np
 import torch
 
-from ..core.types import BVH, Hit, TriangleScene, as_numpy
+from ..core.types import BVH, Hit, TriangleScene, as_numpy, resolve_device
 from ..geom.beamcull import (beams_are_narrow, build_bucketed_candidates,
                              tile_beams, wald_rows_np)
 from ..geom.intersect import BIG, EPSILON
+from .cuda_build import CudaLibrary, check_tensor
 
 LANES = 128          # tile_rays granularity (one warp group of 4 warps)
 CAND_BLOCK = 8       # candidates per tie-rule block
 INT_MISS = 2 ** 30
 
-_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
-                    "tile_traverse.cu")
-BUILD_DIR = os.path.join(_REPO_ROOT, "build", "kernels")
-_LIB = os.path.join(BUILD_DIR, "libtile_traverse.so")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+
+def _declare(lib):
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.lbt_tile_traverse.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci,
+                                      ci, cf, vp, vp, vp]
+    lib.lbt_tile_traverse.restype = ci
+    lib.lbt_tile_traverse_rays_per_thread.argtypes = [ci]
+    lib.lbt_tile_traverse_rays_per_thread.restype = ci
 
 
-class _Kernel:
-    """The built library, its launch count and its build record."""
-
-    def __init__(self):
-        self.lock = threading.Lock()
-        self.lib = None
-        self.launches = 0
-        self.build_seconds = None
-        self.build_log = ""
-
-
-KERNEL = _Kernel()
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA tile kernel cannot be "
-                           "built (set CUDA_HOME or put nvcc on PATH)")
-    return path
-
-
-def build_kernel(force: bool = False) -> ctypes.CDLL:
-    """Compile (if needed) and load the K1 library; raises on failure."""
-    with KERNEL.lock:
-        if KERNEL.lib is not None and not force:
-            return KERNEL.lib
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        t0 = time.perf_counter()
-        if force or not os.path.exists(_LIB) or (
-                os.path.getmtime(_SRC) > os.path.getmtime(_LIB)):
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            try:
-                proc = subprocess.run(
-                    [_nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC],
-                    capture_output=True, text=True, timeout=600)
-                KERNEL.build_log = proc.stdout + proc.stderr
-                if proc.returncode != 0:
-                    raise RuntimeError("nvcc failed to build "
-                                       f"{_SRC}:\n{KERNEL.build_log}")
-                os.replace(tmp, _LIB)
-            finally:
-                if os.path.exists(tmp):
-                    os.remove(tmp)
-        lib = ctypes.CDLL(_LIB)
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.lbt_tile_traverse.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci,
-                                          ci, cf, vp, vp, vp]
-        lib.lbt_tile_traverse.restype = ci
-        lib.lbt_tile_traverse_rays_per_thread.argtypes = [ci]
-        lib.lbt_tile_traverse_rays_per_thread.restype = ci
-        lib.lbt_cuda_error_string.argtypes = [ci]
-        lib.lbt_cuda_error_string.restype = ctypes.c_char_p
-        KERNEL.build_seconds = time.perf_counter() - t0
-        KERNEL.lib = lib
-        return lib
-
-
-def _check(name, x, dtype, ndim, device):
-    if not isinstance(x, torch.Tensor):
-        raise TypeError(f"{name} must be a tensor")
-    if x.dtype != dtype or x.dim() != ndim:
-        raise ValueError(f"{name} must be {ndim}-D {dtype}, got "
-                         f"{x.dim()}-D {x.dtype}")
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+KERNEL = CudaLibrary("tile_traverse.cu", _declare)
 
 
 def _validate(wald, origin, direction, buckets, tile_rays):
     dev = origin.device
-    _check("wald", wald, torch.float32, 2, dev)
-    _check("origin", origin, torch.float32, 2, dev)
-    _check("direction", direction, torch.float32, 2, dev)
+    check_tensor("wald", wald, torch.float32, 2, dev)
+    check_tensor("origin", origin, torch.float32, 2, dev)
+    check_tensor("direction", direction, torch.float32, 2, dev)
     if wald.shape[1] != 12 or origin.shape[1] != 3 \
             or direction.shape != origin.shape:
         raise ValueError("wald must be (F, 12); origin/direction (N, 3)")
@@ -136,9 +58,9 @@ def _validate(wald, origin, direction, buckets, tile_rays):
                          f"of tile_rays={tile_rays}, itself a multiple of "
                          f"{LANES}")
     for tidx, cand, bnd in buckets:
-        _check("tidx", tidx, torch.int32, 1, dev)
-        _check("cand", cand, torch.int32, 2, dev)
-        _check("bnd", bnd, torch.float32, 2, dev)
+        check_tensor("tidx", tidx, torch.int32, 1, dev)
+        check_tensor("cand", cand, torch.int32, 2, dev)
+        check_tensor("bnd", bnd, torch.float32, 2, dev)
         B, C = cand.shape
         if tidx.shape[0] != B or C % CAND_BLOCK \
                 or bnd.shape != (B, C // CAND_BLOCK):
@@ -163,7 +85,7 @@ def tile_traverse(wald, origin, direction, buckets, t_max: float,
     if origin.device.type != "cuda":
         raise ValueError(f"unsupported device {origin.device}")
     _validate(wald, origin, direction, buckets, tile_rays)
-    lib = build_kernel()
+    lib = KERNEL.build()
     if lib.lbt_tile_traverse_rays_per_thread(tile_rays) == 0:
         raise ValueError(f"tile_rays={tile_rays} exceeds the kernel's "
                          "8192-ray tile limit")
@@ -178,9 +100,7 @@ def tile_traverse(wald, origin, direction, buckets, t_max: float,
             tidx.data_ptr(), cand.data_ptr(), bnd.data_ptr(), B, C,
             n // tile_rays, tile_rays, float(t_max), out_t.data_ptr(),
             out_f.data_ptr(), stream)
-        if rc != 0:
-            raise RuntimeError("tile_traverse launch failed: "
-                               + lib.lbt_cuda_error_string(rc).decode())
+        KERNEL.check(rc, "tile_traverse")
         KERNEL.launches += 1
     return out_t, out_f
 
@@ -225,45 +145,55 @@ def _plain_rows(wald, o_all, d_all, tidx, cand, keep, tm, tile_rays,
     cnd = cand[keep]
     o = o_all[tid][:, :, None, :]                     # (B, R, 1, 3)
     d = d_all[tid][:, :, None, :]
-    ox, oy, oz = o[..., 0], o[..., 1], o[..., 2]
-    dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
     t_best = tm.expand(tid.shape[0], tile_rays).clone()
     f_best = torch.full_like(t_best, -1, dtype=torch.int32)
     for s in range(0, C, step_blocks * CAND_BLOCK):
-        ids = cnd[:, s:s + step_blocks * CAND_BLOCK]
-        nb = ids.shape[1] // CAND_BLOCK
-        rows = wald[torch.clamp(ids, min=0).long()]
-        rows = torch.where((ids >= 0)[..., None], rows,
-                           torch.zeros_like(rows))[:, None]   # (B,1,c,12)
-        r = [rows[..., j] for j in range(12)]
-        nd = dx * r[0] + dy * r[1] + dz * r[2]
-        no = ox * r[0] + oy * r[1] + oz * r[2]
-        ok_det = torch.abs(nd) >= EPSILON
-        sign = torch.where(nd < 0, -torch.ones_like(nd),
-                           torch.ones_like(nd))
-        t = (r[3] - no) / torch.where(ok_det, nd, sign)
-        u = (ox * r[4] + oy * r[5] + oz * r[6]) + r[7] \
-            + t * (dx * r[4] + dy * r[5] + dz * r[6])
-        v = (ox * r[8] + oy * r[9] + oz * r[10]) + r[11] \
-            + t * (dx * r[8] + dy * r[9] + dz * r[10])
-        ok = (ok_det & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
-              & (u + v <= 1.0) & (t >= -EPSILON) & (ids >= 0)[:, None])
-        t_m = torch.where(ok, t, tm).reshape(-1, tile_rays, nb,
-                                             CAND_BLOCK)
-        t_c = t_m.amin(dim=-1)                         # (B, R, nb)
-        ids_b = ids.reshape(-1, 1, nb, CAND_BLOCK).expand_as(t_m)
-        f_c = torch.where(t_m <= t_c[..., None], ids_b,
-                          torch.full_like(ids_b, INT_MISS)).amin(dim=-1)
-        # strict < across blocks: the first block reaching the min wins
-        first = torch.argmin(t_c, dim=-1, keepdim=True)
-        t_win = t_c.gather(-1, first)[..., 0]
-        f_win = f_c.gather(-1, first)[..., 0]
-        better = t_win < t_best
-        t_best = torch.where(better, t_win, t_best)
-        f_best = torch.where(better, f_win, f_best)
+        t_best, f_best = wald_blocks_plain(
+            wald, o, d, cnd[:, s:s + step_blocks * CAND_BLOCK], tm, t_best,
+            f_best)
     t_best = torch.where(f_best < 0, torch.full_like(t_best, BIG), t_best)
     out_t.view(T, tile_rays)[tid] = t_best
     out_f.view(T, tile_rays)[tid] = f_best
+
+
+def wald_blocks_plain(wald, o, d, ids, tm, t_best, f_best):
+    """Plain PyTorch `wald_block` (csrc/wald.cuh) over consecutive blocks.
+
+    Rays ``o``/``d`` (B, R, 1, 3) against the candidates ``ids`` (B, C),
+    C % 8 == 0, -1 padded, with the kernels' Wald test and operation
+    order; each block of 8 is merged into (``t_best``, ``f_best``) (B, R)
+    by the tie rule.  Returns the updated pair.  The strict < merge across
+    blocks, earlier block winning ties, is a first-occurrence argmin.
+    """
+    ox, oy, oz = o[..., 0], o[..., 1], o[..., 2]
+    dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
+    nb = ids.shape[1] // CAND_BLOCK
+    rows = wald[torch.clamp(ids, min=0).long()]
+    rows = torch.where((ids >= 0)[..., None], rows,
+                       torch.zeros_like(rows))[:, None]       # (B,1,C,12)
+    r = [rows[..., j] for j in range(12)]
+    nd = dx * r[0] + dy * r[1] + dz * r[2]
+    no = ox * r[0] + oy * r[1] + oz * r[2]
+    ok_det = torch.abs(nd) >= EPSILON
+    sign = torch.where(nd < 0, -torch.ones_like(nd), torch.ones_like(nd))
+    t = (r[3] - no) / torch.where(ok_det, nd, sign)
+    u = (ox * r[4] + oy * r[5] + oz * r[6]) + r[7] \
+        + t * (dx * r[4] + dy * r[5] + dz * r[6])
+    v = (ox * r[8] + oy * r[9] + oz * r[10]) + r[11] \
+        + t * (dx * r[8] + dy * r[9] + dz * r[10])
+    ok = (ok_det & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
+          & (u + v <= 1.0) & (t >= -EPSILON) & (ids >= 0)[:, None])
+    t_m = torch.where(ok, t, tm).reshape(t_best.shape + (nb, CAND_BLOCK))
+    t_c = t_m.amin(dim=-1)                             # (B, R, nb)
+    ids_b = ids.reshape(-1, 1, nb, CAND_BLOCK).expand_as(t_m)
+    f_c = torch.where(t_m <= t_c[..., None], ids_b,
+                      torch.full_like(ids_b, INT_MISS)).amin(dim=-1)
+    first = torch.argmin(t_c, dim=-1, keepdim=True)
+    t_win = t_c.gather(-1, first)[..., 0]
+    f_win = f_c.gather(-1, first)[..., 0]
+    better = t_win < t_best
+    return (torch.where(better, t_win, t_best),
+            torch.where(better, f_win, f_best))
 
 
 class TileTraverser:
@@ -277,11 +207,11 @@ class TileTraverser:
     """
 
     def __init__(self, scene: TriangleScene, *, tile_rays: int = 640,
-                 device="cpu"):
+                 device="cuda"):
         if tile_rays % LANES:
             raise ValueError(f"tile_rays must be a multiple of {LANES}")
         self.tile_rays = tile_rays
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.wald = torch.from_numpy(wald_rows_np(
             as_numpy(scene.vertices), as_numpy(scene.faces))).to(self.device)
         self.t_max = None

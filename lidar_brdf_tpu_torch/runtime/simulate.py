@@ -21,6 +21,8 @@ from ..core.config import SensorConfig
 from ..core.types import (BVH, MaterialTable, PointCloud, RayBundle,
                           SURFACE_WATER, TriangleScene, as_numpy,
                           concat_pointclouds, resolve_device)
+from ..kernels.pulse import (PulseLadderTraverser, build_pulse_ladders,
+                             permute_pulse_ladders, renumber_pulse_ladders)
 from ..kernels.traverse import TileTraverser
 from ..physics.returns import SimScalars, simulate_returns
 from ..physics.shading import shade_records
@@ -38,6 +40,26 @@ def bsp_order(rays: RayBundle, block_pulses: int = 64) -> np.ndarray:
     o_ext = max(float((o.max(axis=0) - o.min(axis=0)).max()), 1e-9)
     feat = np.concatenate([d, (o - o.min(axis=0)) * (2.0 / o_ext)], axis=1)
     return bsp_order_np(feat, block_pulses)
+
+
+# Scenes above this many faces take the pulse ladders (K2), smaller ones the
+# tile kernel (K1): the JAX package's threshold (runtime/simulate.py:232).
+PULSE_MIN_FACES = 100_000
+
+
+def pick_pulse_ladders(num_faces: int, use_pulse: bool | None = None) -> bool:
+    """The traverser choice: ``use_pulse`` when given, else pulse ladders
+    for scenes of more than `PULSE_MIN_FACES` faces.
+
+    The JAX package applies this rule on a TPU only (elsewhere it takes its
+    XLA tile path); the port applies it on ``cuda`` and ``cpu`` alike, so
+    that a card run and a CPU run take the same path.  The threshold was
+    measured on a TPU; `chip_smoke.py` records K1 vs K2 on the card for a
+    rule of the port's own.
+    """
+    if use_pulse is not None:
+        return bool(use_pulse)
+    return num_faces > PULSE_MIN_FACES
 
 
 def records_to_pointcloud(scene: TriangleScene, records: ReturnRecord,
@@ -122,17 +144,23 @@ def _pad_slice(rays: dict, lo: int, hi: int, chunk: int) -> dict:
 class Simulator:
     """Bind scene + config; stream chunks of pulses through the device.
 
-    Traversal is the beam-culled tile path: pulses are BSP-reordered into
-    coherent blocks, the host culls per-chunk candidate buckets, and the
-    device intersects them.  On ``cuda`` that is the hand-written CUDA tile
-    kernel for every scene size; on ``cpu`` its plain PyTorch version.
-    (The JAX package switches to per-pulse candidate ladders above 100k
-    faces, from thresholds measured on a TPU; that choice waits for the
-    ladder kernel's port and a rule measured on the GPU.)  A chunk whose
-    tile beams are too wide to cull raises `NotImplementedError`: it needs
-    the packet walk, which is not ported yet.
+    Two traversals, chosen by `pick_pulse_ladders` (``use_pulse``):
 
-    ``noise_buf`` overrides the sim-noise buffer (tests pass the JAX one).
+    * tile path (scenes of up to 100k faces): pulses are BSP-reordered into
+      coherent 640-ray tiles, the host culls per-chunk candidate buckets,
+      and the CUDA tile kernel K1 (its plain version on ``cpu``) intersects
+      them;
+    * pulse path (larger scenes): no reorder; the host culls each pulse
+      group's cone into a candidate ladder (`kernels/pulse.py`) and the
+      CUDA ladder kernel K2 (its plain version on ``cpu``) intersects them.
+      Each chunk's pulses are put in bucket-contiguous order
+      (`permute_pulse_ladders`) before upload, so every pulse sits in the
+      slot, and draws the noise, it has in the JAX package's `Simulator`.
+
+    A chunk whose tile beams or pulse cones are too wide to cull raises
+    `NotImplementedError`: it needs the packet walk, which is not ported
+    yet.  ``noise_buf`` overrides the sim-noise buffer (tests pass the JAX
+    one).
     """
 
     scene: TriangleScene
@@ -141,6 +169,8 @@ class Simulator:
     cfg: SensorConfig
     device: object = "cuda"
     noise_buf: torch.Tensor | None = None
+    use_pulse: bool | None = None     # None = auto (`pick_pulse_ladders`)
+    pulse_group: int | None = None    # pulses per shared ladder (None = 1)
 
     def __post_init__(self):
         from ..api import attach_face_neighbors
@@ -158,15 +188,30 @@ class Simulator:
         if self.noise_buf is None:
             self.noise_buf = noise_mod.make_sim_noise(self.cfg.seed)
         self.noise_buf = self.noise_buf.to(self.device)
-        rpp = max(self.cfg.rays_per_pulse, 1)
-        step = 128 // math.gcd(128, rpp)        # tile_rays % 128 == 0
-        bp0 = max(1, 640 // rpp)
-        self.block_pulses = ((bp0 + step - 1) // step) * step
-        self.traverser = TileTraverser(
-            self.scene, tile_rays=self.block_pulses * rpp,
-            device=self.device)
         b0, b1 = self.cfg.max_range_soft_boundary
         self.t_max = float(self.cfg.max_range + abs(b0) + abs(b1) + 1.0)
+        rpp = max(self.cfg.rays_per_pulse, 1)
+        self.use_pulse = pick_pulse_ladders(scene.num_faces, self.use_pulse)
+        if self.use_pulse:
+            self.block_pulses = max(1, 640 // rpp)
+            # a power of two that divides chunk_pulses, so it divides every
+            # chunk `run` dispatches (JAX runtime/simulate.py:259-263)
+            grp = self.pulse_group if self.pulse_group is not None else 1
+            grp = 1 << max(int(grp).bit_length() - 1, 0)
+            while grp > 1 and self.cfg.chunk_pulses % grp:
+                grp //= 2
+            self.pulse_group = grp
+            self.traverser = PulseLadderTraverser(
+                scene, rays_per_pulse=rpp, group=grp,
+                device=self.device)
+            self.traverser.t_max = self.t_max
+        else:
+            step = 128 // math.gcd(128, rpp)    # tile_rays % 128 == 0
+            bp0 = max(1, 640 // rpp)
+            self.block_pulses = ((bp0 + step - 1) // step) * step
+            self.traverser = TileTraverser(
+                scene, tile_rays=self.block_pulses * rpp,
+                device=self.device)
 
     def run_chunk(self, rays: RayBundle, base_ray_index: int, traverse_data,
                   materials: MaterialTable | None = None) -> PointCloud:
@@ -179,37 +224,66 @@ class Simulator:
 
     def _prep(self, rays: dict, lo: int, hi: int, chunk: int):
         """Host cull for one padded chunk (worker thread: numpy and the
-        native OpenMP culler release the GIL)."""
+        native OpenMP culler release the GIL).  Returns the chunk's device
+        RayBundle, its traverse data and the seconds taken."""
         t0 = time.perf_counter()
         sl = _pad_slice(rays, lo, hi, chunk)
         o, d = sl["origin"], sl["direction"]
         if not self.traverser.beams_ok(o, d):
             raise NotImplementedError(
-                "this chunk's ray tiles are too wide to beam-cull; it needs "
-                "the packet walk (geom/packet.py), which is not ported yet")
-        data = self.traverser.prepare(self.bvh, o, d, t_max=self.t_max)
+                "this chunk's ray tiles or pulse cones are too wide to "
+                "beam-cull; it needs the packet walk (geom/packet.py), which "
+                "is not ported yet")
+        if self.use_pulse:
+            sl, data = self._prep_pulse(sl)
+        else:
+            data = self.traverser.prepare(self.bvh, o, d, t_max=self.t_max)
         dev = RayBundle(**{k: torch.from_numpy(np.ascontiguousarray(v)).to(
             self.device, non_blocking=True) for k, v in sl.items()})
         return dev, data, time.perf_counter() - t0
 
+    def _prep_pulse(self, sl: dict):
+        """Pulse-path cull of a padded host slice, as the JAX package's
+        `_prep_slice` does it (runtime/simulate.py:741-768): ladders, then
+        the bucket-contiguous pulse order, expanded by the group and applied
+        to the slice before upload.  The JAX package needs that order to
+        replace TPU scatter by slices (`PermutedLayout`, one executable per
+        layout); K2 writes through ``pidx``, so here it only keeps every
+        pulse in the JAX package's slot, and the buckets are renumbered to
+        the new order instead."""
+        tr = self.traverser
+        R = tr.kernel_rays
+        o2 = sl["origin"].reshape(-1, 3)
+        raw = build_pulse_ladders(self.bvh, o2, sl["direction"].reshape(-1, 3),
+                                  R, t_max=self.t_max)
+        perm, _ = permute_pulse_ladders(raw, o2.shape[0] // R)
+        grp = tr.group
+        gperm = perm if grp == 1 else (
+            (perm[:, None] * grp + np.arange(grp)[None, :]).reshape(-1))
+        sl = {k: v[gperm] for k, v in sl.items()}
+        return sl, tr.upload(renumber_pulse_ladders(raw, perm))
+
     def run(self, rays: RayBundle, materials: MaterialTable | None = None,
             stats: dict | None = None) -> PointCloud:
-        """All pulses, in BSP order and power-of-two chunks; returns a host
-        (CPU) PointCloud.  ``stats``, when given, accumulates seconds of
-        BSP reorder (``order_s``), host cull (``cull_s``), device work
-        (``device_s``, host clock to a synchronize) and readback
-        (``readback_s``)."""
+        """All pulses in power-of-two chunks (in BSP order on the tile
+        path); returns a host (CPU) PointCloud.  ``stats``, when given,
+        accumulates seconds of host gather and BSP reorder (``order_s``),
+        host cull (``cull_s``), device work (``device_s``, host clock to a
+        synchronize) and readback (``readback_s``)."""
         if materials is not None:
             materials = materials.to(self.device)
         t0 = time.perf_counter()
         host = {k: as_numpy(getattr(rays, k))
                 for k in ("origin", "direction", "gps_time")}
-        order = bsp_order(rays, self.block_pulses)
-        host = {k: v[order] for k, v in host.items()}
+        if not self.use_pulse:      # the scan order is coherent per pulse
+            order = bsp_order(rays, self.block_pulses)
+            host = {k: v[order] for k, v in host.items()}
         order_s = time.perf_counter() - t0
         P = rays.num_pulses
         R = rays.rays_per_pulse
         chunk = min(self.cfg.chunk_pulses, 1 << max(P - 1, 1).bit_length())
+        if self.use_pulse:          # a group never straddles two chunks
+            chunk = max(chunk, self.pulse_group)
         spans = [(lo, min(lo + chunk, P)) for lo in range(0, P, chunk)]
         timing = dict(order_s=order_s, cull_s=0.0, device_s=0.0,
                       readback_s=0.0)

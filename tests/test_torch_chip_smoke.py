@@ -19,22 +19,41 @@ torch.set_num_threads(2)
 
 
 def test_chip_smoke_phases_on_cpu(monkeypatch, capsys):
+    from lidar_brdf_tpu_torch.runtime import simulate
     monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
     monkeypatch.setattr(chip_smoke, "TLS_PULSES", 4096)
     monkeypatch.setattr(chip_smoke, "TLS_TRIS", 2000)
+    monkeypatch.setattr(chip_smoke, "ALS_PULSES", 2048)
+    monkeypatch.setattr(chip_smoke, "ALS_TRIS", 20_000)
+    monkeypatch.setattr(chip_smoke, "ALS_CHUNK", 1024)
+    monkeypatch.setattr(chip_smoke, "ALS_SUB_PULSES", 512)
+    # the small terrain must still take the ladders, the small city tiles
+    monkeypatch.setattr(simulate, "PULSE_MIN_FACES", 10_000)
     tls = chip_smoke.tls_workload("cpu")
     assert tls[4].num_pulses == 4096 and tls[0].num_faces > 1500
     k1 = chip_smoke.phase_kernel_vs_plain(tls)
-    for key in ("name", "route", "source", "replaces", "max_abs_err", "ms",
-                "plain_ms", "bound_ms", "bound_by", "library_ms"):
-        assert key in k1
-    assert k1["max_abs_err"] == 0.0 and k1["bound_ms"] > 0
+    als = chip_smoke.als_workload("cpu")
+    assert als[4].num_pulses == 2048 and als[4].rays_per_pulse == 10
+    assert als[0].num_faces > 15_000 and als[0].face_neighbors is not None
+    als_sim, k2 = chip_smoke.phase_k2_vs_plain(als)
+    for k in (k1, k2):
+        for key in ("name", "route", "source", "replaces", "max_abs_err",
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"):
+            assert key in k
+        assert k["max_abs_err"] == 0.0 and k["bound_ms"] > 0
     assert 0 < k1["pairs_needed"] <= k1["pairs_without_exit"]
-    _, fwd = chip_smoke.phase_tls_forward(tls)
+    assert 0 < k2["pairs_real"] <= k2["pairs_padded"]
+    choice = chip_smoke.phase_traverser_choice(tls, als, k1, als_sim)
+    assert set(choice) == {"tls", "als"}
+    assert choice["als"]["pulses"] == 512
+    _, fwd = chip_smoke.phase_forward("tls", tls, 4096, "K1")
     assert fwd["points"] > 0 and fwd["rays"] == 4096 * 10
+    _, fwd = chip_smoke.phase_forward("als", als, 1024, "K2")
+    assert fwd["points"] > 0 and fwd["rays"] == 2048 * 10
     chip_smoke.phase_card_vs_cpu()
     out = capsys.readouterr().out
-    assert "faces equal" in out and "[card-vs-cpu] L=2" in out
+    assert "faces equal" in out and "K2 als chunk" in out
+    assert "[card-vs-cpu] TLS L=2" in out and "[card-vs-cpu] ALS L=2" in out
 
 
 def test_chip_smoke_refuses_without_a_card():

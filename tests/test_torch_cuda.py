@@ -1,4 +1,5 @@
-"""The CUDA tile kernel (K1) on the card vs its plain PyTorch version.
+"""The CUDA kernels (K1 tiles, K2 pulse ladders) on the card vs their plain
+PyTorch versions.
 
 Every test here needs an NVIDIA Hopper card and nvcc; without one each
 skips.  The file imports nothing of JAX, so on a card host without JAX it
@@ -14,9 +15,10 @@ import pytest
 import torch
 
 from lidar_brdf_tpu_torch import api
-from lidar_brdf_tpu_torch.core.config import SensorConfig
+from lidar_brdf_tpu_torch.core.config import LiDARType, SensorConfig
 from lidar_brdf_tpu_torch.geom.intersect import BIG
 from lidar_brdf_tpu_torch.io import synthetic
+from lidar_brdf_tpu_torch.kernels import pulse as pp
 from lidar_brdf_tpu_torch.kernels import traverse as tr
 from lidar_brdf_tpu_torch.kernels.traverse import TileTraverser
 from lidar_brdf_tpu_torch.runtime.simulate import Simulator
@@ -27,7 +29,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
-        pytest.skip("no CUDA device: K1 runs only on the card")
+        pytest.skip("no CUDA device: the kernels run only on the card")
 
 
 def _fan(n_az, n_el):
@@ -99,5 +101,92 @@ def test_simulator_card_matches_cpu(card):
     for k in ("mask", "comp_id", "return_number"):
         assert torch.equal(getattr(g, k), getattr(c, k)), k
     assert int((c.return_number[c.mask] == 1).sum()) > 5
+    torch.testing.assert_close(g.position, c.position, rtol=0, atol=1e-4)
+    torch.testing.assert_close(g.intensity, c.intensity, rtol=1e-4, atol=0)
+
+
+def _k2_vs_plain(scene, o, d, R, group=1):
+    """K2 and its plain version on one input: faces equal, t to rtol 1e-6."""
+    tt = pp.PulseLadderTraverser(scene, rays_per_pulse=R, group=group,
+                                 device="cuda")
+    data = tt.prepare(api.build_scene_bvh(scene), o, d, t_max=500.0)
+    og, dg = torch.from_numpy(o).cuda(), torch.from_numpy(d).cuda()
+    before = pp.KERNEL.launches
+    t_k, f_k = pp.pulse_traverse(tt.wald, og, dg, data, tt.t_max,
+                                 tt.kernel_rays)
+    torch.cuda.synchronize()
+    assert pp.KERNEL.launches == before + len(data)
+    t_p, f_p = pp.pulse_traverse_plain(tt.wald, og, dg, data, tt.t_max,
+                                       tt.kernel_rays)
+    assert torch.equal(f_k, f_p)
+    hit = f_p >= 0
+    torch.testing.assert_close(t_k[hit], t_p[hit], rtol=1e-6, atol=0)
+    assert bool((t_k[~hit] == BIG).all())
+    return f_k, data
+
+
+@pytest.mark.parametrize("group", [1, 4])
+def test_pulse_kernel_matches_plain(card, group):
+    scene = synthetic.terrain_with_boxes(np.random.default_rng(1234),
+                                         num_boxes=12)
+    o, d = _fan(128, 80)                                 # 10,240 rays
+    f, _ = _k2_vs_plain(scene, o, d, 4, group)
+    assert int((f >= 0).sum()) > 5000
+
+
+def test_pulse_kernel_fat_ladders_and_pads(card):
+    scene = synthetic.rough_terrain(np.random.default_rng(1234),
+                                    num_tris=20_000, half=30.0)
+    # the grazing fan of tests/test_pallas.py:215-222, its last 4 pulses
+    # padded as the Simulator pads a chunk
+    az = np.linspace(0, 2 * np.pi, 16, endpoint=False)
+    el = np.linspace(-0.25, -0.02, 16)
+    aa, ee = np.meshgrid(az, el, indexing="ij")
+    d = np.stack([np.cos(ee) * np.cos(aa), np.sin(ee),
+                  np.cos(ee) * np.sin(aa)], -1).reshape(-1, 3)
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    o = np.tile(np.array([0.0, 3.0, 0.0], np.float32), (d.shape[0], 1))
+    o[-8:], d[-8:] = 1e10, 0.0
+    f, data = _k2_vs_plain(scene, o, d, 2, group=4)
+    assert max(c.shape[1] for _, c in data) >= 64
+    assert bool((f[-8:] == -1).all())
+
+
+def test_pulse_kernel_checks_inputs_and_drops_dummy_rows(card):
+    wald = torch.zeros((4, 12), device="cuda")
+    o = torch.zeros((40, 3), device="cuda")
+    dummy = (torch.tensor([10, -1], dtype=torch.int32, device="cuda"),
+             torch.zeros((2, 8), dtype=torch.int32, device="cuda"))
+    t, f = pp.pulse_traverse(wald, o, o, [dummy], 10.0, 4)
+    torch.cuda.synchronize()
+    assert bool((f == -1).all()) and bool((t == BIG).all())
+    with pytest.raises(ValueError):
+        pp.pulse_traverse(wald.double(), o, o, [dummy], 10.0, 4)
+    with pytest.raises(ValueError):
+        pp.pulse_traverse(wald, o, o.cpu(), [dummy], 10.0, 4)
+
+
+def test_simulator_pulse_path_card_matches_cpu(card):
+    scene = synthetic.rough_terrain(np.random.default_rng(0),
+                                    num_tris=20_000, half=30.0)
+    bvh = api.build_scene_bvh(scene)
+    mats = api.MaterialLibrary.default().table_at(1064)
+    cfg = SensorConfig(lidar_type=LiDARType.AERIAL_ZIGZAG,
+                       als_position=(0.0, 40.0, 0.0),
+                       als_scan_frequency=40, als_pulse_frequency=2560,
+                       als_speed=30.0, max_range=400.0, rays_per_pulse=4,
+                       pulse_radius=0.3, max_returns=2, chunk_pulses=1024)
+    rays = api.build_rays(cfg, scene, device="cpu")
+    rays = type(rays)(rays.origin[:2048], rays.direction[:2048],
+                      rays.gps_time[:2048])
+    before = pp.KERNEL.launches
+    g = Simulator(scene=scene, bvh=bvh, materials=mats, cfg=cfg,
+                  device="cuda", use_pulse=True).run(rays.to("cuda"))
+    assert pp.KERNEL.launches > before
+    c = Simulator(scene=scene, bvh=bvh, materials=mats, cfg=cfg,
+                  device="cpu", use_pulse=True).run(rays)
+    for k in ("mask", "comp_id", "return_number"):
+        assert torch.equal(getattr(g, k), getattr(c, k)), k
+    assert int(c.mask.sum()) > 1500
     torch.testing.assert_close(g.position, c.position, rtol=0, atol=1e-4)
     torch.testing.assert_close(g.intensity, c.intensity, rtol=1e-4, atol=0)

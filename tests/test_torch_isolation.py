@@ -23,7 +23,9 @@ def _modules():
 
 def test_importing_the_port_loads_no_jax():
     mods = _modules()
-    assert "lidar_brdf_tpu_torch.kernels.traverse" in mods
+    for m in ("kernels.traverse", "kernels.pulse", "kernels.cuda_build",
+              "sensors.als", "sensors.paths"):
+        assert "lidar_brdf_tpu_torch." + m in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "

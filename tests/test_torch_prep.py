@@ -119,7 +119,8 @@ def test_beamcull_host_half_bit_equal(rng):
 
     # buckets + bounds through both traversers' prepare()
     jt = PallasCulledTraverser(scene, tile_rays=128, interpret=True)
-    tt = TileTraverser(convert.scene_from_numpy(_np(scene)), tile_rays=128)
+    tt = TileTraverser(convert.scene_from_numpy(_np(scene)), tile_rays=128,
+                       device="cpu")
     jdata = jt.prepare(tree, o, d, t_max=500.0)
     tdata = tt.prepare(ttree, o, d, t_max=500.0)
     assert len(jdata) == len(tdata) >= 1

@@ -125,10 +125,16 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError):
         TSim(scene=scene, bvh=tapi.build_scene_bvh(scene), materials=mats,
              cfg=tcfg.SensorConfig(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        tapi.build_rays(tcfg.get_preset("zenmuse_l1"), scene, device="cpu")
-    # a 360-degree scan of few pulses makes wide tile beams: packet walk
     dry = tsyn.terrain_with_boxes(np.random.default_rng(0), num_boxes=2)
+    # analytic BRDF shading, on a narrow scan that culls fine
+    analytic = tcfg.SensorConfig(
+        tls_position=(0.0, 9.0, 0.0), tls_fov_horizontal=90.0,
+        tls_fov_vertical=40.0, tls_middle_angle_vertical=-45.0,
+        tls_resolution_horizontal=32, tls_resolution_vertical=16,
+        rays_per_pulse=2, shading_mode=tcfg.ShadingMode.ANALYTIC)
+    with pytest.raises(NotImplementedError, match="analytic"):
+        tapi.simulate(dry, analytic, device="cpu")
+    # a 360-degree scan of few pulses makes wide tile beams: packet walk
     cfg = tcfg.SensorConfig(tls_position=(0.0, 9.0, 0.0),
                             tls_fov_horizontal=360.0,
                             tls_resolution_horizontal=32,

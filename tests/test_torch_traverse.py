@@ -46,7 +46,7 @@ def _fan_rays(n_side=16):
 def _both(scene, tree, o, d, t_max, tile_rays=LANES):
     jt = PallasCulledTraverser(scene, tile_rays=tile_rays, interpret=True)
     tt = TileTraverser(convert.scene_from_numpy(_np(scene)),
-                       tile_rays=tile_rays)
+                       tile_rays=tile_rays, device="cpu")
     jdata = jt.prepare(tree, o, d, t_max=t_max)
     tdata = tt.prepare(convert.bvh_from_numpy(_np(tree)), o, d, t_max=t_max)
     return jt, jdata, tt, tdata
@@ -82,7 +82,8 @@ def test_t_max_cut():
     tree = jbvh.build_bvh(verts, faces)
     o = np.zeros((LANES, 3), np.float32)
     d = np.tile(np.array([0, 0, 1], np.float32), (LANES, 1))
-    tt = TileTraverser(convert.scene_from_numpy(_np(scene)), tile_rays=LANES)
+    tt = TileTraverser(convert.scene_from_numpy(_np(scene)), tile_rays=LANES,
+                       device="cpu")
     ttree = convert.bvh_from_numpy(_np(tree))
     far = tt(torch.from_numpy(o), torch.from_numpy(d),
              tt.prepare(ttree, o, d, t_max=100.0))
@@ -118,7 +119,7 @@ def test_tile_rays_must_align():
     scene = convert.scene_from_numpy(_np(jsyn.terrain_with_boxes(
         np.random.default_rng(0), num_boxes=1)))
     with pytest.raises(ValueError):
-        TileTraverser(scene, tile_rays=100)
+        TileTraverser(scene, tile_rays=100, device="cpu")
 
 
 def test_wrapper_rejects_bad_inputs():
