@@ -8,11 +8,14 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases (any failure exits non-zero; nothing is caught and carried on):
 
 1. Card and build: prints the card's name and power limit, builds the CUDA
-   tile kernel (K1) and pulse-ladder kernel (K2) from
-   `lidar_brdf_tpu_torch/kernels/csrc/` into `build/kernels/` (one nvcc
-   each, started together) and launches each once on a one-triangle input.
-2. Kernel vs plain version on the card: every face equal, t to rtol 1e-6
-   where a face is hit.  K1 on random tiles, a fan of rays over boxes and
+   tile kernel (K1), pulse-ladder kernel (K2) and the bench's pre-flight
+   kernel (K3) from `lidar_brdf_tpu_torch/kernels/csrc/` into
+   `build/kernels/` (one nvcc each, started together) and launches each
+   once (K1 and K2 on a one-triangle input).
+2. Kernel vs plain version on the card: K3 equal bit for bit on the
+   bench's (8, 128) tile and on 1M elements; for K1 and K2 every face
+   equal, t to rtol 1e-6 where a face is hit.  K1 on random tiles, a fan
+   of rays over boxes and
    the `tls` workload's real bucket chunk; K2 on a fan over boxes (group 1
    and 4), a grazing fan with fat ladders, a chunk with padded pulses and
    one real `als` chunk of 131,072 pulses culled as `Simulator._prep` does
@@ -27,6 +30,19 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    K1's not.
 5. Card vs CPU at a small size (L = 1 and 2): same seed, same rays, for
    the TLS tile path and the ALS pulse path.
+6. The fwd+bwd training step through the port's bench
+   (`lidar_brdf_tpu_torch/bench.py`): its pre-flight K3, then the `tls`
+   step at full width (131,072 pulses x 10 rays over the ~40k-face city,
+   L = 1, face pack built) and the `als` step over the 4,999,122-face
+   terrain of phase 4 at 131,072 pulses (L = 2, no face pack; the flight's
+   pulse count cut so that the one host cull stays ~5 s).  Launch counts
+   are reset before each: K1 must launch in the `tls` steps and K2 not, K2
+   in the `als` steps and K1 not.  Gradients w.r.t. the BRDF table, the ray
+   origins and the vertices must be finite, each with a non-zero entry.
+   Prints rays/s fwd+bwd, the `BENCH_GRADS` split and host syncs per step.
+7. Card vs CPU gradients at the sizes of phase 5: loss to rtol 1e-5, each
+   gradient within atol 1e-4 * max|g| (scatter-add order on the card is not
+   fixed, so gradients are not bitwise reproducible).
 
 The line before the last is `{"kernels": [...]}`; the last line is
 `{"ok": true, "device": {...}}`.  It imports nothing of JAX.
@@ -35,6 +51,7 @@ The line before the last is `{"kernels": [...]}`; the last line is
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -50,6 +67,9 @@ ALS_PULSES = 1_048_576          # the flight plan's 1,109,056, sliced
 ALS_TRIS = 5_000_000
 ALS_CHUNK = 131072
 ALS_SUB_PULSES = 8192           # K1 vs K2 on the same als pulses
+ALS_STEP_PULSES = 131072        # the als fwd+bwd step: one chunk
+STEP_ITERS = 5                  # timed training steps per measurement
+K3_BIG = 1 << 20                # K3 vs plain on 1M elements as well
 DEVICE = "cuda"                 # a rehearsal on the CPU may set "cpu"
 
 
@@ -207,13 +227,14 @@ def phase_card_and_build():
     card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() \
         else "nvidia-smi unavailable"
     log(card)
+    from lidar_brdf_tpu_torch.kernels import smoke
     # one nvcc per kernel source, started together
-    libs = (("K1", tr.KERNEL), ("K2", pp.KERNEL))
+    libs = (("K1", tr.KERNEL), ("K2", pp.KERNEL), ("K3", smoke.KERNEL))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(libs)) as pool:
         for fut in [pool.submit(k.build, True) for _, k in libs]:
             fut.result()
-    log(f"[build] K1 and K2 built in {time.perf_counter() - t0:.2f} s "
+    log(f"[build] K1, K2 and K3 built in {time.perf_counter() - t0:.2f} s "
         f"({cuda_build.NVCC_FLAGS})")
     for name, k in libs:
         log(f"[build] {name} {os.path.basename(k.source)}: "
@@ -240,7 +261,13 @@ def phase_card_and_build():
     torch.cuda.synchronize()
     if not (bool((f == 0).all()) and bool(((t - 50.0).abs() < 1e-5).all())):
         fail(f"K2 one-ladder launch gave faces {f.unique().tolist()}")
-    log("[build] K1 one-tile and K2 one-ladder launches ok")
+    x = torch.arange(8 * 128, dtype=torch.float32,
+                     device="cuda").reshape(8, 128)
+    y = smoke.affine_smoke(x)
+    torch.cuda.synchronize()
+    if not torch.equal(y, x * 2.0 + 1.0):
+        fail("K3 one-tile launch did not give 2x + 1")
+    log("[build] K1 one-tile, K2 one-ladder and K3 one-tile launches ok")
     return card
 
 
@@ -699,6 +726,246 @@ def phase_card_vs_cpu():
         compare_clouds(f"ALS L={L}", *clouds)
 
 
+def phase_k3_vs_plain():
+    """K3 against its plain version, bit for bit, on the bench's (8, 128)
+    tile and on K3_BIG elements; timed at the tile with CUDA events beside
+    the plain version and one PyTorch call (`torch.addcmul`)."""
+    import torch
+    from lidar_brdf_tpu_torch.kernels import smoke
+    tile = torch.arange(8 * 128, dtype=torch.float32,
+                        device=DEVICE).reshape(8, 128)
+    gen = torch.Generator().manual_seed(3)
+    big = (torch.randn(K3_BIG, generator=gen) * 1e3).to(DEVICE)
+    one = torch.ones((), device=DEVICE)
+    two = torch.full((), 2.0, device=DEVICE)
+    out = {}
+    for name, x in (("tile", tile), ("1M", big)):
+        y = smoke.affine_smoke(x)
+        want = smoke.affine_smoke_plain(x)
+        lib = torch.addcmul(one, x, two)
+        sync()
+        if not torch.equal(y, want):
+            fail(f"K3 differs from 2x + 1 on the {name} input")
+        if not torch.equal(lib, want):
+            fail(f"torch.addcmul differs from 2x + 1 on the {name} input")
+        out[name] = dict(
+            elements=x.numel(), ms=cuda_ms(lambda: smoke.affine_smoke(x), 200),
+            plain_ms=cuda_ms(lambda: smoke.affine_smoke_plain(x), 200),
+            library_ms=cuda_ms(lambda: torch.addcmul(one, x, two), 200))
+    n = tile.numel()
+    bound_ms, bound_by, ops_ms, bytes_ms = (
+        max(2 * n / H100_F32_OPS_PER_S, 8 * n / H100_BYTES_PER_S) * 1e3,
+        "bytes", 2 * n / H100_F32_OPS_PER_S * 1e3,
+        8 * n / H100_BYTES_PER_S * 1e3)
+    for name, r in out.items():
+        log(f"[kernel] K3 {name} ({r['elements']} f32): equal to 2x + 1 "
+            f"bit for bit; K3 {r['ms']:.5f} ms, plain (x * 2 + 1) "
+            f"{r['plain_ms']:.5f} ms, torch.addcmul {r['library_ms']:.5f} "
+            f"ms (mean of 200)")
+    log(f"[kernel] K3 tile bound {bound_ms:.7f} ms ({bound_by}: {8 * n} "
+        f"bytes; ops {ops_ms:.7f} ms): the launch, not the card, bounds it")
+    return dict(
+        name="affine_smoke", route="cuda",
+        source="lidar_brdf_tpu_torch/kernels/csrc/affine_smoke.cu",
+        replaces="bench.py:94", launches=None, max_abs_err=0.0,
+        ms=out["tile"]["ms"], plain_ms=out["tile"]["plain_ms"],
+        bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=out["tile"]["library_ms"], ms_1m=out["1M"]["ms"],
+        plain_ms_1m=out["1M"]["plain_ms"],
+        library_ms_1m=out["1M"]["library_ms"])
+
+
+def count_syncs(fn) -> int | None:
+    """Host syncs the card reports while ``fn()`` runs (PyTorch's sync
+    debug mode); None in a CPU rehearsal."""
+    import warnings
+    import torch
+    if DEVICE != "cuda":
+        fn()
+        return None
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def check_grads(name, ws):
+    """One loss + backward through the bench's `step_loss`: finite
+    gradients, each with a non-zero entry.  Returns (loss, max |g| each)."""
+    import torch
+    from lidar_brdf_tpu_torch import bench
+    params = {"brdf_table": ws.materials.brdf_table, "origin": ws.rays.origin,
+              "vertices": ws.scene.vertices}
+    params = {k: v.detach().clone().requires_grad_(True)
+              for k, v in params.items()}
+    loss = bench.step_loss(ws, params)
+    loss.backward()
+    out = {}
+    for k, p in params.items():
+        g = p.grad
+        if not bool(torch.isfinite(g).all()):
+            fail(f"{name} step: the {k} gradient is not finite")
+        if not bool((g != 0).any()):
+            fail(f"{name} step: the {k} gradient is all zero")
+        out[k] = float(g.abs().max())
+    loss = float(loss.detach())
+    if not (math.isfinite(loss) and loss > 0):
+        fail(f"{name} step: loss {loss} is not finite and positive")
+    return loss, out
+
+
+def phase_fwd_bwd(name, ws, kernel):
+    """Training steps on one culled workload: launch counts set to 0 just
+    before the timed steps and read just after (``kernel`` must launch,
+    the other traversal kernel not); gradient check; BENCH_GRADS split."""
+    from lidar_brdf_tpu_torch import bench
+    from lidar_brdf_tpu_torch.kernels import pulse as pp
+    from lidar_brdf_tpu_torch.kernels import traverse as tr
+    loss, gmax = check_grads(name, ws)
+    split = {}
+    syncs = prof = None
+    launches = None
+    for grads in ("none", "table", "table+origin", "full"):
+        step, _ = bench.make_step(ws, grads)
+        step()                                   # warm
+        sync()
+        if grads == "full":
+            syncs = count_syncs(step)
+            tr.KERNEL.launches = pp.KERNEL.launches = 0
+        t = bench.time_steps(step, DEVICE, STEP_ITERS, warm=1)
+        if grads == "full":
+            launches = dict(K1=tr.KERNEL.launches, K2=pp.KERNEL.launches)
+            prof = bench.profile_step(step, DEVICE)
+        split[grads] = dict(step_s=t["step_s"],
+                            rays_per_s=ws.num_rays / t["step_s"])
+    other = "K2" if kernel == "K1" else "K1"
+    if DEVICE == "cuda" and (launches[kernel] <= 0 or launches[other]):
+        fail(f"the {name} fwd+bwd steps launched {launches}: expected "
+             f"{kernel} only")
+    full = split["full"]
+    log(f"[fwd+bwd] {name}: {ws.rays.num_pulses} pulses x "
+        f"{ws.rays.rays_per_pulse} rays, {ws.scene.num_faces} faces, L = "
+        f"{ws.cfg.max_returns}, host cull {ws.cull_s:.3f} s; loss {loss:.6e}, "
+        f"max |g| {gmax}; full step {full['step_s'] * 1e3:.2f} ms = "
+        f"{full['rays_per_s']:.0f} rays/s fwd+bwd; host syncs per step "
+        f"{syncs}; launches in 1 warm + {STEP_ITERS} timed steps {launches}")
+    log(f"[fwd+bwd] {name} BENCH_GRADS split (ms per step): " + ", ".join(
+        f"{k} {v['step_s'] * 1e3:.2f}" for k, v in split.items()))
+    if prof is not None:
+        prof["busy"] = prof["device_s"] / full["step_s"]
+        log(f"[fwd+bwd] {name} profiled full step: device "
+            f"{prof['device_s'] * 1e3:.2f} ms, busy share {prof['busy']:.3f} "
+            f"of the timed step (profiled wall {prof['wall_s'] * 1e3:.2f} "
+            f"ms); top kernels (ms, calls): "
+            + "; ".join(f"{n} {ms:.3f} x{c}" for n, ms, c in prof["top"]))
+    return launches, dict(rays=ws.num_rays, faces=ws.scene.num_faces,
+                          cull_s=ws.cull_s, loss=loss, grad_max=gmax,
+                          syncs_per_step=syncs, launches=launches,
+                          split=split, profile=prof)
+
+
+def phase_training(als):
+    """The port's bench path: K3 pre-flight, the full-width `tls` step, the
+    `als` step over phase 4's terrain.  Returns (K3 launches, K1 launches,
+    K2 launches, results)."""
+    from lidar_brdf_tpu_torch import bench
+    from lidar_brdf_tpu_torch.kernels import smoke
+    smoke.KERNEL.launches = 0                  # the bench path starts here
+    bench.kernel_smoke(DEVICE)
+    k3 = smoke.KERNEL.launches
+    if DEVICE == "cuda" and k3 != 1:
+        fail(f"the bench's pre-flight launched K3 {k3} times")
+    t0 = time.perf_counter()
+    spec = bench.CONFIGS["tls"]
+    scene, bvh, cfg, rays, mats = bench.build_workload(
+        "tls", TLS_PULSES, TLS_RAYS_PULSE, spec["max_returns"], "city",
+        TLS_TRIS)
+    ws = bench.cull(scene, bvh, cfg, rays, mats, "tile", DEVICE)
+    log(f"[setup] fwd+bwd tls workload built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    k1, tls = phase_fwd_bwd("tls", ws, "K1")
+    del ws
+    scene, bvh, cfg, mats, rays = als
+    n = min(ALS_STEP_PULSES, rays.num_pulses)
+    ws = bench.cull(scene, bvh, cfg.with_(chunk_pulses=n),
+                    head(rays, n).to("cpu"), mats, "pulse", DEVICE)
+    k2, als_res = phase_fwd_bwd("als", ws, "K2")
+    return k3, k1["K1"], k2["K2"], dict(tls=tls, als=als_res)
+
+
+def phase_card_vs_cpu_grads():
+    """Card vs CPU gradients of the bench's loss at phase 5's sizes."""
+    import numpy as np
+    import torch
+    from lidar_brdf_tpu_torch import api, bench
+    from lidar_brdf_tpu_torch.core.config import (LiDARType, SensorConfig,
+                                                  ShadingMode)
+    from lidar_brdf_tpu_torch.io import synthetic
+    from lidar_brdf_tpu_torch.io.materials import MaterialLibrary
+    mats = MaterialLibrary.default().table_at(1064)
+
+    def compare(what, scene, cfg, rays, kind):
+        bvh = api.build_scene_bvh(scene)
+        res = []
+        for dev in (DEVICE, "cpu"):
+            ws = bench.cull(scene, bvh, cfg, rays, mats, kind, dev)
+            params = {k: v.detach().clone().requires_grad_(True) for k, v in
+                      (("brdf_table", ws.materials.brdf_table),
+                       ("origin", ws.rays.origin),
+                       ("vertices", ws.scene.vertices))}
+            loss = bench.step_loss(ws, params)
+            loss.backward()
+            res.append((float(loss.detach()), {k: p.grad.cpu()
+                                      for k, p in params.items()}))
+        (lg, gg), (lc, gc) = res
+        if not (np.isfinite(lc) and lc > 0 and abs(lg - lc) <= 1e-5 * lc):
+            fail(f"card vs CPU grads ({what}): loss {lg} vs {lc}")
+        errs = {}
+        for k in gc:
+            scale = float(gc[k].abs().max())
+            err = float((gg[k] - gc[k]).abs().max())
+            if not (bool(torch.isfinite(gg[k]).all()) and scale > 0
+                    and err <= 1e-4 * scale):
+                fail(f"card vs CPU grads ({what}): {k} max |dg| {err:.3e} "
+                     f"of max |g| {scale:.3e}")
+            errs[k] = err / scale
+        log(f"[card-vs-cpu grads] {what}: loss {lg:.6e} vs {lc:.6e}; "
+            f"max |dg| / max |g| {errs}")
+
+    scene = synthetic.terrain_with_boxes(np.random.default_rng(1234),
+                                         num_boxes=4)
+    for L, radius in ((1, 0.001), (2, 0.1)):
+        cfg = SensorConfig(
+            lidar_type=LiDARType.TERRESTRIAL_SPHERICAL,
+            tls_position=(0.0, 9.0, 0.0), tls_fov_horizontal=90.0,
+            tls_fov_vertical=40.0, tls_middle_angle_vertical=-45.0,
+            tls_resolution_horizontal=32, tls_resolution_vertical=16,
+            rays_per_pulse=2, pulse_radius=radius, max_returns=L,
+            chunk_pulses=512, shading_mode=ShadingMode.MEASURED)
+        compare(f"TLS L={L}", scene, cfg,
+                api.build_rays(cfg, scene, device="cpu"), "tile")
+    scene = synthetic.rough_terrain(np.random.default_rng(0),
+                                    num_tris=20_000, half=30.0)
+    for L in (1, 2):
+        cfg = SensorConfig(
+            lidar_type=LiDARType.AERIAL_ZIGZAG, als_position=(0.0, 40.0, 0.0),
+            als_fov_horizontal=70.0, als_fov_vertical=4.5,
+            als_scan_frequency=40, als_pulse_frequency=2560, als_speed=30.0,
+            max_range=400.0, rays_per_pulse=4, pulse_radius=0.3,
+            max_returns=L, chunk_pulses=2048,
+            shading_mode=ShadingMode.MEASURED,
+            include_shiny_surface_error=True)
+        compare(f"ALS L={L}", scene, cfg,
+                head(api.build_rays(cfg, scene, device="cpu"), 2048),
+                "pulse")
+
+
 def main() -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
@@ -714,6 +981,7 @@ def main() -> int:
     t0 = time.perf_counter()
     tls = tls_workload("cuda")
     log(f"[setup] tls workload built in {time.perf_counter() - t0:.2f} s")
+    k3 = phase_k3_vs_plain()
     k1 = phase_kernel_vs_plain(tls)
     t0 = time.perf_counter()
     als = als_workload("cuda")
@@ -724,10 +992,14 @@ def main() -> int:
     k1["launches"], tls_fwd = phase_forward("tls", tls, TLS_PULSES, "K1")
     k2["launches"], als_fwd = phase_forward("als", als, ALS_CHUNK, "K2")
     phase_card_vs_cpu()
+    (k3["launches"], k1["launches_fwd_bwd"], k2["launches_fwd_bwd"],
+     training) = phase_training(als)
+    phase_card_vs_cpu_grads()
     log(json.dumps({"card": card, "tls_forward": tls_fwd,
                     "als_forward": als_fwd, "traverser_choice": choice,
+                    "fwd_bwd": training,
                     "seconds": time.perf_counter() - t_start}))
-    log(json.dumps({"kernels": [k1, k2]}))
+    log(json.dumps({"kernels": [k1, k2, k3]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

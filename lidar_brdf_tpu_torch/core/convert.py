@@ -1,11 +1,12 @@
 """Arrays from the JAX package -> the port's dataclasses, and back.
 
-The JAX package's scene, BVH, material table, rays and noise buffers are
-handed over as numpy: a dict keyed by field name (`np.asarray` of each
-field), or one array for a noise buffer.  These are the "weights" of this
+The JAX package's scene, BVH, material table, rays, scalars and noise
+buffers are handed over as numpy: a dict keyed by field name (`np.asarray`
+of each field), or one array for a noise buffer.  These are the "weights" of this
 system: with them both packages compute on identical inputs.  The port
 never imports the JAX package; callers do the `np.asarray`.  The
-inverse is `.numpy()` on any of the port's dataclasses.
+inverse is `.numpy()` on any of the port's dataclasses, and on a gradient
+(`tensor.grad.numpy()`).
 """
 
 from __future__ import annotations
@@ -54,3 +55,10 @@ def rays_from_numpy(arrays: dict, device="cpu") -> RayBundle:
 def noise_from_numpy(buffer, device="cpu") -> torch.Tensor:
     """A noise buffer (sim or ray generation) as an f32 tensor."""
     return _tensor(np.asarray(buffer, np.float32), device)
+
+
+def scalars_from_numpy(arrays: dict, device="cpu"):
+    """The JAX package's `SimScalars` -> the port's, so that a test can
+    differentiate a scalar such as ``peak_power`` on identical inputs."""
+    from ..physics.returns import SimScalars
+    return _from_dict(SimScalars, arrays, device)

@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..core.types import Hit, TriangleScene
-from ..utils.safemath import cross3, dot3, rsqrt
+from ..utils.safemath import cross3, dot3, maximum, rsqrt
 
 EPSILON = 1e-8
 BIG = 3.4e38          # exactly representable as f32 after rounding
@@ -69,7 +69,7 @@ def face_normal_from_verts(v0, v1, v2):
     """Unit facet normal normalize(cross(v1 - v0, v2 - v0)), safe at zero."""
     n = cross3(v1 - v0, v2 - v0)
     n2 = dot3(n, n)[..., None]
-    return n * rsqrt(torch.clamp(n2, min=1e-24))
+    return n * rsqrt(maximum(n2, 1e-24))
 
 
 def refine_hit_verts(origin, direction, v0, v1, v2, face_idx):

@@ -5,8 +5,11 @@ Each material has a 360x91 retro-reflectance table f_r(phi, theta)
 (`computeColor-comp.glsl:32-82`).  A lookup maps the surface-to-sensor
 direction L and the normal N to (x = azimuth bucket, y = |cos(L,N)| * 90)
 and interpolates raw, bilinear or cubic Hermite.  The JAX package routes
-the neighbourhood reads through custom VJPs because scatter is slow on a
-TPU; here they are plain indexing, and autograd forms the backward.
+the neighbourhood reads through custom VJPs (`_bilinear_windows`,
+`_hermite_windows`) because scatter is slow on a TPU; their backward
+scatter-adds each element cotangent into the table.  Here the reads are
+plain indexing, and autograd's index backward (an accumulating
+`index_put_`) scatters the same cotangents into the same elements.
 The analytic BRDF models are not ported yet.
 """
 
@@ -17,7 +20,7 @@ import torch
 
 from ..core.config import BRDFInterpolation
 from ..core.types import MaterialTable
-from ..utils.safemath import dot3, safe_arctan2
+from ..utils.safemath import abs_, clip, dot3, safe_arctan2
 
 PHI_BUCKETS = 360
 THETA_BUCKETS = 91
@@ -31,8 +34,8 @@ def table_angles(L, N):
     """(x, y) table coordinates (`computeColor-comp.glsl:72-82`):
     y = |dot(L, N)| * 90, x = (atan2(L.z, L.x) + pi/2) * 2 in degrees mod 360.
     """
-    cos_ln = torch.abs(dot3(L, N))
-    y = torch.clamp(cos_ln, 0.0, 1.0) * _HALF_PI * _DEG
+    cos_ln = abs_(dot3(L, N))
+    y = clip(cos_ln, 0.0, 1.0) * _HALF_PI * _DEG
     x = (safe_arctan2(L[..., 2], L[..., 0]) + _HALF_PI) * 2.0 * _DEG
     x = torch.remainder(x, 360.0)
     return x, y
@@ -84,10 +87,11 @@ def hermite_matrix(t: float, device="cpu") -> torch.Tensor:
     ], dtype=torch.float32, device=device)
 
 
-def lookup_hermite(tables, mat_id, x, y, hermite: torch.Tensor):
+def lookup_hermite(tables, mat_id, x, y, hermite):
     """Separable cubic-Hermite lookup (`getHermiteInterpolation`,
     `computeColor-comp.glsl:49-70`): a spline along x on row clip(yi-1),
-    plus one along y on column (xi-1) mod 360, summed."""
+    plus one along y on column (xi-1) mod 360, summed.  ``hermite`` is the
+    4x4 basis, a tensor or nested lists of floats."""
     x0f = torch.floor(x)
     y0f = torch.floor(y)
     xf = x - x0f
@@ -108,8 +112,8 @@ def lookup_hermite(tables, mat_id, x, y, hermite: torch.Tensor):
     # explicit multiply-adds, no matmul (the JAX package keeps the spline
     # off the matrix unit for the same full-f32 reason)
     def spline(r, f):
-        c = [hermite[j, 0] * r[0] + hermite[j, 1] * r[1]
-             + hermite[j, 2] * r[2] + hermite[j, 3] * r[3]
+        c = [hermite[j][0] * r[0] + hermite[j][1] * r[1]
+             + hermite[j][2] * r[2] + hermite[j][3] * r[3]
              for j in range(4)]
         return ((c[0] * f + c[1]) * f + c[2]) * f + c[3]
 
@@ -128,6 +132,7 @@ def measured_brdf_factor(materials: MaterialTable, mat_id, L, N,
     elif mode == BRDFInterpolation.BILINEAR:
         val = lookup_bilinear(tables, mat_id, x, y)
     else:
+        # the basis as host floats: a device copy would sync every call
         val = lookup_hermite(tables, mat_id, x, y,
-                             hermite_matrix(hermite_t, device=x.device))
-    return torch.clamp(val, 0.0, 1.0)
+                             hermite_matrix(hermite_t).tolist())
+    return clip(val, 0.0, 1.0)

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.safemath import maximum
+
 
 def atmospheric_factor(distance, attenuation):
     """`getAttenuation`: 10^(-2 d a / 10^4)."""
@@ -21,7 +23,7 @@ def radar_intensity(distance, ray_power, num_intersected_rays, brdf_factor,
                     *, sensor_diameter, reflectance_weight,
                     atmospheric_attenuation, system_attenuation):
     """Standard (non-bathymetric) return intensity."""
-    d2 = torch.clamp(distance * distance, min=1e-12)
+    d2 = maximum(distance * distance, 1e-12)
     pulse_power = ray_power * num_intersected_rays.to(torch.float32)
     diam2 = sensor_diameter * sensor_diameter
     atm = atmospheric_factor(distance, atmospheric_attenuation)

@@ -27,7 +27,8 @@ from ..core.types import (MaterialTable, RayBundle, SURFACE_TERRAIN,
                           TriangleScene, _TensorFields)
 from ..geom.intersect import BIG, face_normal_from_verts, refine_hit_verts
 from ..utils import noise as noise_mod
-from ..utils.safemath import safe_arccos, safe_norm, safe_unit
+from ..utils.safemath import (clip, maximum, safe_arccos, safe_norm,
+                              safe_unit)
 from .types import OutlierRecord, ReturnRecord
 
 LIGHT_SPEED = 299792458.0
@@ -133,12 +134,17 @@ def simulate_returns(scene: TriangleScene, materials: MaterialTable,
                      rays: RayBundle, noise_buf: torch.Tensor,
                      scalars: SimScalars, cfg: SensorConfig, *,
                      base_ray_index: int = 0, traverse_fn=None,
-                     traverse_data=None, scene_has_water: bool = True):
+                     traverse_data=None, scene_has_water: bool = True,
+                     face_pack=None):
     """Per-return extraction for one chunk of pulses.
 
     ``traverse_fn(origin, direction[, traverse_data]) -> Hit`` gives the
-    level-0 hits.  Returns (records (L, P), outliers (L, P), num_returns
-    (P,), final ray origins).
+    level-0 hits.  ``face_pack``: None builds the (F, 23) pack when the
+    scene has at most P * L faces (the JAX package's gate: the F-row build
+    pays only when it replaces as many per-winner gathers), False never
+    builds it (every winner gathers its own vertex, uv and material rows),
+    a tensor is used as given.  Returns (records (L, P), outliers (L, P),
+    num_returns (P,), final ray origins).
     """
     if scene_has_water or cfg.bathymetric:
         raise NotImplementedError(
@@ -152,27 +158,36 @@ def simulate_returns(scene: TriangleScene, materials: MaterialTable,
         hits0 = traverse_fn(rays.origin, rays.direction, traverse_data)
     else:
         hits0 = traverse_fn(rays.origin, rays.direction)
-    sensor_normal = (torch.tensor([1.0, 0.0, 1.0]) if cfg.is_terrestrial
-                     else torch.tensor([1.0, 1.0, 0.0]))
-    face_pack = build_face_pack(scene, materials, noise_buf)
+    sensor_normal = (1.0, 0.0, 1.0) if cfg.is_terrestrial else (1.0, 1.0, 0.0)
+    if face_pack is None:
+        if scene.num_faces <= rays.num_pulses * max(cfg.max_returns, 1):
+            face_pack = build_face_pack(scene, materials, noise_buf)
+    elif face_pack is False:
+        face_pack = None
     return _returns_noretraverse(
         scene, materials, rays, noise_buf, scalars, cfg, hits0, face_pack,
-        base_ray_index, sensor_normal.to(rays.origin.device))
+        base_ray_index, sensor_normal)
 
 
 def _returns_noretraverse(scene: TriangleScene, materials: MaterialTable,
                           rays: RayBundle, noise_buf: torch.Tensor,
                           scalars: SimScalars, cfg: SensorConfig, hits0,
-                          face_pack: torch.Tensor, base_ray_index: int,
-                          sensor_normal: torch.Tensor):
+                          face_pack: torch.Tensor | None,
+                          base_ray_index: int, sensor_normal: tuple):
     """Return extraction for water-free, non-bathymetric scenes.
 
     Continuing rays never change origin or direction, so across return
     levels only the active mask and per-pulse counters evolve: the level
     loop runs on detached values (decisions only), then every record field
-    is computed once, vectorized over K = L * P slots.  The face pack is
-    always used here; the JAX package's unpacked branch computes the same
-    values from the same scene arrays.
+    is computed once, vectorized over K = L * P slots.  With a face pack
+    (F, 23) each winner reads one packed row; without (``face_pack`` None)
+    it gathers its corner vertices, uvs, ks/ns and material rows from the
+    scene arrays, as the JAX package's unpacked branch does.
+
+    Gathers are plain indexing: their backward is autograd's accumulating
+    `index_put_`.  The JAX package's custom VJPs around the same gathers
+    (`_winner_rows`, `_winner_rows_pr`, `_winner_verts_union`) exist only
+    to avoid serialized scatter on a TPU and give the same sums.
     """
     P, R = rays.num_pulses, rays.rays_per_pulse
     N = P * R
@@ -193,19 +208,41 @@ def _returns_noretraverse(scene: TriangleScene, materials: MaterialTable,
     scal = scalars
     hit_t = torch.where(face2 >= 0, t2_sg, torch.zeros_like(t2_sg))
     point_i2_sg = o2_sg + d2_sg * hit_t[:, None]
-    fp_sg = face_pack.detach()
     faces_aug = None
-    if scene.face_neighbors is None:
+    if face_pack is None or scene.face_neighbors is None:
+        #   faces_aug (F, 4): [v0, v1, v2, comp]
         faces_aug = torch.cat([scene.faces, scene.face_comp[:, None]], dim=1)
+    if face_pack is None:
+        #   comp_aug (C, 2): [material, surface]; vert_ksns (V, 2): [ks, ns];
+        #   mat_aug (M, 2): [refractive_index, roughness]
+        comp_aug = torch.stack([scene.comp_material, scene.comp_surface],
+                               dim=1)
+        vert_ksns = torch.stack([scene.vertex_ks, scene.vertex_ns], dim=1)
+        mat_aug = torch.stack([materials.refractive_index,
+                               materials.roughness], dim=1)
+        verts_sg = scene.vertices.detach()
+        vksns_sg, mat_aug_sg = vert_ksns.detach(), mat_aug.detach()
+    else:
+        fp_sg = face_pack.detach()
 
     def winner_static(flat_w, face_w, has_winner):
         o_w, d_w = o2_sg[flat_w], d2_sg[flat_w]
-        frow = fp_sg[torch.clamp(face_w, min=0).long()]
-        v0, v1, v2 = frow[:, 0:3], frow[:, 3:6], frow[:, 6:9]
+        safe_w = torch.clamp(face_w, min=0).long()
+        if face_pack is not None:
+            frow = fp_sg[safe_w]
+            v0, v1, v2 = frow[:, 0:3], frow[:, 3:6], frow[:, 6:9]
+            ksns, mrow = frow[:, 15:17], frow[:, 17:19]
+        else:
+            rows_w = faces_aug[safe_w].long()                  # (P, 4)
+            v0 = verts_sg[rows_w[:, 0]]
+            v1 = verts_sg[rows_w[:, 1]]
+            v2 = verts_sg[rows_w[:, 2]]
+            ksns = vksns_sg[rows_w[:, 0]]
+            mrow = mat_aug_sg[comp_aug[rows_w[:, 3]][:, 0].long()]
         _, point_w, _, _ = refine_hit_verts(o_w, d_w, v0, v1, v2, face_w)
         point_w = torch.where(has_winner[:, None], point_w, o_w)
         normal_w = face_normal_from_verts(v0, v1, v2)
-        return o_w, d_w, point_w, normal_w, frow[:, 15:17], frow[:, 17:19]
+        return o_w, d_w, point_w, normal_w, ksns, mrow
 
     # ---- discrete level loop (L <= 5) -----------------------------------
     active = torch.ones(N, dtype=torch.bool, device=dev)
@@ -258,9 +295,8 @@ def _returns_noretraverse(scene: TriangleScene, materials: MaterialTable,
         b0 = scal.max_range_boundary[0]
         b1 = scal.max_range_boundary[1]
         noisy_max = scal.max_range + dnoise * (b1 - b0) + b0
-        shininess = torch.clamp(
-            torch.pow(torch.clamp(ksns[:, 0], min=0.0), ksns[:, 1])
-            * mrow[:, 1], 0.0, 1.0)
+        shininess = clip(torch.pow(maximum(ksns[:, 0], 0.0), ksns[:, 1])
+                         * mrow[:, 1], 0.0, 1.0)
         loss_thr = torch.where(
             shininess < scal.loss_threshold, torch.zeros_like(shininess),
             scal.loss_mult * torch.pow(
@@ -293,13 +329,30 @@ def _returns_noretraverse(scene: TriangleScene, materials: MaterialTable,
     origin_w = pack[:, 0:3]         # == start point (origins never move)
     dir_w = pack[:, 3:6]            # == previousDirection
 
-    frow = face_pack[torch.clamp(face_w_K, min=0).long()]       # (K, 23)
-    v0, v1, v2 = frow[:, 0:3], frow[:, 3:6], frow[:, 6:9]
-    uv0, uv1, uv2 = frow[:, 9:11], frow[:, 11:13], frow[:, 13:15]
-    ksns, mrow = frow[:, 15:17], frow[:, 17:19]
-    comp_w = frow[:, 20].to(torch.int32)
-    mat_w = frow[:, 21].to(torch.int32)
-    surface_w = frow[:, 22].to(torch.int32)
+    safe_face = torch.clamp(face_w_K, min=0).long()
+    if face_pack is not None:
+        frow = face_pack[safe_face]                             # (K, 23)
+        v0, v1, v2 = frow[:, 0:3], frow[:, 3:6], frow[:, 6:9]
+        uv0, uv1, uv2 = frow[:, 9:11], frow[:, 11:13], frow[:, 13:15]
+        ksns, mrow = frow[:, 15:17], frow[:, 17:19]
+        comp_rand_sh = frow[:, 19]
+        comp_w = frow[:, 20].to(torch.int32)
+        mat_w = frow[:, 21].to(torch.int32)
+        surface_w = frow[:, 22].to(torch.int32)
+    else:
+        rows_w = faces_aug[safe_face]                           # (K, 4)
+        vidx = rows_w[:, 0:3].long()
+        verts3 = scene.vertices[vidx]                           # (K, 3, 3)
+        v0, v1, v2 = verts3[:, 0], verts3[:, 1], verts3[:, 2]
+        uvs = scene.vertex_uv[vidx]                             # (K, 3, 2)
+        uv0, uv1, uv2 = uvs[:, 0], uvs[:, 1], uvs[:, 2]
+        ksns = vert_ksns[vidx[:, 0]]
+        comp_w = rows_w[:, 3]
+        crow_w = comp_aug[comp_w.long()]
+        mat_w, surface_w = crow_w[:, 0], crow_w[:, 1]
+        mrow = mat_aug[mat_w.long()]
+        comp_rand_sh = noise_mod.stream_sample(noise_buf, comp_w,
+                                               noise_mod.MODEL_COMP_STREAM)
 
     _, point_w, (u_w, v_w), _ = refine_hit_verts(origin_w, dir_w, v0, v1, v2,
                                                  face_w_K)
@@ -309,20 +362,22 @@ def _returns_noretraverse(scene: TriangleScene, materials: MaterialTable,
 
     corrected = safe_norm(point_w - origin_w)
     nd = safe_unit(-dir_w)
-    ang = nd * sensor_normal * nd
-    angle = (torch.clamp(safe_arccos(ang[:, 0] + ang[:, 1] + ang[:, 2]),
-                         -_HALF_PI, _HALF_PI) / _HALF_PI * 90.0)
+    # (nd * sensor_normal * nd) summed, with the normal as host floats: a
+    # small device constant would cost a host-to-device copy (a host sync)
+    # on every call
+    ang = [nd[:, k] * sensor_normal[k] * nd[:, k] for k in range(3)]
+    angle = (clip(safe_arccos(ang[0] + ang[1] + ang[2]),
+                  -_HALF_PI, _HALF_PI) / _HALF_PI * 90.0)
     gps = rays.gps_time.repeat(L) + corrected * 2.0 / LIGHT_SPEED
 
     nz = noise_mod.stream_rows(noise_buf, (base + flat_w_K) & _U32)
-    shininess = torch.clamp(
-        torch.pow(torch.clamp(ksns[:, 0], min=0.0), ksns[:, 1]) * mrow[:, 1],
-        0.0, 1.0)
+    shininess = clip(torch.pow(maximum(ksns[:, 0], 0.0), ksns[:, 1])
+                     * mrow[:, 1], 0.0, 1.0)
 
     point_rec = point_w
     if cfg.include_shiny_surface_error:
         factor = 1.0 - shininess
-        comp_rand = frow[:, 19] * SHINY_MODEL_WEIGHT
+        comp_rand = comp_rand_sh * SHINY_MODEL_WEIGHT
         pt_rand = nz[:, noise_mod.POINT_STREAM] * SHINY_INDIVIDUAL_ERROR
         shift = (dir_w * (factor * factor * corrected
                           * SHINY_DISTANCE_WEIGHT)[:, None]
@@ -338,8 +393,8 @@ def _returns_noretraverse(scene: TriangleScene, materials: MaterialTable,
         h_axis = torch.stack([nz[:, noise_mod.AXIS_X_STREAM],
                               torch.zeros_like(v_err),
                               nz[:, noise_mod.AXIS_Z_STREAM]], -1)
-        up = torch.tensor([0.0, 1.0, 0.0], device=dev)
-        shift = up * v_err[:, None] + h_axis * h_err[:, None]
+        up = torch.stack([0.0 * v_err, 1.0 * v_err, 0.0 * v_err], -1)
+        shift = up + h_axis * h_err[:, None]
         point_rec = torch.where((is_terrain & valid_col)[:, None],
                                 point_rec + shift, point_rec)
 

@@ -11,7 +11,7 @@ import torch
 
 from ..core.config import SensorConfig, ShadingMode
 from ..core.types import MaterialTable, TriangleScene
-from ..utils.safemath import dot3, safe_unit
+from ..utils.safemath import abs_, dot3, safe_unit
 from .brdf import measured_brdf_factor
 from .intensity import radar_intensity
 from .returns import SimScalars
@@ -42,7 +42,7 @@ def shade_records(scene: TriangleScene, materials: MaterialTable,
                                     hermite_t=cfg.hermite_t,
                                     mode=cfg.brdf_interpolation)
     elif cfg.shading_mode == ShadingMode.LAMBERTIAN:
-        brdf = torch.abs(dot3(L, N))
+        brdf = abs_(dot3(L, N))
     else:
         raise NotImplementedError("analytic BRDF shading is not ported yet")
 

@@ -109,12 +109,21 @@ def simulate_chunk(scene: TriangleScene, materials: MaterialTable,
                    rays: RayBundle, noise_buf: torch.Tensor,
                    scalars: SimScalars, cfg: SensorConfig, *,
                    base_ray_index: int = 0, traverse_fn=None,
-                   traverse_data=None) -> PointCloud:
-    """Forward pass for one chunk of pulses on a water-free scene."""
+                   traverse_data=None, face_pack=None) -> PointCloud:
+    """Differentiable pass for one chunk of pulses on a water-free scene.
+
+    A caller that hands in ``scene.vertices``, ``materials.brdf_table``,
+    ``rays.origin`` or a scalar with ``requires_grad`` gets gradients
+    through the record pass and shading.  The traversal itself is
+    forward-only (its kernels see detached rays), as the JAX package stops
+    gradients before its Pallas kernels.  ``face_pack`` as in
+    `simulate_returns`.
+    """
     records, outliers, num_returns, _ = simulate_returns(
         scene, materials, rays, noise_buf, scalars, cfg,
         base_ray_index=base_ray_index, traverse_fn=traverse_fn,
-        traverse_data=traverse_data, scene_has_water=False)
+        traverse_data=traverse_data, scene_has_water=False,
+        face_pack=face_pack)
     # water-free, non-bathymetric: the post-loop winner origin IS the
     # recorded start point
     intensity = shade_records(scene, materials, records, records.start,

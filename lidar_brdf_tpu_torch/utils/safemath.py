@@ -7,6 +7,13 @@ sqrt(0) in a masked slot would poison a whole gradient.  These helpers keep
 the forward value of the JAX package's versions and bound the derivative
 elsewhere.  Sums over the 3-vector axis are written out left to right, the
 order XLA's reduction uses, so both packages round alike.
+
+Derivatives at ties follow JAX, not PyTorch: `jnp.clip` and `jnp.maximum`
+give half the gradient to a value exactly at a bound (`torch.clamp` gives
+all of it), and `jnp.abs` has derivative +1 at 0 (`torch.abs` has 0).
+`clip`, `maximum` and `abs_` keep PyTorch's forward values bit for bit and
+JAX's derivatives; the port uses them on every differentiated value where
+the JAX package uses `jnp.clip`, `jnp.maximum` or `jnp.abs`.
 """
 
 from __future__ import annotations
@@ -28,6 +35,34 @@ def cross3(a, b):
                         a0 * b1 - a1 * b0], dim=-1)
 
 
+def maximum(x, lo: float):
+    """`jnp.maximum(x, lo)`: half the gradient where x == lo."""
+    return torch.maximum(x, x.new_full((), lo))
+
+
+def clip(x, lo: float, hi: float):
+    """`jnp.clip(x, lo, hi)`: half the gradient where x sits on a bound."""
+    return torch.minimum(torch.maximum(x, x.new_full((), lo)),
+                         x.new_full((), hi))
+
+
+class _Abs(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.abs(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0, g, -g)
+
+
+def abs_(x):
+    """`jnp.abs(x)`: derivative +1 at x = 0 (and at -0.0), -1 below."""
+    return _Abs.apply(x)
+
+
 def rsqrt(x):
     """1 / sqrt(x), both correctly rounded (the same value on every device,
     unlike the approximate `torch.rsqrt` on CUDA)."""
@@ -42,14 +77,14 @@ def safe_norm(v, eps: float = 1e-24):
 def safe_unit(v, eps: float = 1e-24):
     """v / |v| with a finite gradient at v = 0 (returns ~0 there)."""
     n2 = dot3(v, v)[..., None]
-    return v * rsqrt(torch.clamp(n2, min=eps))
+    return v * rsqrt(maximum(n2, eps))
 
 
 def safe_arccos(x, eps: float = 1e-6):
     """arccos(clip(x, -1, 1)) with the gradient of the clipped-inward
     evaluation (bounded at |x| = 1)."""
-    xc = torch.clamp(x, -1.0, 1.0)
-    ag = torch.arccos(torch.clamp(xc, -1.0 + eps, 1.0 - eps))
+    xc = clip(x, -1.0, 1.0)
+    ag = torch.arccos(clip(xc, -1.0 + eps, 1.0 - eps))
     return ag + (torch.arccos(xc) - ag).detach()
 
 

@@ -56,6 +56,40 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys):
     assert "[card-vs-cpu] TLS L=2" in out and "[card-vs-cpu] ALS L=2" in out
 
 
+def test_chip_smoke_training_phases_on_cpu(monkeypatch, capsys):
+    """Phases 2 (K3), 6 and 7 at a small size: the bench's pre-flight, the
+    `tls` and `als` fwd+bwd steps with their gradient checks and the
+    BENCH_GRADS split, and the card-vs-CPU gradient comparison."""
+    from lidar_brdf_tpu_torch.runtime import simulate
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "TLS_PULSES", 4096)
+    monkeypatch.setattr(chip_smoke, "TLS_TRIS", 2000)
+    monkeypatch.setattr(chip_smoke, "ALS_PULSES", 2048)
+    monkeypatch.setattr(chip_smoke, "ALS_TRIS", 20_000)
+    monkeypatch.setattr(chip_smoke, "ALS_STEP_PULSES", 1024)
+    monkeypatch.setattr(chip_smoke, "STEP_ITERS", 1)
+    monkeypatch.setattr(chip_smoke, "K3_BIG", 4096)
+    monkeypatch.setattr(simulate, "PULSE_MIN_FACES", 10_000)
+    k3 = chip_smoke.phase_k3_vs_plain()
+    for key in ("name", "route", "source", "replaces", "max_abs_err", "ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms"):
+        assert key in k3
+    assert k3["bound_by"] == "bytes" and k3["bound_ms"] > 0
+    als = chip_smoke.als_workload("cpu")
+    n3, n1, n2, res = chip_smoke.phase_training(als)
+    assert set(res) == {"tls", "als"}
+    assert res["tls"]["rays"] == 4096 * 10
+    assert res["als"]["rays"] == 1024 * 10
+    for r in res.values():
+        assert set(r["split"]) == {"none", "table", "table+origin", "full"}
+        assert r["loss"] > 0 and min(r["grad_max"].values()) > 0
+    chip_smoke.phase_card_vs_cpu_grads()
+    out = capsys.readouterr().out
+    assert "[fwd+bwd] tls" in out and "[fwd+bwd] als BENCH_GRADS" in out
+    assert "[card-vs-cpu grads] ALS L=2" in out
+    assert "K3 tile" in out
+
+
 def test_chip_smoke_refuses_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

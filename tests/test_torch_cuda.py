@@ -1,5 +1,6 @@
-"""The CUDA kernels (K1 tiles, K2 pulse ladders) on the card vs their plain
-PyTorch versions.
+"""The CUDA kernels (K1 tiles, K2 pulse ladders, K3 the bench's pre-flight)
+on the card vs their plain PyTorch versions, and the fwd+bwd step's
+gradients on the card vs the CPU.
 
 Every test here needs an NVIDIA Hopper card and nvcc; without one each
 skips.  The file imports nothing of JAX, so on a card host without JAX it
@@ -7,18 +8,21 @@ runs on its own, without `tests/conftest.py` (which imports JAX):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Faces must be equal and t equal to rtol 1e-6 where a face is hit.
+Faces must be equal and t equal to rtol 1e-6 where a face is hit; K3
+equal bit for bit.  Gradients: loss to rtol 1e-5, each gradient within
+atol 1e-4 * max|g| (the card's scatter-add order is not fixed).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from lidar_brdf_tpu_torch import api
+from lidar_brdf_tpu_torch import api, bench
 from lidar_brdf_tpu_torch.core.config import LiDARType, SensorConfig
 from lidar_brdf_tpu_torch.geom.intersect import BIG
 from lidar_brdf_tpu_torch.io import synthetic
 from lidar_brdf_tpu_torch.kernels import pulse as pp
+from lidar_brdf_tpu_torch.kernels import smoke
 from lidar_brdf_tpu_torch.kernels import traverse as tr
 from lidar_brdf_tpu_torch.kernels.traverse import TileTraverser
 from lidar_brdf_tpu_torch.runtime.simulate import Simulator
@@ -190,3 +194,62 @@ def test_simulator_pulse_path_card_matches_cpu(card):
     assert int(c.mask.sum()) > 1500
     torch.testing.assert_close(g.position, c.position, rtol=0, atol=1e-4)
     torch.testing.assert_close(g.intensity, c.intensity, rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize("shape", [(8, 128), (1 << 20,), (3, 1000)])
+def test_affine_smoke_matches_plain(card, shape):
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(0))
+    x = (x * 1e3).cuda()
+    before = smoke.KERNEL.launches
+    y = smoke.affine_smoke(x)
+    torch.cuda.synchronize()
+    assert smoke.KERNEL.launches == before + 1
+    assert torch.equal(y, smoke.affine_smoke_plain(x))
+    with pytest.raises(ValueError):
+        smoke.affine_smoke(x.double())
+    bench.kernel_smoke("cuda")
+
+
+@pytest.mark.parametrize("kind", ["tile", "pulse"])
+def test_step_grads_card_match_cpu(card, kind):
+    if kind == "tile":
+        scene = synthetic.terrain_with_boxes(np.random.default_rng(1234),
+                                             num_boxes=4)
+        cfg = SensorConfig(
+            tls_position=(0.0, 9.0, 0.0), tls_fov_horizontal=90.0,
+            tls_fov_vertical=40.0, tls_middle_angle_vertical=-45.0,
+            tls_resolution_horizontal=32, tls_resolution_vertical=16,
+            rays_per_pulse=6, pulse_radius=0.1, max_returns=2,
+            chunk_pulses=512)
+        rays = api.build_rays(cfg, scene, device="cpu")
+    else:
+        scene = synthetic.rough_terrain(np.random.default_rng(0),
+                                        num_tris=20_000, half=30.0)
+        cfg = SensorConfig(lidar_type=LiDARType.AERIAL_ZIGZAG,
+                           als_position=(0.0, 40.0, 0.0),
+                           als_scan_frequency=40, als_pulse_frequency=2560,
+                           als_speed=30.0, max_range=400.0, rays_per_pulse=4,
+                           pulse_radius=0.3, max_returns=2, chunk_pulses=2048)
+        rays = api.build_rays(cfg, scene, device="cpu")
+        rays = type(rays)(rays.origin[:2048], rays.direction[:2048],
+                          rays.gps_time[:2048])
+    bvh = api.build_scene_bvh(scene)
+    mats = api.MaterialLibrary.default().table_at(1064)
+    out = []
+    for dev in ("cuda", "cpu"):
+        ws = bench.cull(scene, bvh, cfg, rays, mats, kind, dev)
+        params = {k: v.detach().clone().requires_grad_(True) for k, v in
+                  (("brdf_table", ws.materials.brdf_table),
+                   ("origin", ws.rays.origin),
+                   ("vertices", ws.scene.vertices))}
+        loss = bench.step_loss(ws, params)
+        loss.backward()
+        out.append((float(loss.detach()), {k: p.grad.cpu()
+                                  for k, p in params.items()}))
+    (lg, gg), (lc, gc) = out
+    assert lc > 0 and abs(lg - lc) <= 1e-5 * lc
+    for k in gc:
+        assert bool(torch.isfinite(gg[k]).all()), k
+        scale = float(gc[k].abs().max())
+        assert scale > 0, k
+        torch.testing.assert_close(gg[k], gc[k], rtol=0, atol=1e-4 * scale)

@@ -99,7 +99,9 @@ def test_material_table_bit_equal():
     assert tmat.MATERIAL_NAMES == jmat.MATERIAL_NAMES
 
 
-def test_beamcull_host_half_bit_equal(rng):
+def _beamcull_host_half(rng):
+    """Wald rows, tile beams, BSP order, buckets and bounds from both
+    packages' host halves on the same scene and fan of rays."""
     scene = jsyn.terrain_with_boxes(rng, num_boxes=6)
     tree = jbvh.build_bvh(np.asarray(scene.vertices), np.asarray(scene.faces))
     ttree = convert.bvh_from_numpy(_np(tree))
@@ -129,6 +131,36 @@ def test_beamcull_host_half_bit_equal(rng):
         np.testing.assert_array_equal(np.asarray(jc), tc.numpy())
         np.testing.assert_array_equal(np.asarray(jb), tb.numpy())
     assert jt.t_max == tt.t_max
+
+
+def test_beamcull_host_half_bit_equal(rng, monkeypatch):
+    """Both host halves with the native culler off (numpy BVH and frontier
+    cull on both sides).
+
+    The native culler orders a tile's equidistant candidates differently
+    from the numpy one, so the two sides must take the same culler.  The
+    JAX package rebuilds its tracked `native/liblidar_native.so` in place
+    whenever the source is newer (as after a fresh checkout), and a
+    parallel test worker that loads it mid-rebuild quietly falls back to
+    numpy; so this test keeps the JAX package's library out of it
+    altogether."""
+    from lidar_brdf_tpu_torch.io import native as tnative
+    monkeypatch.setenv("LIDAR_BRDF_TPU_NO_NATIVE", "1")
+    monkeypatch.setattr(tnative, "get_lib", lambda: None)
+    _beamcull_host_half(rng)
+
+
+def test_beamcull_host_half_native_bit_equal(rng, monkeypatch):
+    """Both host halves through the native culler, one library for both:
+    the port's build (`build/native/`, compiled to a temporary file and
+    renamed into place), handed to the JAX package's binding too, so that
+    its in-place rebuild of `native/liblidar_native.so` plays no part."""
+    from lidar_brdf_tpu.io import native as jnative
+    from lidar_brdf_tpu_torch.io import native as tnative
+    monkeypatch.delenv("LIDAR_BRDF_TPU_NO_NATIVE", raising=False)
+    monkeypatch.setattr(jnative, "_lib", tnative.get_lib())
+    monkeypatch.setattr(jnative, "_tried", True)
+    _beamcull_host_half(rng)
 
 
 def test_numpy_cull_bit_equal(rng, monkeypatch):
