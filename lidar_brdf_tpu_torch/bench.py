@@ -21,10 +21,10 @@ Before it builds a workload it runs the pre-flight kernel K3
 failed: ...")``, which nothing catches.
 
 Environment (as `bench.py`): ``BENCH_CONFIG`` (tls, multireturn, als,
-alphaprime), ``BENCH_PULSES``, ``BENCH_RAYS_PULSE``, ``BENCH_TRIS``,
-``BENCH_ITERS`` (timed steps, default 10), ``BENCH_GRADS`` (none | table |
-table+origin | full) and ``BENCH_FORCE_CPU`` (run the plain PyTorch path
-on the CPU: the only way off the card).  On the card one more step runs
+alphaprime), ``BENCH_PULSES``, ``BENCH_TRIS``, ``BENCH_ITERS`` (timed
+steps, default 10), ``BENCH_GRADS`` (none | table | table+origin | full)
+and ``BENCH_FORCE_CPU`` (run the plain PyTorch path on the CPU: the only
+way off the card).  On the card one more step runs
 under `torch.profiler` after the timed ones; its device time over the
 timed step (the device's busy share) and its top kernels go to stderr.
 It writes no file besides the kernel
@@ -188,23 +188,23 @@ class Workload:
 def cull(scene, bvh, cfg, rays: RayBundle, materials, kind: str,
          device="cuda") -> Workload:
     """The bench's one host cull at set-up (bench.py:210-298), with
-    ``t_max = max_range * 1.2``: BSP order and `TileTraverser.prepare` for
-    ``kind="tile"``; ladders, the bucket-contiguous pulse order and
-    `upload` for ``kind="pulse"``."""
+    ``t_max = max_range * 1.2``.  Both kinds first take the BSP pulse order
+    in blocks of 640 // R pulses, as bench.py:228-231 does for every
+    traverser; then `TileTraverser.prepare` for ``kind="tile"``, or
+    ladders, the bucket-contiguous pulse order and `upload` for
+    ``kind="pulse"``."""
     dev = resolve_device(device)
     R = rays.rays_per_pulse
     t_max = float(cfg.max_range) * 1.2
-    host = {k: as_numpy(getattr(rays, k))
+    # the Simulator's tile width: 640 // R pulses, rounded so that a tile
+    # holds a multiple of 128 rays (= 640 // R at the configs' R = 10)
+    step = 128 // math.gcd(128, R)
+    block = -(-max(1, 640 // R) // step) * step
+    order = bsp_order(rays, block)
+    host = {k: as_numpy(getattr(rays, k))[order]
             for k in ("origin", "direction", "gps_time")}
     t0 = time.perf_counter()
     if kind == "tile":
-        # the Simulator's tile width: 640 // R pulses, rounded so that a
-        # tile holds a multiple of 128 rays
-        step = 128 // math.gcd(128, R)
-        block = -(-max(1, 640 // R) // step) * step
-        order = bsp_order(RayBundle(**{k: torch.from_numpy(v)
-                                       for k, v in host.items()}), block)
-        host = {k: v[order] for k, v in host.items()}
         tr = TileTraverser(scene, tile_rays=block * R, device=dev)
         data = tr.prepare(bvh, host["origin"], host["direction"], t_max=t_max)
     elif kind == "pulse":
@@ -241,19 +241,31 @@ def step_loss(ws: Workload, params: dict) -> torch.Tensor:
                        torch.zeros_like(cloud.intensity)).sum()
 
 
+def leaf_params(ws: Workload, names=GRADS["full"]) -> dict:
+    """Leaf copies of the workload's brdf_table, origin and vertices; those
+    in ``names`` require grad."""
+    params = {"brdf_table": ws.materials.brdf_table,
+              "origin": ws.rays.origin, "vertices": ws.scene.vertices}
+    return {k: v.detach().clone().requires_grad_(k in names)
+            for k, v in params.items()}
+
+
+def loss_and_grads(ws: Workload) -> tuple[float, dict]:
+    """One loss + backward w.r.t. all three parameters: (loss, {name:
+    gradient on the workload's device})."""
+    params = leaf_params(ws)
+    loss = step_loss(ws, params)
+    loss.backward()
+    return float(loss.detach()), {k: p.grad for k, p in params.items()}
+
+
 def make_step(ws: Workload, grads: str = "full"):
     """``(step, params)``: ``step()`` runs one training step and returns the
     loss (a device scalar); ``params`` maps brdf_table / origin / vertices
     to the leaf tensors it updates.  ``grads`` selects the differentiated
     set as ``BENCH_GRADS`` does; the rest stay constants."""
     names = GRADS[grads]
-    params = {
-        "brdf_table": ws.materials.brdf_table.detach().clone(),
-        "origin": ws.rays.origin.detach().clone(),
-        "vertices": ws.scene.vertices.detach().clone(),
-    }
-    for n in names:
-        params[n].requires_grad_(True)
+    params = leaf_params(ws, names)
 
     def step():
         loss = step_loss(ws, params)
@@ -361,8 +373,7 @@ def main() -> int:
     t0 = time.perf_counter()
     scene, bvh, cfg, rays, mats = build_workload(
         config, int(os.environ.get("BENCH_PULSES", spec["pulses"])),
-        int(os.environ.get("BENCH_RAYS_PULSE", spec["rays_pulse"])),
-        spec["max_returns"], spec["scene"],
+        spec["rays_pulse"], spec["max_returns"], spec["scene"],
         int(os.environ.get("BENCH_TRIS", spec["num_tris"])))
     ws = cull(scene, bvh, cfg, rays, mats, spec["traverser"], dev)
     log(f"# [{config}] workload built in {time.perf_counter() - t0:.1f}s "

@@ -134,8 +134,10 @@ def jax_loss_and_grads(ch: Chunk, aux=None, pack=False):
     return float(val), {k: np.asarray(g) for k, g in zip(PARAMS, grads)}
 
 
-def port_loss_fn(ch: Chunk, pack=False):
-    """f(table, origin, verts, peak) -> loss, the port at ``ch``."""
+def port_loss_fn(ch: Chunk, pack=None):
+    """f(table, origin, verts, peak) -> loss, the port at ``ch``: the face
+    pack by the gate (``pack=None``), built and handed in (True) or
+    refused (False)."""
     p = ch.port_inputs()
 
     def loss(table, origin, verts, peak):
@@ -144,7 +146,7 @@ def port_loss_fn(ch: Chunk, pack=False):
         sc = dataclasses.replace(p["scalars"], peak_power=peak)
         rays = RayBundle(origin=origin, direction=p["rays"].direction,
                          gps_time=p["rays"].gps_time)
-        fp = build_face_pack(scene, mats, p["noise"]) if pack else None
+        fp = build_face_pack(scene, mats, p["noise"]) if pack else pack
         cloud = tchunk(scene, mats, rays, p["noise"], sc, p["cfg"],
                        traverse_fn=ch.ttr, traverse_data=ch.tdata,
                        face_pack=fp)
@@ -156,7 +158,7 @@ def port_loss_fn(ch: Chunk, pack=False):
     return loss, x0
 
 
-def port_loss_and_grads(ch: Chunk, pack=False):
+def port_loss_and_grads(ch: Chunk, pack=None):
     loss, x0 = port_loss_fn(ch, pack)
     xs = [x.detach().clone().requires_grad_(True) for x in x0]
     val = loss(*xs)
@@ -321,6 +323,28 @@ def test_face_pack_gate_follows_jax(kind, monkeypatch):
     assert float(loss(*x0)) > 0
     assert len(calls) == (1 if kind == "tile" else 0)
     assert (ch.scene.num_faces <= ch.rays.num_pulses) == (kind == "tile")
+
+
+@pytest.mark.parametrize("L", [1, 2])
+def test_face_pack_false_forces_unpacked(L, monkeypatch):
+    """``face_pack=False`` takes the unpacked branch where the gate would
+    pack (the tile scene, 80 faces <= P * L): no pack is built, and the loss
+    and gradients are the packed branch's."""
+    from lidar_brdf_tpu_torch.physics import returns as tret
+    ch = _chunk("tile", L)
+    calls = []
+    build = tret.build_face_pack
+    monkeypatch.setattr(tret, "build_face_pack",
+                        lambda *a: calls.append(1) or build(*a))
+    lu, gu = port_loss_and_grads(ch, pack=False)
+    assert not calls
+    lp, gp = port_loss_and_grads(ch)
+    assert len(calls) == 1
+    np.testing.assert_allclose(lu, lp, rtol=1e-6)
+    for k in PARAMS:
+        assert np.isfinite(gu[k]).all(), k
+        np.testing.assert_allclose(gu[k], gp[k], rtol=1e-4,
+                                   atol=1e-5 * np.abs(gp[k]).max(), err_msg=k)
 
 
 def test_vertex_grads_match_finite_differences():
