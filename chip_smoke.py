@@ -13,10 +13,14 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    `build/kernels/` (one nvcc each, started together) and launches each
    once (K1 and K2 on a one-triangle input).
 2. Kernel vs plain version on the card: K3 equal bit for bit on the
-   bench's (8, 128) tile and on 1M elements; for K1 and K2 every face
-   equal, t to rtol 1e-6 where a face is hit.  K1 on random tiles, a fan
-   of rays over boxes and
-   the `tls` workload's real bucket chunk; K2 on a fan over boxes (group 1
+   bench's (8, 128) tile, on 1M elements and on sizes that are no multiple
+   of 4, timed beside `torch.addcmul` (CUDA events and host time per
+   call); for K1 and K2 every face equal, t to rtol 1e-6 where a face is
+   hit.  K1 on random tiles (lists of 4,096), a fan of rays over boxes, a
+   tie planted across its candidate split and the `tls` workload's real
+   bucket chunk (one launch per call; CUDA events on a queued stream, also
+   without the chunk's dummy rows, and back to back); K2 on a fan over
+   boxes (group 1
    and 4), a grazing fan with fat ladders, a chunk with padded pulses and
    one real `als` chunk of 131,072 pulses culled as `Simulator._prep` does
    it.  Both timed with CUDA events on their real chunk; then K1 and K2 on
@@ -43,9 +47,17 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 7. Card vs CPU gradients at the sizes of phase 5: loss to rtol 1e-5, each
    gradient within atol 1e-4 * max|g| (scatter-add order on the card is not
    fixed, so gradients are not bitwise reproducible).
+8. Profiles, last so that they disturb no timed phase: K1's device time on
+   the `tls` chunk, and K3's and `torch.addcmul`'s, by `torch.profiler`;
+   each step of K3's wrapper on the host over 10,000 calls.
 
 The line before the last is `{"kernels": [...]}`; the last line is
 `{"ok": true, "device": {...}}`.  It imports nothing of JAX.
+
+`python3 chip_smoke.py --k1-chunk` runs K1 alone on the `tls` chunk and
+prints one JSON line (launches per call, CUDA-event and profiler times, per
+launch); a copy of the script in the root of another tree of the repo
+measures that tree's K1 the same way.
 """
 
 from __future__ import annotations
@@ -56,6 +68,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12      # f32 outside the tensor cores, same sheet
@@ -87,8 +100,12 @@ def sync():
         torch.cuda.synchronize()
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds of ``fn()`` over ``reps`` calls, by CUDA events."""
+def cuda_ms(fn, reps: int, queued: bool = False) -> float:
+    """Mean milliseconds of ``fn()`` over ``reps`` back-to-back calls, by
+    CUDA events.  Where the calls' host work outlasts their device work,
+    this is the host's rate.  With ``queued``, the card first sleeps
+    (`torch.cuda._sleep`) while the host enqueues all the calls, so the
+    events time the device work alone."""
     import torch
     fn()
     sync()
@@ -99,12 +116,63 @@ def cuda_ms(fn, reps: int) -> float:
         return (time.perf_counter() - t0) * 1e3 / reps
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        t0 = time.perf_counter()
+        fn()
+        host_s = time.perf_counter() - t0
+        sync()
+        # ~2e9 cycles a second: outlast the host's enqueue twice over
+        torch.cuda._sleep(int(2 * reps * host_s * 2e9) + 1_000_000)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_us(fn, reps: int) -> float:
+    """Mean microseconds for ``fn()`` to return on the host, over ``reps``
+    back-to-back calls (the card drains the queue after the clock stops)."""
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / reps
+    sync()
+    return us
+
+
+def kernel_device_ms(fn, reps: int, match: str | None = None) -> dict:
+    """Device time of ``reps`` calls of ``fn()`` by `torch.profiler`: the
+    device kernels whose name contains ``match`` (every kernel when None),
+    as ms per call and ms per launch in launch order, and their count.
+    None values in a CPU rehearsal (no device time exists there)."""
+    import torch
+    if DEVICE != "cuda":
+        fn()
+        return dict(per_call=None, per_launch=None, launches=None)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = sorted((e for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and (match is None or match in e.name)),
+                key=lambda e: e.time_range.start)
+    ms = [e.time_range.elapsed_us() * 1e-3 for e in ev]
+    return dict(per_call=sum(ms) / reps if ms else None, per_launch=ms,
+                launches=len(ms))
+
+
+def fmt_ms(x) -> str:
+    return "not measured" if x is None else f"{x:.5f}"
 
 
 # ---------------------------------------------------------------------------
@@ -195,6 +263,35 @@ def fan_rays(n_side):
                   np.cos(ee) * np.sin(aa)], -1).reshape(-1, 3)
     d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
     return np.broadcast_to(o0, d.shape).copy(), d
+
+
+def planted_tie(n_cand: int, seed: int = 0):
+    """A tie across K1's candidate split: one 128-ray tile and one list of
+    ``n_cand`` >= 64 candidates holding two coincident triangles in
+    different blocks of 8, the earlier one with the larger id (face 40 in
+    block 1, face 12 in block 6), among 62 small random ones, -1 padded.
+    The serial walk gives the tied rays face 40.  Returns numpy (wald
+    (64, 12) f32, origins (128, 3), directions (128, 3), ids (n_cand,)
+    int32)."""
+    import numpy as np
+    from lidar_brdf_tpu_torch.geom.beamcull import wald_rows_np
+    rng = np.random.default_rng(seed)
+    big = np.array([[-20, -20, 5], [20, -20, 5], [0, 30, 5]], np.float64)
+    verts = [big if f in (12, 40) else
+             rng.uniform([-4, -4, 2], [4, 4, 9]) + rng.normal(0, 0.8, (3, 3))
+             for f in range(64)]
+    wald = wald_rows_np(np.concatenate(verts),
+                        np.arange(192).reshape(64, 3)).astype(np.float32)
+    slots = [s for s in range(64) if s not in (8 + 3, 48 + 5)]
+    ids = np.full(n_cand, -1, np.int32)
+    ids[slots] = [f for f in rng.permutation(64) if f not in (12, 40)]
+    ids[8 + 3], ids[48 + 5] = 40, 12
+    o = np.zeros((128, 3), np.float32)
+    o[:, :2] = rng.uniform(-3, 3, (128, 2))
+    d = np.stack([rng.normal(0, 0.15, 128), rng.normal(0, 0.15, 128),
+                  np.ones(128)], -1)
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    return wald, o, d, ids
 
 
 def random_tiles(rng):
@@ -341,6 +438,75 @@ def bound(pairs, nbytes):
             "operations" if ops_ms >= bytes_ms else "bytes", ops_ms, bytes_ms)
 
 
+def tls_chunk(tls):
+    """The `tls` workload's one chunk, BSP-ordered and culled as
+    `Simulator._prep` does it: (traverser, origins, directions, buckets,
+    host cull seconds)."""
+    from lidar_brdf_tpu_torch.runtime.simulate import Simulator, bsp_order
+    scene, bvh, cfg, mats, rays = tls
+    sim = Simulator(scene=scene, bvh=bvh, materials=mats, cfg=cfg,
+                    device=DEVICE)
+    order = bsp_order(rays, sim.block_pulses)
+    host = {k: v[order] for k, v in host_rays(rays).items()}
+    t0 = time.perf_counter()
+    sl, data, _ = sim._prep(host, 0, rays.num_pulses, rays.num_pulses)
+    cull_s = time.perf_counter() - t0
+    return (sim.traverser, sl.origin.reshape(-1, 3).contiguous(),
+            sl.direction.reshape(-1, 3).contiguous(), data, cull_s)
+
+
+def k1_chunk(reps: int = 20) -> dict:
+    """K1 alone on the `tls` chunk, for comparing two trees on one card
+    (``python3 chip_smoke.py --k1-chunk``, from a copy of this script in
+    the root of either tree): launches per call, CUDA-event ms per call
+    (three runs of ``reps``), profiler device ms per call and per launch
+    (the launches of one call in order: per bucket where a call launches
+    once per bucket)."""
+    from lidar_brdf_tpu_torch.kernels import traverse as tr
+    tls = tls_workload(DEVICE)
+    tr_, og, dg, data, _ = tls_chunk(tls)
+    call = lambda: tr.tile_traverse(tr_.wald, og, dg, data, tr_.t_max,
+                                    tr_.tile_rays)
+    before = tr.KERNEL.launches
+    call()
+    sync()
+    per_call = tr.KERNEL.launches - before
+    events = [cuda_ms(call, reps, queued=True) for _ in range(3)]
+    call_ms = cuda_ms(call, reps)
+    dev = kernel_device_ms(call, reps, "tile_traverse_kernel")
+    per_launch = dev["per_launch"] or []
+    by_launch = [sum(per_launch[j::per_call]) / reps
+                 for j in range(per_call)] if per_launch else None
+    out = dict(source=os.path.dirname(os.path.abspath(__file__)),
+               buckets=[tuple(c.shape) for _, c, _ in data],
+               launches_per_call=per_call, events_ms=events,
+               call_ms=call_ms, device_ms=dev["per_call"],
+               device_ms_by_launch=by_launch)
+    if hasattr(tr, "card_slots"):
+        # the candidate split as the schedule picks it, forced off (one
+        # group's slot) and forced on (every long list): on the chunk, on
+        # each bucket alone, and on a small call (the first 24 rows of the
+        # two longest buckets, which fits on the card split)
+        picked = tr.card_slots
+        dev_ms = lambda d: kernel_device_ms(
+            lambda: tr.tile_traverse(tr_.wald, og, dg, d, tr_.t_max,
+                                     tr_.tile_rays), reps,
+            "tile_traverse_kernel")["per_call"]
+        longest = sorted(data, key=lambda b: -b[1].shape[1])[:2]
+        small = [(t[:24], c[:24], b[:24]) for t, c, b in longest]
+        for name, slots in (("picked", picked), ("off", lambda i: 1),
+                            ("on", lambda i: 10 ** 9)):
+            tr.card_slots = slots
+            try:
+                out[f"split_{name}_device_ms"] = dev_ms(data)
+                out[f"split_{name}_bucket_alone_ms"] = [dev_ms([b])
+                                                        for b in data]
+                out[f"split_{name}_small_call_ms"] = dev_ms(small)
+            finally:
+                tr.card_slots = picked
+    return out
+
+
 def phase_kernel_vs_plain(tls):
     import numpy as np
     import torch
@@ -348,7 +514,6 @@ def phase_kernel_vs_plain(tls):
     from lidar_brdf_tpu_torch.io import synthetic
     from lidar_brdf_tpu_torch.kernels import traverse as tr
     from lidar_brdf_tpu_torch.kernels.traverse import TileTraverser
-    from lidar_brdf_tpu_torch.runtime.simulate import Simulator
     errs = []
     rng = np.random.default_rng(7)
     scene, o, d = random_tiles(rng)
@@ -365,41 +530,55 @@ def phase_kernel_vs_plain(tls):
     errs.append(compare_kernel("fan over boxes", tt,
                                torch.from_numpy(o).to(DEVICE),
                                torch.from_numpy(d).to(DEVICE), data, 128))
+    # a tie across the candidate split (2 and 4 parts), beside a dummy row
+    for n_cand in (128, 512):
+        wald, o, d, ids = (torch.from_numpy(a).to(DEVICE)
+                           for a in planted_tie(n_cand))
+        bucket = (torch.tensor([0, 1], dtype=torch.int32, device=DEVICE),
+                  torch.stack([ids, ids]),
+                  torch.zeros((2, n_cand // 8), device=DEVICE))
+        errs.append(compare_kernel(
+            f"planted tie, {n_cand} candidates",
+            types.SimpleNamespace(wald=wald, t_max=100.0), o, d, [bucket],
+            128))
 
     # one real chunk of the tls workload: BSP order + host cull as the
     # Simulator does it
-    scene, bvh, cfg, mats, rays = tls
-    sim = Simulator(scene=scene, bvh=bvh, materials=mats, cfg=cfg,
-                    device=DEVICE)
-    from lidar_brdf_tpu_torch.runtime.simulate import bsp_order
-    order = bsp_order(rays, sim.block_pulses)
-    host = {k: v[order] for k, v in host_rays(rays).items()}
-    t0 = time.perf_counter()
-    sl, data, _ = sim._prep(host, 0, rays.num_pulses, rays.num_pulses)
-    cull_s = time.perf_counter() - t0
-    tr_ = sim.traverser
-    og = sl.origin.reshape(-1, 3).contiguous()
-    dg = sl.direction.reshape(-1, 3).contiguous()
+    tr_, og, dg, data, cull_s = tls_chunk(tls)
     R = tr_.tile_rays
     errs.append(compare_kernel("tls chunk", tr_, og, dg, data, R))
     sizes = [tuple(c.shape) for _, c, _ in data]
+    real = [int((t < og.shape[0] // R).sum()) for t, _, _ in data]
     log(f"[kernel] tls chunk: host cull {cull_s:.3f} s, {len(data)} buckets "
-        f"(rows x candidates) {sizes}")
+        f"(rows x candidates) {sizes}, real rows {real}")
     call = lambda: tr.tile_traverse(tr_.wald, og, dg, data, tr_.t_max, R)
     plain = lambda: tr.tile_traverse_plain(tr_.wald, og, dg, data,
                                            tr_.t_max, R)
-    ms = cuda_ms(call, 20)
-    plain_ms = cuda_ms(plain, 3)
-    ms2 = cuda_ms(call, 20)
+    before = tr.KERNEL.launches
     t_best, _ = call()
     sync()
+    per_call = tr.KERNEL.launches - before
+    if DEVICE == "cuda" and per_call != 1:
+        fail(f"K1 launched {per_call} times in one tls chunk call")
+    ms = cuda_ms(call, 20, queued=True)
+    plain_ms = cuda_ms(plain, 3)
+    ms2 = cuda_ms(call, 20, queued=True)
+    call_ms = cuda_ms(call, 20)
+    # the same buckets without their dummy rows (real rows come first):
+    # what the dummy rows' empty blocks cost
+    trimmed = [(t[:n], c[:n], b[:n]) for (t, c, b), n in zip(data, real)]
+    ms_trim = cuda_ms(lambda: tr.tile_traverse(tr_.wald, og, dg, trimmed,
+                                               tr_.t_max, R), 20, queued=True)
     needed, padded, nbytes = work_counts(data, t_best, tr_.t_max, R,
                                          tr_.wald.shape[0], og.shape[0])
     bound_ms, bound_by, bound_ops_ms, bound_bytes_ms = bound(needed, nbytes)
-    log(f"[kernel] tls chunk: K1 {ms:.4f} / {ms2:.4f} ms (two runs of 20), "
-        f"plain {plain_ms:.4f} ms, launches per call {len(data)}, "
-        f"pairs needed {needed} of {padded} without exit, bytes {nbytes}, "
-        f"bound {bound_ms:.4f} ms (ops {bound_ops_ms:.4f}, bytes "
+    log(f"[kernel] tls chunk: K1 {ms:.4f} / {ms2:.4f} ms (CUDA events on "
+        f"a queue of 20 calls, two runs), without dummy rows "
+        f"{ms_trim:.4f} ms; back-to-back "
+        f"calls {call_ms:.4f} ms each (the wrapper's host path); plain "
+        f"{plain_ms:.4f} ms; launches per call "
+        f"{per_call}; pairs needed {needed} of {padded} without exit, bytes "
+        f"{nbytes}, bound {bound_ms:.4f} ms (ops {bound_ops_ms:.4f}, bytes "
         f"{bound_bytes_ms:.4f}), {needed / (ms * 1e-3) / 1e9:.2f} G "
         f"pairs/s")
     return dict(name="tile_traverse", route="cuda",
@@ -407,7 +586,9 @@ def phase_kernel_vs_plain(tls):
                 replaces="lidar_brdf_tpu/kernels/traverse_pallas.py:117",
                 launches=None, max_abs_err=max(errs), ms=min(ms, ms2),
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=None, launches_per_chunk=len(data),
+                library_ms=None, launches_per_chunk=per_call,
+                call_ms=call_ms,
+                ms_without_dummy_rows=ms_trim,
                 pairs_needed=needed,
                 pairs_without_exit=padded, cull_s=cull_s)
 
@@ -525,14 +706,15 @@ def phase_k2_vs_plain(als):
     call = lambda: pp.pulse_traverse(tr_.wald, og, dg, data, tr_.t_max, R)
     plain = lambda: pp.pulse_traverse_plain(tr_.wald, og, dg, data,
                                             tr_.t_max, R)
-    ms = cuda_ms(call, 20)
+    ms = cuda_ms(call, 20, queued=True)
     plain_ms = cuda_ms(plain, 3)
-    ms2 = cuda_ms(call, 20)
+    ms2 = cuda_ms(call, 20, queued=True)
     real, padded, nbytes, uniq = k2_work(data, og.shape[0] // R, R)
     bound_ms, bound_by, ops_ms, bytes_ms = bound(real, nbytes)
     log(f"[kernel] als chunk ({n} pulses x {R} rays, {scene.num_faces} "
         f"faces): host cull {cull_s:.3f} s; K2 {ms:.4f} / {ms2:.4f} ms "
-        f"(two runs of 20), plain {plain_ms:.4f} ms, launches per chunk "
+        f"(CUDA events on a queue of 20 calls, two runs), plain "
+        f"{plain_ms:.4f} ms, launches per chunk "
         f"{len(data)}, real pairs {real} of {padded} padded, {uniq} "
         f"distinct faces, bytes {nbytes}, bound {bound_ms:.4f} ms (ops "
         f"{ops_ms:.4f}, bytes {bytes_ms:.4f}), "
@@ -726,20 +908,68 @@ def phase_card_vs_cpu():
         compare_clouds(f"ALS L={L}", *clouds)
 
 
-def phase_k3_vs_plain():
-    """K3 against its plain version, bit for bit, on the bench's (8, 128)
-    tile and on K3_BIG elements; timed at the tile with CUDA events beside
-    the plain version and one PyTorch call (`torch.addcmul`)."""
+def k3_host_steps(x, reps: int = 10_000) -> dict:
+    """Host microseconds of each step of K3's wrapper (`kernels/smoke.py::
+    affine_smoke`) on ``x``, each step alone over ``reps`` calls, beside
+    the whole wrapper and `torch.addcmul`.  The launch step enqueues K3
+    ``reps`` times through the C function (not counted as launches)."""
     import torch
     from lidar_brdf_tpu_torch.kernels import smoke
+    from lidar_brdf_tpu_torch.kernels.cuda_build import raw_stream
+    one = torch.ones((), device=x.device)
+    two = torch.full((), 2.0, device=x.device)
+    y = torch.empty_like(x)
+    fn = smoke.KERNEL.launcher()
+    px, py, n, idx = x.data_ptr(), y.data_ptr(), x.numel(), x.get_device()
+    s = raw_stream(idx)
+    steps = {
+        "check": lambda: (x.is_cuda and x.dtype is torch.float32
+                          and x.is_contiguous()),
+        "empty_like": lambda: torch.empty_like(x),
+        "numel+data_ptr": lambda: (x.numel(), x.data_ptr(), y.data_ptr()),
+        "raw_stream": lambda: raw_stream(x.get_device()),
+        "launcher": smoke.KERNEL.launcher,
+        "ctypes launch": lambda: fn(px, py, n, s),
+    }
+    out = {k: host_us(f, reps) for k, f in steps.items()}
+    out["sum of steps"] = sum(out.values())
+    before = smoke.KERNEL.launches
+    out["affine_smoke"] = host_us(lambda: smoke.affine_smoke(x), reps)
+    smoke.KERNEL.launches = before          # timing launches, not the path
+    out["torch.addcmul"] = host_us(lambda: torch.addcmul(one, x, two), reps)
+    return out
+
+
+def k3_inputs():
+    """K3's inputs on `DEVICE`: the bench's (8, 128) tile, K3_BIG + 3
+    random elements, and `torch.addcmul`'s 0-d operands 1 and 2."""
+    import torch
     tile = torch.arange(8 * 128, dtype=torch.float32,
                         device=DEVICE).reshape(8, 128)
     gen = torch.Generator().manual_seed(3)
-    big = (torch.randn(K3_BIG, generator=gen) * 1e3).to(DEVICE)
-    one = torch.ones((), device=DEVICE)
-    two = torch.full((), 2.0, device=DEVICE)
+    big = (torch.randn(K3_BIG + 3, generator=gen) * 1e3).to(DEVICE)
+    return (tile, big, torch.ones((), device=DEVICE),
+            torch.full((), 2.0, device=DEVICE))
+
+
+def phase_k3_vs_plain():
+    """K3 against its plain version, bit for bit, on the bench's (8, 128)
+    tile, on K3_BIG elements and on sizes that are no multiple of 4 (the
+    float4 body's scalar tail, and a misaligned view).  On the tile and at
+    K3_BIG: CUDA-event ms over back-to-back calls and host us per call,
+    beside the plain version and one PyTorch call (`torch.addcmul`), K3
+    and `addcmul` taken in turns.  (Device times by the profiler and the
+    wrapper's steps come in `phase_profiles`, after the timed phases.)"""
+    import torch
+    from lidar_brdf_tpu_torch.kernels import smoke
+    tile, big, one, two = k3_inputs()
+    before = smoke.KERNEL.launches
+    for x in (big[:K3_BIG + 3], big[:1001], big[1:1002], big[:3]):
+        if not torch.equal(smoke.affine_smoke(x), smoke.affine_smoke_plain(x)):
+            fail(f"K3 differs from 2x + 1 on {x.numel()} elements at "
+                 f"offset {x.storage_offset()}")
     out = {}
-    for name, x in (("tile", tile), ("1M", big)):
+    for name, x in (("tile", tile), ("1M", big[:K3_BIG])):
         y = smoke.affine_smoke(x)
         want = smoke.affine_smoke_plain(x)
         lib = torch.addcmul(one, x, two)
@@ -748,10 +978,17 @@ def phase_k3_vs_plain():
             fail(f"K3 differs from 2x + 1 on the {name} input")
         if not torch.equal(lib, want):
             fail(f"torch.addcmul differs from 2x + 1 on the {name} input")
+        k3 = lambda: smoke.affine_smoke(x)
+        ref = lambda: torch.addcmul(one, x, two)
+        ms = [cuda_ms(f, 1000) for f in (k3, ref, k3, ref)]
+        us = [host_us(f, 2000) for f in (k3, ref, k3, ref)]
         out[name] = dict(
-            err=float((y - want).abs().max()), elements=x.numel(), ms=cuda_ms(lambda: smoke.affine_smoke(x), 200),
-            plain_ms=cuda_ms(lambda: smoke.affine_smoke_plain(x), 200),
-            library_ms=cuda_ms(lambda: torch.addcmul(one, x, two), 200))
+            err=float((y - want).abs().max()), elements=x.numel(),
+            ms=min(ms[0], ms[2]), library_ms=min(ms[1], ms[3]),
+            ms_runs=ms[0::2], library_ms_runs=ms[1::2],
+            plain_ms=cuda_ms(lambda: smoke.affine_smoke_plain(x), 1000),
+            host_us=min(us[0], us[2]), library_host_us=min(us[1], us[3]))
+    smoke.KERNEL.launches = before          # comparison launches only
     n = tile.numel()
     bound_ms, bound_by, ops_ms, bytes_ms = (
         max(2 * n / H100_F32_OPS_PER_S, 8 * n / H100_BYTES_PER_S) * 1e3,
@@ -759,9 +996,13 @@ def phase_k3_vs_plain():
         8 * n / H100_BYTES_PER_S * 1e3)
     for name, r in out.items():
         log(f"[kernel] K3 {name} ({r['elements']} f32): equal to 2x + 1 "
-            f"bit for bit; K3 {r['ms']:.5f} ms, plain (x * 2 + 1) "
-            f"{r['plain_ms']:.5f} ms, torch.addcmul {r['library_ms']:.5f} "
-            f"ms (mean of 200)")
+            f"bit for bit; CUDA events (1000 calls, two runs each): K3 "
+            f"{r['ms_runs'][0]:.5f} / {r['ms_runs'][1]:.5f} ms, "
+            f"torch.addcmul {r['library_ms_runs'][0]:.5f} / "
+            f"{r['library_ms_runs'][1]:.5f} ms, plain (x * 2 + 1) "
+            f"{r['plain_ms']:.5f} ms; host per call (2000 calls) K3 "
+            f"{r['host_us']:.3f} us, torch.addcmul "
+            f"{r['library_host_us']:.3f} us")
     log(f"[kernel] K3 tile bound {bound_ms:.7f} ms ({bound_by}: {8 * n} "
         f"bytes; ops {ops_ms:.7f} ms): the launch, not the card, bounds it")
     return dict(
@@ -773,7 +1014,45 @@ def phase_k3_vs_plain():
         bound_ms=bound_ms, bound_by=bound_by,
         library_ms=out["tile"]["library_ms"], ms_1m=out["1M"]["ms"],
         plain_ms_1m=out["1M"]["plain_ms"],
-        library_ms_1m=out["1M"]["library_ms"])
+        library_ms_1m=out["1M"]["library_ms"],
+        host_us=out["tile"]["host_us"],
+        library_host_us=out["tile"]["library_host_us"],
+        host_us_1m=out["1M"]["host_us"],
+        library_host_us_1m=out["1M"]["library_host_us"])
+
+
+def phase_profiles(tls, k1, k3):
+    """Measurements that would disturb the timed phases, taken last: K1's
+    device time on the `tls` chunk and K3's and `torch.addcmul`'s on the
+    tile and at K3_BIG by `torch.profiler`, and each step of K3's wrapper
+    on the host over 10,000 calls.  Adds them to the ``k1`` and ``k3``
+    records."""
+    import torch
+    from lidar_brdf_tpu_torch.kernels import smoke
+    from lidar_brdf_tpu_torch.kernels import traverse as tr
+    tr_, og, dg, data, _ = tls_chunk(tls)
+    dev = kernel_device_ms(lambda: tr.tile_traverse(
+        tr_.wald, og, dg, data, tr_.t_max, tr_.tile_rays), 20,
+        "tile_traverse_kernel")
+    k1["device_ms"] = dev["per_call"]
+    log(f"[profile] K1 tls chunk: device {fmt_ms(dev['per_call'])} ms per "
+        f"call ({dev['launches']} launches in 20 calls; CUDA events on a "
+        f"queue, fills included: {k1['ms']:.4f} ms)")
+    tile, big, one, two = k3_inputs()
+    before = smoke.KERNEL.launches
+    for suffix, x in (("", tile), ("_1m", big[:K3_BIG])):
+        k3["device_ms" + suffix] = kernel_device_ms(
+            lambda: smoke.affine_smoke(x), 200)["per_call"]
+        k3["library_device_ms" + suffix] = kernel_device_ms(
+            lambda: torch.addcmul(one, x, two), 200)["per_call"]
+        log(f"[profile] K3 {x.numel()} f32: device K3 "
+            f"{fmt_ms(k3['device_ms' + suffix])} ms, torch.addcmul "
+            f"{fmt_ms(k3['library_device_ms' + suffix])} ms per call")
+    k3["host_steps_us"] = steps = (k3_host_steps(tile) if DEVICE == "cuda"
+                                   else {})
+    smoke.KERNEL.launches = before          # comparison launches only
+    log("[profile] K3 tile, host us per step over 10,000 calls: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in steps.items()))
 
 
 def count_syncs(fn) -> int | None:
@@ -980,6 +1259,11 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:] == ["--k1-chunk"]:
+        log(json.dumps({"k1_chunk": k1_chunk()}))
+        return 0
+    if sys.argv[1:]:
+        fail(f"unknown arguments {sys.argv[1:]} (only --k1-chunk)")
     t_start = time.perf_counter()
     card = phase_card_and_build()
     t0 = time.perf_counter()
@@ -999,6 +1283,7 @@ def main() -> int:
     (k3["launches"], k1["launches_fwd_bwd"], k2["launches_fwd_bwd"],
      training) = phase_training(als)
     phase_card_vs_cpu_grads()
+    phase_profiles(tls, k1, k3)
     log(json.dumps({"card": card, "tls_forward": tls_fwd,
                     "als_forward": als_fwd, "traverser_choice": choice,
                     "fwd_bwd": training,

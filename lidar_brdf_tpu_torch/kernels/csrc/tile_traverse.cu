@@ -4,37 +4,56 @@
 // _kernel` (launched by `_run`, driven by `PallasCulledTraverser.__call__`).
 // It computes what that kernel computes, not how: for every ray of a ray
 // tile, the nearest (t, face) over the tile's near-to-far sorted candidate
-// list, with the Wald triangle test in full f32 and the same tie rule.
+// list, with the Wald test in full f32 and the same tie rule.
 //
-// Design, one CUDA block per bucket row (= one ray tile):
-//   * each thread owns RPT rays of the tile and keeps (t_best, f_best) in
-//     registers for the whole walk;
-//   * the block gathers the Wald rows of its candidates straight from the
-//     (F, 12) table into shared memory, CHUNK candidates at a time, and
-//     reads its own `cand`/`tidx`/`bnd` rows (the TPU wrapper's row padding
-//     to 16, the 128-lane id broadcast and the MAX_CB pass split are gone:
-//     a block walks its whole list in one launch);
-//   * results go straight to out[tidx]; dummy rows (tidx == n_tiles) write
-//     nothing, as `.at[].set(mode="drop")` does.
+// What bounds it on this card.  Instruction throughput, not memory: each
+// (ray, candidate) test runs its dot products as separate multiplies and adds
+// (no contraction), the IEEE division as a reciprocal, five FMAs and a
+// range check with a branch to a slow path, and a row of compares, while
+// 52 bytes per candidate serve a unit's 128 rays; and a warp runs as long
+// as its slowest ray.  The `tls` chunk needs ~15.5 M tests
+// (chip_smoke.py).  The earlier design (one 640-thread block per bucket
+// row, one launch per bucket) ran ~24x over its bound because of balance:
+// its heaviest buckets had fewer rows than the card has SMs and each launch
+// waited for its slowest tile.  This design:
 //
-// What bounds it on this card: f32 ALU work, about 50 operations per
-// (ray, candidate) pair (the multiply/add chains of t, u and v, one IEEE
-// division, the compares and the tie rule), against 52 bytes per candidate
-// (12 f32 Wald values and one i32 id) that the block reads once per tile
-// and shares across the tile's rays from shared memory.  At 640 rays per
-// tile that is ~600 operations per byte read, far above the card's ~20 f32
-// operations per byte of memory bandwidth, so the kernel is compute bound.
-// The early exit (below) is the main saving; `cp.async` staging and tuning
-// are left for later work.
+//   * one launch per call over all buckets.  The host
+//     (kernels/traverse.py::tile_schedule) orders the buckets by list
+//     length, longest first, and gives each a block offset and a candidate
+//     split, passed by value in the kernel's parameter block (no device
+//     copy, no sync).  Long lists start at time zero and short ones fill the
+//     card behind them;
+//   * the work is cut into units of 128 consecutive rays of one tile; a
+//     block is 4 groups of 128 threads, each group one thread per ray, and
+//     runs 4 / parts units, synchronised per unit by a named barrier;
+//   * where a call's units, split, all fit on the card at once, `parts` (2
+//     or 4) groups share a unit and take its blocks of 8 candidates
+//     interleaved (part p takes blocks p, p + parts, ...), reading one
+//     staged copy: there one ray's serial walk sets the time.  Each part
+//     publishes its best t per ray in shared memory and stops at the first
+//     block whose lower bound exceeds the ray's best over all parts; the
+//     parts then merge by (t, block index), lowest first, which is the
+//     serial walk's strict < across blocks.  A call that fills the card
+//     (the `tls` chunk) takes one group per unit: there the split's extra
+//     blocks only queue units behind one another;
+//   * candidates are staged 128 at a time, double-buffered: the ids and
+//     bounds of the next chunk are loaded a chunk ahead into registers, and
+//     each 48-byte Wald row arrives by three 16-byte cp.async copies, so the
+//     gather of chunk k + 1 overlaps the tests of chunk k.  The tests read a
+//     staged row as three float4 (one broadcast each for a warp).  A unit's
+//     stage is ~14 KB of shared memory whatever the list length.
 //
 // Exactness contract (the plain PyTorch version in kernels/traverse.py and
 // the Pallas kernel give identical faces):
 //   * the Wald test and tie rule of wald.cuh, shared with K2;
-//   * early exit: a ray skips every block whose lower distance bound
-//     exceeds its best t (the bounds are a conservative, monotone prefix,
-//     so no skipped block can hold a nearer hit), and the block stops once
-//     no ray of the tile is live (__syncthreads_or).  Results do not depend
-//     on where it exits.
+//   * early exit: a ray's part skips every block whose lower distance bound
+//     exceeds the best t any part of that ray has found (the bounds are a
+//     conservative, monotone prefix, so no skipped block can hold the
+//     winner), and the unit stops once none of its rays is live.  Results
+//     do not depend on where or when it exits;
+//   * dummy rows (tidx outside [0, n_tiles)) write nothing, as
+//     `.at[].set(mode="drop")` does; tiles in no bucket keep the wrapper's
+//     (BIG, -1).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -45,139 +64,308 @@ namespace {
 
 using lbt::BIG;
 using lbt::CAND_BLOCK;
-constexpr int CHUNK = 256;        // candidates staged in shared memory
-constexpr int CHUNK_BLOCKS = CHUNK / CAND_BLOCK;
+constexpr int GROUP = 128;                         // threads of a group
+constexpr int GROUPS = 4;                          // groups of a block
+constexpr int THREADS = GROUP * GROUPS;
+constexpr int CHUNK = GROUP;                       // candidates per stage
+constexpr int CHUNK_BLOCKS = CHUNK / CAND_BLOCK;   // blocks of 8 per stage
+constexpr int MAX_BUCKETS = 32;
+constexpr int ARGS_PER_BUCKET = 8;
 
-template <int RPT>
-__global__ void __launch_bounds__(1024)
-tile_traverse_kernel(const float* __restrict__ wald,      // (F, 12)
-                     const float* __restrict__ origin,    // (T*tile_rays, 3)
-                     const float* __restrict__ direction, // (T*tile_rays, 3)
-                     const int32_t* __restrict__ tidx,    // (B,)
-                     const int32_t* __restrict__ cand,    // (B, C)
-                     const float* __restrict__ bnd,       // (B, C/8)
-                     int n_cand, int n_tiles, int tile_rays, float t_max,
-                     float* __restrict__ out_t,           // (T*tile_rays,)
-                     int32_t* __restrict__ out_f) {
-  __shared__ float s_rows[CHUNK * 12];
-  __shared__ int32_t s_ids[CHUNK];
-  __shared__ float s_bnd[CHUNK_BLOCKS];
+struct Bucket {
+  const int32_t* tidx;   // (B,)
+  const int32_t* cand;   // (B, C), -1 padded
+  const float* bnd;      // (B, C / 8)
+  int rows;              // B
+  int n_cand;            // C
+  int parts;             // groups sharing one unit: 1, 2 or 4
+  int first_block;       // the bucket's first block in the grid
+  int units_per_row;     // tile_rays / GROUP
+};
 
-  const int row = blockIdx.x;
-  const int tile = tidx[row];
-  if (tile < 0 || tile >= n_tiles) return;   // dummy row: uniform per block
+struct Params {
+  const float4* wald;    // (F, 12) f32 read as (F, 3) float4
+  const float* origin;   // (n_tiles * tile_rays, 3)
+  const float* direction;
+  float* out_t;          // (n_tiles * tile_rays,)
+  int32_t* out_f;
+  int n_tiles, tile_rays, n_buckets;
+  float t_max;
+  Bucket bucket[MAX_BUCKETS];   // longest lists first
+};
 
-  lbt::Ray ray[RPT];
-  float t_best[RPT];
-  int32_t f_best[RPT];
-#pragma unroll
-  for (int k = 0; k < RPT; ++k) {
-    const int64_t g = (int64_t)tile * tile_rays + threadIdx.x + k * blockDim.x;
-    ray[k] = {origin[3 * g + 0], origin[3 * g + 1], origin[3 * g + 2],
-              direction[3 * g + 0], direction[3 * g + 1],
-              direction[3 * g + 2]};
-    t_best[k] = t_max;
-    f_best[k] = -1;
-  }
+struct Stage {
+  float4 rows[CHUNK * 3];        // Wald rows, 3 float4 per candidate
+  int32_t ids[CHUNK];
+  float bnd[CHUNK_BLOCKS];
+};
 
-  const int n_blk = n_cand / CAND_BLOCK;
-  const int32_t* cand_row = cand + (int64_t)row * n_cand;
-  const float* bnd_row = bnd + (int64_t)row * n_blk;
+struct Unit {                    // one unit's shared memory
+  Stage stage[2];
+  float best[GROUP];             // best t >= 0 per ray over the parts
+};
 
-  for (int blk0 = 0; blk0 < n_blk; blk0 += CHUNK_BLOCKS) {
-    // block-wide exit: continue while any ray has t_best >= bound
-    const float b0 = bnd_row[blk0];
-    int live = 0;
-#pragma unroll
-    for (int k = 0; k < RPT; ++k) live |= (t_best[k] >= b0);
-    if (!__syncthreads_or(live)) break;
+constexpr int DYNAMIC_SMEM = GROUPS * static_cast<int>(sizeof(Unit));
 
-    const int nb = min(CHUNK_BLOCKS, n_blk - blk0);
-    const int nc = nb * CAND_BLOCK;
-    for (int i = threadIdx.x; i < nc * 12; i += blockDim.x) {
-      const int c = i / 12;
-      const int j = i - c * 12;
-      const int32_t id = cand_row[blk0 * CAND_BLOCK + c];
-      s_rows[i] = id >= 0 ? wald[(int64_t)id * 12 + j] : 0.0f;
-    }
-    for (int i = threadIdx.x; i < nc; i += blockDim.x)
-      s_ids[i] = cand_row[blk0 * CAND_BLOCK + i];
-    for (int i = threadIdx.x; i < nb; i += blockDim.x)
-      s_bnd[i] = bnd_row[blk0 + i];
-    __syncthreads();
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(s), "l"(__cvta_generic_to_global(gmem)) : "memory");
+}
 
-#pragma unroll
-    for (int k = 0; k < RPT; ++k) {
-      for (int b = 0; b < nb; ++b) {
-        if (s_bnd[b] > t_best[k]) break;     // nothing nearer in this block
-        auto load = [&](int m, float* w) {
-          const float* r = s_rows + (b * CAND_BLOCK + m) * 12;
-#pragma unroll
-          for (int j = 0; j < 12; ++j) w[j] = r[j];
-          return s_ids[b * CAND_BLOCK + m];
-        };
-        lbt::wald_block(ray[k], load, t_max, t_best[k], f_best[k]);
-      }
-    }
-    __syncthreads();   // the next chunk overwrites shared memory
-  }
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
-#pragma unroll
-  for (int k = 0; k < RPT; ++k) {
-    const int64_t g = (int64_t)tile * tile_rays + threadIdx.x + k * blockDim.x;
-    out_t[g] = f_best[k] < 0 ? BIG : t_best[k];
-    out_f[g] = f_best[k];
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Barrier of one unit's `n` threads (named barrier `id` >= 1).
+__device__ __forceinline__ void unit_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+// The same barrier, returning whether `pred` holds in any of the threads.
+__device__ __forceinline__ bool unit_sync_or(int id, int n, bool pred) {
+  int any;
+  asm volatile(
+      "{\n .reg .pred p, q;\n setp.ne.s32 p, %1, 0;\n"
+      " bar.red.or.pred q, %2, %3, p;\n selp.s32 %0, 1, 0, q;\n}\n"
+      : "=r"(any) : "r"(static_cast<int>(pred)), "r"(id), "r"(n)
+      : "memory");
+  return any != 0;
+}
+
+// Candidate `lane` of a chunk into `st`: its id and (for the first
+// CHUNK_BLOCKS lanes) a block bound, loaded a chunk ahead, and its Wald row
+// by three async 16-byte copies (zeros for padding).
+__device__ __forceinline__ void stage_chunk(Stage& st,
+                                            const float4* __restrict__ wald,
+                                            int lane, int32_t id,
+                                            float bound) {
+  st.ids[lane] = id;
+  if (lane < CHUNK_BLOCKS) st.bnd[lane] = bound;
+  float4* dst = st.rows + 3 * lane;
+  if (id >= 0) {
+    const float4* src = wald + 3 * (int64_t)id;
+    cp_async16(dst, src);
+    cp_async16(dst + 1, src + 1);
+    cp_async16(dst + 2, src + 2);
+  } else {
+    const float4 z = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    dst[0] = z;
+    dst[1] = z;
+    dst[2] = z;
   }
 }
 
-template <int RPT>
-void launch(const float* wald, const float* origin, const float* direction,
-            const int32_t* tidx, const int32_t* cand, const float* bnd,
-            int n_rows, int n_cand, int n_tiles, int tile_rays, float t_max,
-            float* out_t, int32_t* out_f, cudaStream_t stream) {
-  tile_traverse_kernel<RPT><<<n_rows, tile_rays / RPT, 0, stream>>>(
-      wald, origin, direction, tidx, cand, bnd, n_cand, n_tiles, tile_rays,
-      t_max, out_t, out_f);
+// Staged candidate c: its Wald row into w[12] (three float4 reads, one
+// broadcast each for a warp) and its id.
+__device__ __forceinline__ int32_t staged_row(const Stage& st, int c,
+                                              float* w) {
+  const float4 a = st.rows[3 * c];
+  const float4 b = st.rows[3 * c + 1];
+  const float4 e = st.rows[3 * c + 2];
+  w[0] = a.x; w[1] = a.y; w[2] = a.z; w[3] = a.w;
+  w[4] = b.x; w[5] = b.y; w[6] = b.z; w[7] = b.w;
+  w[8] = e.x; w[9] = e.y; w[10] = e.z; w[11] = e.w;
+  return st.ids[c];
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
+tile_traverse_kernel(const __grid_constant__ Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float s_t[THREADS];      // the parts' results, for the merge
+  __shared__ int32_t s_f[THREADS];
+  __shared__ int32_t s_b[THREADS];
+
+  // block -> bucket (uniform); group -> unit of the block and part
+  int k = 0;
+  while (k + 1 < p.n_buckets &&
+         static_cast<int>(blockIdx.x) >= p.bucket[k + 1].first_block)
+    ++k;
+  const Bucket& bk = p.bucket[k];
+  const int parts = bk.parts;
+  const int group = threadIdx.x / GROUP;
+  const int slot = group / parts;
+  const int part = group - slot * parts;
+  const int lane = threadIdx.x - group * GROUP;
+  const int unit =
+      (static_cast<int>(blockIdx.x) - bk.first_block) * (GROUPS / parts) +
+      slot;
+  if (unit >= bk.rows * bk.units_per_row) return;    // past the last unit
+  const int row = unit / bk.units_per_row;
+  const int tile = __ldg(bk.tidx + row);
+  if (tile < 0 || tile >= p.n_tiles) return;         // dummy row
+  const int bar = 1 + slot;           // the unit's barrier and its threads
+  const int n_thr = GROUP * parts;
+  Unit& u = reinterpret_cast<Unit*>(smem)[slot];
+
+  const int64_t g = (int64_t)tile * p.tile_rays +
+                    (int64_t)(unit - row * bk.units_per_row) * GROUP + lane;
+  const lbt::Ray ray = {__ldg(p.origin + 3 * g), __ldg(p.origin + 3 * g + 1),
+                        __ldg(p.origin + 3 * g + 2),
+                        __ldg(p.direction + 3 * g),
+                        __ldg(p.direction + 3 * g + 1),
+                        __ldg(p.direction + 3 * g + 2)};
+  const int C = bk.n_cand;
+  const int n_blk = C / CAND_BLOCK;
+  const int n_chunks = (C + CHUNK - 1) / CHUNK;
+  const int32_t* cand_row = bk.cand + (int64_t)row * C;
+  const float* bnd_row = bk.bnd + (int64_t)row * n_blk;
+  const float t_max = p.t_max;
+  const float inf = __int_as_float(0x7f800000);
+  // part 0 stages the unit's candidates, one per thread
+  auto fetch = [&](int ch, int32_t& id, float& bound) {
+    const int c = ch * CHUNK + lane;
+    id = c < C ? __ldg(cand_row + c) : -1;
+    const int b = ch * CHUNK_BLOCKS + lane;
+    bound = (lane < CHUNK_BLOCKS && b < n_blk) ? __ldg(bnd_row + b) : inf;
+  };
+  const bool stager = part == 0;
+
+  volatile float* best = u.best;
+  float t_best = t_max;
+  int32_t f_best = -1;
+  int32_t b_best = 0x7fffffff;      // block index of this part's winner
+  bool done = false;
+  int32_t id;
+  float bound;
+  if (stager) {
+    u.best[lane] = t_max;
+    fetch(0, id, bound);
+    stage_chunk(u.stage[0], p.wald, lane, id, bound);
+    if (n_chunks > 1) fetch(1, id, bound);
+  }
+  cp_async_commit();
+  unit_sync(bar, n_thr);            // best[] initialised
+
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    if (stager && ch + 1 < n_chunks) {
+      stage_chunk(u.stage[(ch + 1) & 1], p.wald, lane, id, bound);
+      if (ch + 2 < n_chunks) fetch(ch + 2, id, bound);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();             // this thread's copies of chunk ch
+    // barrier: all of chunk ch is in shared memory; the unit stops when no
+    // ray of it is live at the chunk's first bound
+    const float b0 = __ldg(bnd_row + ch * CHUNK_BLOCKS);
+    const bool live = !done && !(b0 > fminf(t_best, best[lane]));
+    if (!unit_sync_or(bar, n_thr, live)) break;
+    if (!done) {
+      const Stage& st = u.stage[ch & 1];
+      const int nb = min(CHUNK_BLOCKS, n_blk - ch * CHUNK_BLOCKS);
+      for (int lb = part; lb < nb; lb += parts) {
+        if (st.bnd[lb] > fminf(t_best, best[lane])) {
+          done = true;              // the bounds only grow from here
+          break;
+        }
+        float t_c;
+        int32_t f_c;
+        lbt::wald_block_min(ray, [&](int m, float* w) {
+          return staged_row(st, lb * CAND_BLOCK + m, w);
+        }, t_max, t_c, f_c);
+        if (t_c < t_best) {
+          t_best = t_c;
+          f_best = f_c;
+          b_best = ch * CHUNK_BLOCKS + lb;
+          if (parts > 1)            // t >= 0 orders as its bits do
+            atomicMin(reinterpret_cast<int*>(u.best) + lane,
+                      __float_as_int(fmaxf(t_c, 0.0f)));
+        }
+      }
+    }
+    unit_sync(bar, n_thr);          // chunk ch's buffer is refilled next
+  }
+  cp_async_wait<0>();
+
+  if (parts > 1) {                  // merge by (t, block index), lowest first
+    s_t[threadIdx.x] = t_best;
+    s_f[threadIdx.x] = f_best;
+    s_b[threadIdx.x] = b_best;
+    unit_sync(bar, n_thr);
+    if (part != 0) return;
+    for (int q = 1; q < parts; ++q) {
+      const int j = threadIdx.x + q * GROUP;
+      const float t = s_t[j];
+      const int32_t b = s_b[j];
+      if (t < t_best || (t == t_best && b < b_best)) {
+        t_best = t;
+        f_best = s_f[j];
+        b_best = b;
+      }
+    }
+  }
+  p.out_t[g] = f_best < 0 ? BIG : t_best;
+  p.out_f[g] = f_best;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Rays per thread for a tile: the smallest power of two keeping the block
-// at <= 1024 threads (0 when the tile is too large).
-int lbt_tile_traverse_rays_per_thread(int tile_rays) {
-  for (int rpt = 1; rpt <= 8; rpt *= 2)
-    if (tile_rays % rpt == 0 && tile_rays / rpt <= 1024 &&
-        (tile_rays / rpt) % 32 == 0)
-      return rpt;
-  return 0;
-}
-
-// One launch over the B rows of one bucket.  Returns the cudaError_t of
-// the launch (0 on success); the kernel runs asynchronously on `stream`.
+// One launch over all buckets of a call.  ``args`` holds ARGS_PER_BUCKET
+// int64 per bucket, in launch order (kernels/traverse.py::tile_schedule):
+// tidx, cand and bnd pointers, rows B, C, parts, first block, units per
+// row.  Returns the cudaError_t of the launch (0 on success); the kernel
+// runs asynchronously on `stream`.
 int lbt_tile_traverse(const float* wald, const float* origin,
-                      const float* direction, const int32_t* tidx,
-                      const int32_t* cand, const float* bnd, int n_rows,
-                      int n_cand, int n_tiles, int tile_rays, float t_max,
-                      float* out_t, int32_t* out_f, void* stream) {
-  if (n_rows == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (lbt_tile_traverse_rays_per_thread(tile_rays)) {
-    case 1: launch<1>(wald, origin, direction, tidx, cand, bnd, n_rows,
-                      n_cand, n_tiles, tile_rays, t_max, out_t, out_f, s);
-            break;
-    case 2: launch<2>(wald, origin, direction, tidx, cand, bnd, n_rows,
-                      n_cand, n_tiles, tile_rays, t_max, out_t, out_f, s);
-            break;
-    case 4: launch<4>(wald, origin, direction, tidx, cand, bnd, n_rows,
-                      n_cand, n_tiles, tile_rays, t_max, out_t, out_f, s);
-            break;
-    case 8: launch<8>(wald, origin, direction, tidx, cand, bnd, n_rows,
-                      n_cand, n_tiles, tile_rays, t_max, out_t, out_f, s);
-            break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+                      const float* direction, int n_tiles, int tile_rays,
+                      float t_max, float* out_t, int32_t* out_f,
+                      int n_buckets, const int64_t* args, int n_blocks,
+                      void* stream) {
+  if (n_blocks == 0) return 0;
+  if (n_blocks < 0 || n_buckets < 1 || n_buckets > MAX_BUCKETS ||
+      tile_rays <= 0 || tile_rays % GROUP ||
+      (reinterpret_cast<uintptr_t>(wald) & 15))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p{};
+  p.wald = reinterpret_cast<const float4*>(wald);
+  p.origin = origin;
+  p.direction = direction;
+  p.out_t = out_t;
+  p.out_f = out_f;
+  p.n_tiles = n_tiles;
+  p.tile_rays = tile_rays;
+  p.n_buckets = n_buckets;
+  p.t_max = t_max;
+  int64_t next = 0;                 // the blocks must tile the grid exactly
+  for (int i = 0; i < n_buckets; ++i) {
+    const int64_t* a = args + ARGS_PER_BUCKET * i;
+    Bucket& b = p.bucket[i];
+    b.tidx = reinterpret_cast<const int32_t*>(a[0]);
+    b.cand = reinterpret_cast<const int32_t*>(a[1]);
+    b.bnd = reinterpret_cast<const float*>(a[2]);
+    b.rows = static_cast<int>(a[3]);
+    b.n_cand = static_cast<int>(a[4]);
+    b.parts = static_cast<int>(a[5]);
+    b.first_block = static_cast<int>(a[6]);
+    b.units_per_row = static_cast<int>(a[7]);
+    const bool parts_ok = b.parts == 1 || b.parts == 2 || b.parts == 4;
+    if (a[3] <= 0 || b.n_cand <= 0 || b.n_cand % CAND_BLOCK || !parts_ok ||
+        b.first_block != next ||
+        (int64_t)b.units_per_row * GROUP != tile_rays)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int64_t per_block = GROUPS / b.parts;
+    next += (a[3] * b.units_per_row + per_block - 1) / per_block;
   }
+  if (next != n_blocks) return static_cast<int>(cudaErrorInvalidValue);
+  static uint64_t smem_set = 0;     // once per card (bit = device index)
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= 64 || !(smem_set >> dev & 1)) {
+    err = cudaFuncSetAttribute(tile_traverse_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               DYNAMIC_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < 64) smem_set |= uint64_t{1} << dev;
+  }
+  tile_traverse_kernel<<<static_cast<unsigned>(n_blocks), THREADS,
+                         DYNAMIC_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -46,16 +46,16 @@ __device__ __forceinline__ float wald_t_m(const Ray& r, const float* w,
   return ok ? t : t_max;
 }
 
-// One block of CAND_BLOCK candidates for one ray, merged into
-// (t_best, f_best) by the tie rule.  ``load(m, w)`` writes candidate m's
-// Wald row into w[12] and returns its face id (negative for padding).
+// One block of CAND_BLOCK candidates for one ray: (t_c, f_c), its min t_m
+// and the min face id among t_m <= t_c.  ``load(m, w)`` writes candidate
+// m's Wald row into w[12] and returns its face id (negative for padding).
 template <class Load>
-__device__ __forceinline__ void wald_block(const Ray& r, Load load,
-                                           float t_max, float& t_best,
-                                           int32_t& f_best) {
+__device__ __forceinline__ void wald_block_min(const Ray& r, Load load,
+                                               float t_max, float& t_c,
+                                               int32_t& f_c) {
   float t_m[CAND_BLOCK];
   int32_t ids[CAND_BLOCK];
-  float t_c = 0.0f;
+  t_c = 0.0f;
 #pragma unroll
   for (int m = 0; m < CAND_BLOCK; ++m) {
     float w[12];
@@ -63,10 +63,21 @@ __device__ __forceinline__ void wald_block(const Ray& r, Load load,
     t_m[m] = wald_t_m(r, w, ids[m], t_max);
     t_c = (m == 0 || t_m[m] < t_c) ? t_m[m] : t_c;
   }
-  int32_t f_c = INT_MISS;
+  f_c = INT_MISS;
 #pragma unroll
   for (int m = 0; m < CAND_BLOCK; ++m)
     if (t_m[m] <= t_c && ids[m] < f_c) f_c = ids[m];
+}
+
+// One block merged into (t_best, f_best) by the tie rule: strict <, so an
+// earlier block wins a tie.
+template <class Load>
+__device__ __forceinline__ void wald_block(const Ray& r, Load load,
+                                           float t_max, float& t_best,
+                                           int32_t& f_best) {
+  float t_c;
+  int32_t f_c;
+  wald_block_min(r, load, t_max, t_c, f_c);
   if (t_c < t_best) {
     t_best = t_c;
     f_best = f_c;

@@ -3,9 +3,19 @@
 Each kernel source under `csrc/` is compiled on first use, with a plain C
 interface, into its own shared library under the git-ignored
 `build/kernels/`, and loaded with ctypes.  One `CudaLibrary` per source
-holds the loaded library, its build record and its launch count (the
-wrapper adds one per kernel launch, and nowhere else).  Nothing here runs
-at import: a module that launches a kernel builds it inside its wrapper.
+holds the loaded library, its launch function, its build record and its
+launch count (the wrapper adds one per kernel launch, and nowhere else).
+Nothing here runs at import: a module that launches a kernel builds it
+inside its wrapper.
+
+The launch path is kept short, because a small launch is bound by the
+host, not the card: the launch function is resolved once (only the first
+call takes the build lock), the library is loaded as a `ctypes.PyDLL`
+(its C functions only enqueue work, so a call keeps the interpreter lock
+rather than dropping and taking it again), the stream is PyTorch's raw
+current-stream handle (no `torch.cuda.Stream` object per call), and
+`check_tensor` tests dtype, rank, device and contiguity in one
+expression.
 """
 
 from __future__ import annotations
@@ -43,19 +53,23 @@ def _nvcc() -> str:
 
 
 class CudaLibrary:
-    """One kernel source: its built library, launch count and build record.
+    """One kernel source: its built library, launch function, launch count
+    and build record.
 
     ``declare(lib)`` sets ``argtypes``/``restype`` of the library's C
-    functions after loading.
+    functions after loading; ``entry`` names the launch function that
+    `launcher` returns.
     """
 
-    def __init__(self, source: str, declare):
+    def __init__(self, source: str, declare, entry: str):
         self.source = os.path.join(CSRC, source)
         self.path = os.path.join(
             BUILD_DIR, "lib" + os.path.splitext(source)[0] + ".so")
         self._declare = declare
+        self.entry = entry
         self.lock = threading.Lock()
         self.lib = None
+        self.fn = None
         self.launches = 0
         self.build_seconds = None
         self.build_log = ""
@@ -91,13 +105,20 @@ class CudaLibrary:
                 finally:
                     if os.path.exists(tmp):
                         os.remove(tmp)
-            lib = ctypes.CDLL(self.path)
+            lib = ctypes.PyDLL(self.path)
             self._declare(lib)
             lib.lbt_cuda_error_string.argtypes = [ctypes.c_int]
             lib.lbt_cuda_error_string.restype = ctypes.c_char_p
             self.build_seconds = time.perf_counter() - t0
+            self.fn = getattr(lib, self.entry)
             self.lib = lib
             return lib
+
+    def launcher(self):
+        """The launch function; builds and loads the library at first use."""
+        if self.fn is None:
+            self.build()
+        return self.fn
 
     def check(self, rc: int, what: str):
         """Raise when a launch function returned a CUDA error code."""
@@ -106,15 +127,21 @@ class CudaLibrary:
                                + self.lib.lbt_cuda_error_string(rc).decode())
 
 
-def check_tensor(name, x, dtype, ndim, device):
-    """Raise unless ``x`` is a contiguous ``ndim``-D ``dtype`` tensor on
-    ``device``."""
+def raw_stream(device_index: int) -> int:
+    """PyTorch's current stream on a CUDA device, as the raw handle a C
+    launch function takes."""
+    return torch._C._cuda_getCurrentRawStream(device_index)
+
+
+def check_tensor(name, x, dtype, ndim, device_index):
+    """Raise unless ``x`` is a contiguous ``ndim``-D ``dtype`` tensor on the
+    device with index ``device_index`` (``get_device()``: -1 on the CPU):
+    TypeError for a non-tensor, ValueError for anything else."""
     if not isinstance(x, torch.Tensor):
         raise TypeError(f"{name} must be a tensor")
-    if x.dtype != dtype or x.dim() != ndim:
-        raise ValueError(f"{name} must be {ndim}-D {dtype}, got "
-                         f"{x.dim()}-D {x.dtype}")
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+    if not (x.dtype is dtype and x.dim() == ndim
+            and x.get_device() == device_index and x.is_contiguous()):
+        raise ValueError(
+            f"{name} must be a contiguous {ndim}-D {dtype} tensor on device "
+            f"{device_index}; got {x.dim()}-D {x.dtype} on {x.device}, "
+            f"contiguous={x.is_contiguous()}")

@@ -38,7 +38,7 @@ from ..core.types import BVH, Hit, TriangleScene, as_numpy, resolve_device
 from ..geom.beamcull import (_collect_candidates, beams_are_narrow,
                              tile_beams, wald_rows_np)
 from ..geom.intersect import BIG
-from .cuda_build import CudaLibrary, check_tensor
+from .cuda_build import CudaLibrary, check_tensor, raw_stream
 from .traverse import CAND_BLOCK, wald_blocks_plain
 
 LANES = 128          # bucket rows are padded to a multiple of this
@@ -51,7 +51,7 @@ def _declare(lib):
     lib.lbt_pulse_traverse.restype = ci
 
 
-KERNEL = CudaLibrary("pulse_traverse.cu", _declare)
+KERNEL = CudaLibrary("pulse_traverse.cu", _declare, "lbt_pulse_traverse")
 
 
 # ---------------------------------------------------------------------------
@@ -142,7 +142,7 @@ def renumber_pulse_ladders(buckets, perm: np.ndarray):
 # ---------------------------------------------------------------------------
 
 def _validate(wald, origin, direction, buckets, kernel_rays):
-    dev = origin.device
+    dev = origin.get_device()
     check_tensor("wald", wald, torch.float32, 2, dev)
     check_tensor("origin", origin, torch.float32, 2, dev)
     check_tensor("direction", direction, torch.float32, 2, dev)
@@ -173,23 +173,22 @@ def pulse_traverse(wald, origin, direction, buckets, t_max: float,
     tensors take `pulse_traverse_plain`.
     """
     _validate(wald, origin, direction, buckets, kernel_rays)
-    if origin.device.type == "cpu":
-        return pulse_traverse_plain(wald, origin, direction, buckets, t_max,
-                                    kernel_rays)
-    if origin.device.type != "cuda":
+    if not origin.is_cuda:
+        if origin.device.type == "cpu":
+            return pulse_traverse_plain(wald, origin, direction, buckets,
+                                        t_max, kernel_rays)
         raise ValueError(f"unsupported device {origin.device}")
-    lib = KERNEL.build()
+    launch = KERNEL.launcher()
     n = origin.shape[0]
     out_t = torch.full((n,), BIG, dtype=torch.float32, device=origin.device)
     out_f = torch.full((n,), -1, dtype=torch.int32, device=origin.device)
-    stream = torch.cuda.current_stream(origin.device).cuda_stream
+    stream = raw_stream(origin.get_device())
     for pidx, cand in buckets:
         B, K = cand.shape
-        rc = lib.lbt_pulse_traverse(
-            wald.data_ptr(), origin.data_ptr(), direction.data_ptr(),
-            pidx.data_ptr(), cand.data_ptr(), B, K, n // kernel_rays,
-            kernel_rays, float(t_max), out_t.data_ptr(), out_f.data_ptr(),
-            stream)
+        rc = launch(wald.data_ptr(), origin.data_ptr(), direction.data_ptr(),
+                    pidx.data_ptr(), cand.data_ptr(), B, K, n // kernel_rays,
+                    kernel_rays, float(t_max), out_t.data_ptr(),
+                    out_f.data_ptr(), stream)
         KERNEL.check(rc, "pulse_traverse")
         KERNEL.launches += 1
     return out_t, out_f

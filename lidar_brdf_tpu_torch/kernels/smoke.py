@@ -5,6 +5,10 @@ package's bench runs before it builds a workload.  On a CUDA tensor
 `affine_smoke` launches `csrc/affine_smoke.cu` (built with nvcc at first
 use into `build/kernels/`, loaded with ctypes); on a CPU tensor it runs
 `affine_smoke_plain`.  It never falls back from one to the other.
+
+K3 is bound by its launch path on the host, so the wrapper does no more
+than it must: one test of the input, one `torch.empty_like`, the raw
+stream handle and one ctypes call.
 """
 
 from __future__ import annotations
@@ -13,7 +17,7 @@ import ctypes
 
 import torch
 
-from .cuda_build import CudaLibrary, check_tensor
+from .cuda_build import CudaLibrary, raw_stream
 
 
 def _declare(lib):
@@ -22,23 +26,27 @@ def _declare(lib):
     lib.lbt_affine_smoke.restype = ctypes.c_int
 
 
-KERNEL = CudaLibrary("affine_smoke.cu", _declare)
+KERNEL = CudaLibrary("affine_smoke.cu", _declare, "lbt_affine_smoke")
 
 
 def affine_smoke(x: torch.Tensor) -> torch.Tensor:
     """``2x + 1`` of a contiguous f32 tensor: K3 on a CUDA tensor (one
     launch), `affine_smoke_plain` on a CPU one."""
-    if x.device.type == "cpu":
-        return affine_smoke_plain(x)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return affine_smoke_plain(x)
         raise ValueError(f"unsupported device {x.device}")
-    check_tensor("x", x, torch.float32, x.dim(), x.device)
-    lib = KERNEL.build()
+    if x.dtype is not torch.float32 or not x.is_contiguous():
+        raise ValueError(f"x must be a contiguous float32 tensor, got "
+                         f"{x.dtype}, contiguous={x.is_contiguous()}")
     y = torch.empty_like(x)
-    rc = lib.lbt_affine_smoke(x.data_ptr(), y.data_ptr(), x.numel(),
-                              torch.cuda.current_stream(x.device).cuda_stream)
-    KERNEL.check(rc, "affine_smoke")
-    KERNEL.launches += 1
+    n = x.numel()
+    if n:
+        rc = KERNEL.launcher()(x.data_ptr(), y.data_ptr(), n,
+                               raw_stream(x.get_device()))
+        if rc:
+            KERNEL.check(rc, "affine_smoke")
+        KERNEL.launches += 1
     return y
 
 

@@ -7,9 +7,10 @@ Counterpart of `lidar_brdf_tpu/kernels/traverse_pallas.py`.
   candidate lists sorted near to far, grouped into power-of-two buckets;
   `bucket_bounds` gives every block of 8 candidates a conservative lower
   bound on the hit distance.
-* Device half (`tile_traverse`): per bucket, the nearest (t, face) of every
-  ray of every tile against the tile's candidates.  On a CUDA tensor it
-  launches `csrc/tile_traverse.cu` (built with nvcc at first use into
+* Device half (`tile_traverse`): the nearest (t, face) of every ray of
+  every tile against the tile's candidates, all buckets in one call.  On a
+  CUDA tensor it launches `csrc/tile_traverse.cu` once over the work list
+  `tile_schedule` makes (built with nvcc at first use into
   `build/kernels/`, loaded with ctypes); on a CPU tensor it runs
   `tile_traverse_plain`, the same 8-candidate-block semantics in plain
   PyTorch.  It never falls back from one to the other.
@@ -18,6 +19,7 @@ Counterpart of `lidar_brdf_tpu/kernels/traverse_pallas.py`.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -26,27 +28,83 @@ from ..core.types import BVH, Hit, TriangleScene, as_numpy, resolve_device
 from ..geom.beamcull import (beams_are_narrow, build_bucketed_candidates,
                              tile_beams, wald_rows_np)
 from ..geom.intersect import BIG, EPSILON
-from .cuda_build import CudaLibrary, check_tensor
+from .cuda_build import CudaLibrary, check_tensor, raw_stream
 
-LANES = 128          # tile_rays granularity (one warp group of 4 warps)
+LANES = 128          # tile_rays granularity: one K1 unit of 128 rays,
+GROUPS = 4           # K1 (csrc/tile_traverse.cu): groups of a block,
+MAX_BUCKETS = 32     # buckets of a launch,
+ARGS_PER_BUCKET = 8  # int64 launch arguments of a bucket
 CAND_BLOCK = 8       # candidates per tie-rule block
 INT_MISS = 2 ** 30
 
 
 def _declare(lib):
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.lbt_tile_traverse.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci,
-                                      ci, cf, vp, vp, vp]
+    lib.lbt_tile_traverse.argtypes = [vp, vp, vp, ci, ci, cf, vp, vp, ci,
+                                      ctypes.POINTER(ctypes.c_int64), ci, vp]
     lib.lbt_tile_traverse.restype = ci
-    lib.lbt_tile_traverse_rays_per_thread.argtypes = [ci]
-    lib.lbt_tile_traverse_rays_per_thread.restype = ci
 
 
-KERNEL = CudaLibrary("tile_traverse.cu", _declare)
+KERNEL = CudaLibrary("tile_traverse.cu", _declare, "lbt_tile_traverse")
+
+
+def cand_parts(n_cand: int) -> int:
+    """Groups of a K1 block that may share one unit's 128 rays and split
+    their blocks of 8 candidates: 4 for lists of 256+ candidates, 2 for
+    128, else 1."""
+    return 4 if n_cand >= 256 else 2 if n_cand >= 128 else 1
+
+
+@functools.lru_cache(maxsize=None)
+def card_slots(device_index: int) -> int:
+    """Groups of 128 threads a card runs at once in K1: 2 blocks of 4 per
+    SM."""
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return sms * 2 * GROUPS
+
+
+def tile_schedule(buckets, tile_rays: int, slots: int):
+    """K1's work list for one call, from the bucket shapes alone (no device
+    read).
+
+    The work of a bucket is cut into units, one per 128 consecutive rays of
+    a row's tile (``tile_rays // 128`` units per row, row after row).  A
+    unit is run by ``parts`` groups of 128 threads, one thread per ray and
+    part, the parts taking the row's blocks of 8 candidates interleaved; a
+    block of 4 groups runs ``4 // parts`` consecutive units.  A call whose
+    units, split, all fit on the card at once (the card runs ``slots``
+    groups) gives its longest lists ``cand_parts(C)`` groups per unit,
+    longest first, as far as the idle groups go: there one ray's serial
+    walk sets the time and the split only shortens it.  A call that fills
+    the card takes one group per unit: there the split's extra blocks
+    queue units behind one another and cost more than they save.  Returns
+    ``(entries, n_blocks)``: one entry ``(index, B, C, parts, first_block,
+    units_per_row)`` per bucket with rows and candidates, in launch order,
+    longest lists first (ties keep the input order), and the grid size.
+    Empty buckets get no blocks; a dummy row (tidx == n_tiles) can only be
+    told on the device, where its units return at their first load and
+    write nothing.
+    """
+    shape = [tuple(b[1].shape) for b in buckets]
+    order = sorted((i for i, (B, C) in enumerate(shape) if B and C),
+                   key=lambda i: -shape[i][1])
+    per_row = tile_rays // LANES
+    spare = slots - per_row * sum(shape[i][0] for i in order)
+    entries, first = [], 0
+    for i in order:
+        B, C = shape[i]
+        parts = cand_parts(C)
+        if B * per_row * (parts - 1) > spare:
+            parts = 1
+        spare -= B * per_row * (parts - 1)
+        entries.append((i, B, C, parts, first, per_row))
+        per_block = GROUPS // parts
+        first += -(-B * per_row // per_block)
+    return tuple(entries), first
 
 
 def _validate(wald, origin, direction, buckets, tile_rays):
-    dev = origin.device
+    dev = origin.get_device()
     check_tensor("wald", wald, torch.float32, 2, dev)
     check_tensor("origin", origin, torch.float32, 2, dev)
     check_tensor("direction", direction, torch.float32, 2, dev)
@@ -77,31 +135,38 @@ def tile_traverse(wald, origin, direction, buckets, t_max: float,
     cand (B, C) i32 (-1 padded), bnd (B, C//8) f32) on the same device.
     Rows with tidx == T are dummies.  Returns (t (N,) f32, face (N,) i32);
     misses and tiles in no bucket are (BIG, -1).  CUDA tensors launch K1
-    once per bucket; CPU tensors take `tile_traverse_plain`.
+    once over all buckets (none when no bucket has rows); CPU tensors take
+    `tile_traverse_plain`.
     """
-    if origin.device.type == "cpu":
-        return tile_traverse_plain(wald, origin, direction, buckets, t_max,
-                                   tile_rays)
-    if origin.device.type != "cuda":
+    if not origin.is_cuda:
+        if origin.device.type == "cpu":
+            return tile_traverse_plain(wald, origin, direction, buckets,
+                                       t_max, tile_rays)
         raise ValueError(f"unsupported device {origin.device}")
     _validate(wald, origin, direction, buckets, tile_rays)
-    lib = KERNEL.build()
-    if lib.lbt_tile_traverse_rays_per_thread(tile_rays) == 0:
-        raise ValueError(f"tile_rays={tile_rays} exceeds the kernel's "
-                         "8192-ray tile limit")
+    if wald.data_ptr() % 16:
+        raise ValueError("wald must start on a 16-byte boundary")
+    index = origin.get_device()
+    entries, n_blocks = tile_schedule(buckets, tile_rays, card_slots(index))
+    if len(entries) > MAX_BUCKETS or n_blocks >= 2 ** 31:
+        raise ValueError(f"{len(entries)} buckets, {n_blocks} blocks: over "
+                         f"the kernel's {MAX_BUCKETS} buckets or 2^31 blocks")
     n = origin.shape[0]
     out_t = torch.full((n,), BIG, dtype=torch.float32, device=origin.device)
     out_f = torch.full((n,), -1, dtype=torch.int32, device=origin.device)
-    stream = torch.cuda.current_stream(origin.device).cuda_stream
-    for tidx, cand, bnd in buckets:
-        B, C = cand.shape
-        rc = lib.lbt_tile_traverse(
-            wald.data_ptr(), origin.data_ptr(), direction.data_ptr(),
-            tidx.data_ptr(), cand.data_ptr(), bnd.data_ptr(), B, C,
-            n // tile_rays, tile_rays, float(t_max), out_t.data_ptr(),
-            out_f.data_ptr(), stream)
-        KERNEL.check(rc, "tile_traverse")
-        KERNEL.launches += 1
+    if not entries:
+        return out_t, out_f
+    args = (ctypes.c_int64 * (ARGS_PER_BUCKET * len(entries)))()
+    for j, (i, *ints) in enumerate(entries):
+        tidx, cand, bnd = buckets[i]
+        args[ARGS_PER_BUCKET * j:ARGS_PER_BUCKET * (j + 1)] = (
+            tidx.data_ptr(), cand.data_ptr(), bnd.data_ptr(), *ints)
+    rc = KERNEL.launcher()(
+        wald.data_ptr(), origin.data_ptr(), direction.data_ptr(),
+        n // tile_rays, tile_rays, float(t_max), out_t.data_ptr(),
+        out_f.data_ptr(), len(entries), args, n_blocks, raw_stream(index))
+    KERNEL.check(rc, "tile_traverse")
+    KERNEL.launches += 1
     return out_t, out_f
 
 

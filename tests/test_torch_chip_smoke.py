@@ -51,6 +51,9 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys):
     _, fwd = chip_smoke.phase_forward("als", als, 1024, "K2")
     assert fwd["points"] > 0 and fwd["rays"] == 2048 * 10
     chip_smoke.phase_card_vs_cpu()
+    k3 = {}
+    chip_smoke.phase_profiles(tls, k1, k3)
+    assert k1["device_ms"] is None and k3["host_steps_us"] == {}
     out = capsys.readouterr().out
     assert "faces equal" in out and "K2 als chunk" in out
     assert "[card-vs-cpu] TLS L=2" in out and "[card-vs-cpu] ALS L=2" in out

@@ -48,8 +48,23 @@ def _fan(n_az, n_el):
     return np.broadcast_to(o0, d.shape).copy(), d
 
 
-# 128-640 rays per tile run one ray per thread; 1280, 2560 and 5120 run
-# 2, 4 and 8 rays per thread (the kernel's other template instances)
+def _k1_vs_plain(wald, og, dg, data, t_max, tile_rays):
+    """One K1 call (one launch) and the plain version on the same input:
+    faces equal, t to rtol 1e-6, misses (BIG, -1)."""
+    before = tr.KERNEL.launches
+    t_k, f_k = tr.tile_traverse(wald, og, dg, data, t_max, tile_rays)
+    torch.cuda.synchronize()
+    assert tr.KERNEL.launches == before + 1
+    t_p, f_p = tr.tile_traverse_plain(wald, og, dg, data, t_max, tile_rays)
+    assert torch.equal(f_k, f_p)
+    hit = f_p >= 0
+    torch.testing.assert_close(t_k[hit], t_p[hit], rtol=1e-6, atol=0)
+    assert bool((t_k[~hit] == BIG).all())
+    return f_k
+
+
+# 1-40 units of 128 rays per tile row; calls this small leave the card
+# idle, so their longest lists also take the candidate split
 @pytest.mark.parametrize("tile_rays", [128, 640, 1280, 2560, 5120])
 def test_kernel_matches_plain(card, tile_rays):
     scene = synthetic.terrain_with_boxes(np.random.default_rng(tile_rays),
@@ -58,17 +73,57 @@ def test_kernel_matches_plain(card, tile_rays):
     tt = TileTraverser(scene, tile_rays=tile_rays, device="cuda")
     data = tt.prepare(api.build_scene_bvh(scene), o, d, t_max=500.0)
     og, dg = torch.from_numpy(o).cuda(), torch.from_numpy(d).cuda()
-    before = tr.KERNEL.launches
-    t_k, f_k = tr.tile_traverse(tt.wald, og, dg, data, tt.t_max, tile_rays)
-    torch.cuda.synchronize()
-    assert tr.KERNEL.launches == before + len(data)
-    t_p, f_p = tr.tile_traverse_plain(tt.wald, og, dg, data, tt.t_max,
-                                      tile_rays)
-    assert torch.equal(f_k, f_p)
-    hit = f_p >= 0
-    assert int(hit.sum()) > 5000
-    torch.testing.assert_close(t_k[hit], t_p[hit], rtol=1e-6, atol=0)
-    assert bool((t_k[~hit] == BIG).all())
+    f = _k1_vs_plain(tt.wald, og, dg, data, tt.t_max, tile_rays)
+    assert int((f >= 0).sum()) > 5000
+
+
+def test_kernel_long_lists(card):
+    """Candidate lists longer than 1024 (4096 here: random rays make wide
+    tile beams), many 128-candidate stages and a 4-part split per ray."""
+    rng = np.random.default_rng(7)
+    scene = synthetic.random_triangles(rng, num_tris=3000, spread=30.0)
+    o = rng.uniform(-20, 20, (32 * 256, 3)).astype(np.float32)
+    d = rng.normal(0, 1, (32 * 256, 3))
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    tt = TileTraverser(scene, tile_rays=256, device="cuda")
+    data = tt.prepare(api.build_scene_bvh(scene), o, d, t_max=80.0)
+    assert max(c.shape[1] for _, c, _ in data) > 1024
+    f = _k1_vs_plain(tt.wald, torch.from_numpy(o).cuda(),
+                     torch.from_numpy(d).cuda(), data, tt.t_max, 256)
+    assert int((f >= 0).sum()) > 1000
+
+
+@pytest.mark.parametrize("n_cand", [128, 512])
+def test_kernel_planted_tie_across_split(card, n_cand):
+    """Coincident faces 40 (block 1) and 12 (block 6) land in different
+    parts of the split (2 and 4 parts): the earlier block wins, as in the
+    serial walk, though its id is larger."""
+    wald, o, d, ids = (torch.from_numpy(a).cuda()
+                       for a in chip_smoke.planted_tie(n_cand))
+    bucket = (torch.zeros(1, dtype=torch.int32, device="cuda"), ids[None],
+              torch.zeros((1, n_cand // 8), device="cuda"))
+    f = _k1_vs_plain(wald, o, d, [bucket], 100.0, 128)
+    assert int((f == 40).sum()) > 10 and not bool((f == 12).any())
+
+
+def test_kernel_dummy_bucket_and_uncovered_tiles(card):
+    """One call over a real bucket, an all-dummy bucket and an empty one:
+    the dummy rows write nothing and tiles 1 and 2, in no bucket, stay
+    (BIG, -1)."""
+    wald, o, d, ids = (torch.from_numpy(a).cuda()
+                       for a in chip_smoke.planted_tie(512))
+    o3, d3 = o.repeat(3, 1), d.repeat(3, 1)                 # 3 tiles
+    i32 = dict(dtype=torch.int32, device="cuda")
+    data = [(torch.tensor([0, 3], **i32),
+             torch.stack([ids, torch.full_like(ids, -1)]),
+             torch.zeros((2, 64), device="cuda")),
+            (torch.full((4,), 3, **i32), torch.zeros((4, 8), **i32),
+             torch.zeros((4, 1), device="cuda")),
+            (torch.zeros(0, **i32), torch.zeros((0, 16), **i32),
+             torch.zeros((0, 2), device="cuda"))]
+    f = _k1_vs_plain(wald, o3, d3, data, 100.0, 128)
+    assert int((f[:128] >= 0).sum()) > 10
+    assert bool((f[128:] == -1).all())
 
 
 def test_kernel_checks_inputs_and_drops_dummy_rows(card):
@@ -197,7 +252,9 @@ def test_simulator_pulse_path_card_matches_cpu(card):
     torch.testing.assert_close(g.intensity, c.intensity, rtol=1e-4, atol=0)
 
 
-@pytest.mark.parametrize("shape", [(8, 128), (1 << 20,), (3, 1000)])
+# sizes that are no multiple of 4 go through the float4 body's scalar tail
+@pytest.mark.parametrize("shape", [(8, 128), (1 << 20,), (3, 1000),
+                                   ((1 << 20) + 3,), (1001,), (3,)])
 def test_affine_smoke_matches_plain(card, shape):
     x = torch.randn(shape, generator=torch.Generator().manual_seed(0))
     x = (x * 1e3).cuda()
@@ -209,6 +266,16 @@ def test_affine_smoke_matches_plain(card, shape):
     with pytest.raises(ValueError):
         smoke.affine_smoke(x.double())
     bench.kernel_smoke("cuda")
+
+
+def test_affine_smoke_misaligned_view(card):
+    """A view 4 bytes into its storage takes the one-element-per-thread
+    kernel."""
+    x = torch.randn(4099, generator=torch.Generator().manual_seed(1)).cuda()
+    view = x[1:]
+    assert view.data_ptr() % 16
+    assert torch.equal(smoke.affine_smoke(view),
+                       smoke.affine_smoke_plain(view))
 
 
 @pytest.mark.parametrize("kind", ["tile", "pulse"])
