@@ -17,7 +17,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    of 4, timed beside `torch.addcmul` (CUDA events and host time per
    call); for K1 and K2 every face equal, t to rtol 1e-6 where a face is
    hit.  K1 on random tiles (lists of 4,096), a fan of rays over boxes, a
-   tie planted across its candidate split and the `tls` workload's real
+   tie planted across two blocks of 8 and the `tls` workload's real
    bucket chunk (one launch per call; CUDA events on a queued stream, also
    without the chunk's dummy rows, and back to back); K2 on a fan over
    boxes (group 1
@@ -266,7 +266,7 @@ def fan_rays(n_side):
 
 
 def planted_tie(n_cand: int, seed: int = 0):
-    """A tie across K1's candidate split: one 128-ray tile and one list of
+    """A tie across two of K1's blocks of 8: one 128-ray tile and one list of
     ``n_cand`` >= 64 candidates holding two coincident triangles in
     different blocks of 8, the earlier one with the larger id (face 40 in
     block 1, face 12 in block 6), among 62 small random ones, -1 padded.
@@ -482,32 +482,13 @@ def k1_chunk(reps: int = 20) -> dict:
                launches_per_call=per_call, events_ms=events,
                call_ms=call_ms, device_ms=dev["per_call"],
                device_ms_by_launch=by_launch)
-    if hasattr(tr, "card_slots"):
-        # the candidate split as the schedule picks it, forced off (one
-        # group's slot) and forced on (every long list): on the chunk, on
-        # each bucket alone, and on a small call (the first 24 rows of the
-        # two longest buckets, which fits on the card split)
-        picked = tr.card_slots
-        dev_ms = lambda d: kernel_device_ms(
-            lambda: tr.tile_traverse(tr_.wald, og, dg, d, tr_.t_max,
-                                     tr_.tile_rays), reps,
-            "tile_traverse_kernel")["per_call"]
-        longest = sorted(data, key=lambda b: -b[1].shape[1])[:2]
-        small = [(t[:24], c[:24], b[:24]) for t, c, b in longest]
-        for name, slots in (("picked", picked), ("off", lambda i: 1),
-                            ("on", lambda i: 10 ** 9)):
-            tr.card_slots = slots
-            try:
-                out[f"split_{name}_device_ms"] = dev_ms(data)
-                out[f"split_{name}_bucket_alone_ms"] = [dev_ms([b])
-                                                        for b in data]
-                out[f"split_{name}_small_call_ms"] = dev_ms(small)
-            finally:
-                tr.card_slots = picked
     return out
 
 
 def phase_kernel_vs_plain(tls):
+    """K1 against its plain version on every input, timed on the `tls`
+    chunk.  Returns (K1's record, the chunk: traverser, origins,
+    directions, buckets)."""
     import numpy as np
     import torch
     from lidar_brdf_tpu_torch import api
@@ -530,7 +511,8 @@ def phase_kernel_vs_plain(tls):
     errs.append(compare_kernel("fan over boxes", tt,
                                torch.from_numpy(o).to(DEVICE),
                                torch.from_numpy(d).to(DEVICE), data, 128))
-    # a tie across the candidate split (2 and 4 parts), beside a dummy row
+    # a tie across two blocks of 8, beside a dummy row, in lists of one
+    # and of four 128-candidate stages
     for n_cand in (128, 512):
         wald, o, d, ids = (torch.from_numpy(a).to(DEVICE)
                            for a in planted_tie(n_cand))
@@ -545,6 +527,7 @@ def phase_kernel_vs_plain(tls):
     # one real chunk of the tls workload: BSP order + host cull as the
     # Simulator does it
     tr_, og, dg, data, cull_s = tls_chunk(tls)
+    chunk = (tr_, og, dg, data)
     R = tr_.tile_rays
     errs.append(compare_kernel("tls chunk", tr_, og, dg, data, R))
     sizes = [tuple(c.shape) for _, c, _ in data]
@@ -590,7 +573,7 @@ def phase_kernel_vs_plain(tls):
                 call_ms=call_ms,
                 ms_without_dummy_rows=ms_trim,
                 pairs_needed=needed,
-                pairs_without_exit=padded, cull_s=cull_s)
+                pairs_without_exit=padded, cull_s=cull_s), chunk
 
 
 def compare_k2(name, wald, o, d, data, t_max, R):
@@ -933,9 +916,7 @@ def k3_host_steps(x, reps: int = 10_000) -> dict:
     }
     out = {k: host_us(f, reps) for k, f in steps.items()}
     out["sum of steps"] = sum(out.values())
-    before = smoke.KERNEL.launches
     out["affine_smoke"] = host_us(lambda: smoke.affine_smoke(x), reps)
-    smoke.KERNEL.launches = before          # timing launches, not the path
     out["torch.addcmul"] = host_us(lambda: torch.addcmul(one, x, two), reps)
     return out
 
@@ -963,7 +944,6 @@ def phase_k3_vs_plain():
     import torch
     from lidar_brdf_tpu_torch.kernels import smoke
     tile, big, one, two = k3_inputs()
-    before = smoke.KERNEL.launches
     for x in (big[:K3_BIG + 3], big[:1001], big[1:1002], big[:3]):
         if not torch.equal(smoke.affine_smoke(x), smoke.affine_smoke_plain(x)):
             fail(f"K3 differs from 2x + 1 on {x.numel()} elements at "
@@ -988,7 +968,6 @@ def phase_k3_vs_plain():
             ms_runs=ms[0::2], library_ms_runs=ms[1::2],
             plain_ms=cuda_ms(lambda: smoke.affine_smoke_plain(x), 1000),
             host_us=min(us[0], us[2]), library_host_us=min(us[1], us[3]))
-    smoke.KERNEL.launches = before          # comparison launches only
     n = tile.numel()
     bound_ms, bound_by, ops_ms, bytes_ms = (
         max(2 * n / H100_F32_OPS_PER_S, 8 * n / H100_BYTES_PER_S) * 1e3,
@@ -1021,16 +1000,16 @@ def phase_k3_vs_plain():
         library_host_us_1m=out["1M"]["library_host_us"])
 
 
-def phase_profiles(tls, k1, k3):
+def phase_profiles(chunk, k1, k3):
     """Measurements that would disturb the timed phases, taken last: K1's
-    device time on the `tls` chunk and K3's and `torch.addcmul`'s on the
-    tile and at K3_BIG by `torch.profiler`, and each step of K3's wrapper
-    on the host over 10,000 calls.  Adds them to the ``k1`` and ``k3``
-    records."""
+    device time on phase 2's `tls` chunk and K3's and `torch.addcmul`'s on
+    the tile and at K3_BIG by `torch.profiler`, and each step of K3's
+    wrapper on the host over 10,000 calls.  Adds them to the ``k1`` and
+    ``k3`` records."""
     import torch
     from lidar_brdf_tpu_torch.kernels import smoke
     from lidar_brdf_tpu_torch.kernels import traverse as tr
-    tr_, og, dg, data, _ = tls_chunk(tls)
+    tr_, og, dg, data = chunk
     dev = kernel_device_ms(lambda: tr.tile_traverse(
         tr_.wald, og, dg, data, tr_.t_max, tr_.tile_rays), 20,
         "tile_traverse_kernel")
@@ -1039,7 +1018,6 @@ def phase_profiles(tls, k1, k3):
         f"call ({dev['launches']} launches in 20 calls; CUDA events on a "
         f"queue, fills included: {k1['ms']:.4f} ms)")
     tile, big, one, two = k3_inputs()
-    before = smoke.KERNEL.launches
     for suffix, x in (("", tile), ("_1m", big[:K3_BIG])):
         k3["device_ms" + suffix] = kernel_device_ms(
             lambda: smoke.affine_smoke(x), 200)["per_call"]
@@ -1050,7 +1028,6 @@ def phase_profiles(tls, k1, k3):
             f"{fmt_ms(k3['library_device_ms' + suffix])} ms per call")
     k3["host_steps_us"] = steps = (k3_host_steps(tile) if DEVICE == "cuda"
                                    else {})
-    smoke.KERNEL.launches = before          # comparison launches only
     log("[profile] K3 tile, host us per step over 10,000 calls: " + ", ".join(
         f"{k} {v:.3f}" for k, v in steps.items()))
 
@@ -1270,7 +1247,7 @@ def main() -> int:
     tls = tls_workload("cuda")
     log(f"[setup] tls workload built in {time.perf_counter() - t0:.2f} s")
     k3 = phase_k3_vs_plain()
-    k1 = phase_kernel_vs_plain(tls)
+    k1, k1_chunk_data = phase_kernel_vs_plain(tls)
     t0 = time.perf_counter()
     als = als_workload("cuda")
     log(f"[setup] als workload built in {time.perf_counter() - t0:.2f} s")
@@ -1283,7 +1260,7 @@ def main() -> int:
     (k3["launches"], k1["launches_fwd_bwd"], k2["launches_fwd_bwd"],
      training) = phase_training(als)
     phase_card_vs_cpu_grads()
-    phase_profiles(tls, k1, k3)
+    phase_profiles(k1_chunk_data, k1, k3)
     log(json.dumps({"card": card, "tls_forward": tls_fwd,
                     "als_forward": als_fwd, "traverser_choice": choice,
                     "fwd_bwd": training,

@@ -19,38 +19,31 @@
 //
 //   * one launch per call over all buckets.  The host
 //     (kernels/traverse.py::tile_schedule) orders the buckets by list
-//     length, longest first, and gives each a block offset and a candidate
-//     split, passed by value in the kernel's parameter block (no device
-//     copy, no sync).  Long lists start at time zero and short ones fill the
-//     card behind them;
-//   * the work is cut into units of 128 consecutive rays of one tile; a
-//     block is 4 groups of 128 threads, each group one thread per ray, and
-//     runs 4 / parts units, synchronised per unit by a named barrier;
-//   * where a call's units, split, all fit on the card at once, `parts` (2
-//     or 4) groups share a unit and take its blocks of 8 candidates
-//     interleaved (part p takes blocks p, p + parts, ...), reading one
-//     staged copy: there one ray's serial walk sets the time.  Each part
-//     publishes its best t per ray in shared memory and stops at the first
-//     block whose lower bound exceeds the ray's best over all parts; the
-//     parts then merge by (t, block index), lowest first, which is the
-//     serial walk's strict < across blocks.  A call that fills the card
-//     (the `tls` chunk) takes one group per unit: there the split's extra
-//     blocks only queue units behind one another;
+//     length, longest first, and gives each a block offset, passed by value
+//     in the kernel's parameter block (no device copy, no sync).  Long lists
+//     start at time zero and short ones fill the card behind them;
+//   * the work is cut into units of 128 consecutive rays of one tile, so a
+//     640-ray row of a long list is spread over five groups; a block is 4
+//     groups of 128 threads, one thread per ray, each group one unit,
+//     synchronised by its own named barrier (never the block's), so units
+//     that end early do not wait for the others;
 //   * candidates are staged 128 at a time, double-buffered: the ids and
 //     bounds of the next chunk are loaded a chunk ahead into registers, and
 //     each 48-byte Wald row arrives by three 16-byte cp.async copies, so the
 //     gather of chunk k + 1 overlaps the tests of chunk k.  The tests read a
 //     staged row as three float4 (one broadcast each for a warp).  A unit's
-//     stage is ~14 KB of shared memory whatever the list length.
+//     stage is ~13 KB of shared memory whatever the list length.
 //
+// What is left on the `tls` chunk is the test work itself, the longest
+// rays' serial walks starting first (PERF.md, K1).
+
 // Exactness contract (the plain PyTorch version in kernels/traverse.py and
 // the Pallas kernel give identical faces):
 //   * the Wald test and tie rule of wald.cuh, shared with K2;
-//   * early exit: a ray's part skips every block whose lower distance bound
-//     exceeds the best t any part of that ray has found (the bounds are a
-//     conservative, monotone prefix, so no skipped block can hold the
-//     winner), and the unit stops once none of its rays is live.  Results
-//     do not depend on where or when it exits;
+//   * early exit: a ray stops at the first block whose lower distance bound
+//     exceeds its best t (the bounds are a conservative, monotone prefix, so
+//     no skipped block can hold the winner), and the unit stops once none of
+//     its rays is live.  Results do not depend on where or when it exits;
 //   * dummy rows (tidx outside [0, n_tiles)) write nothing, as
 //     `.at[].set(mode="drop")` does; tiles in no bucket keep the wrapper's
 //     (BIG, -1).
@@ -70,7 +63,7 @@ constexpr int THREADS = GROUP * GROUPS;
 constexpr int CHUNK = GROUP;                       // candidates per stage
 constexpr int CHUNK_BLOCKS = CHUNK / CAND_BLOCK;   // blocks of 8 per stage
 constexpr int MAX_BUCKETS = 32;
-constexpr int ARGS_PER_BUCKET = 8;
+constexpr int ARGS_PER_BUCKET = 7;
 
 struct Bucket {
   const int32_t* tidx;   // (B,)
@@ -78,7 +71,6 @@ struct Bucket {
   const float* bnd;      // (B, C / 8)
   int rows;              // B
   int n_cand;            // C
-  int parts;             // groups sharing one unit: 1, 2 or 4
   int first_block;       // the bucket's first block in the grid
   int units_per_row;     // tile_rays / GROUP
 };
@@ -100,12 +92,7 @@ struct Stage {
   float bnd[CHUNK_BLOCKS];
 };
 
-struct Unit {                    // one unit's shared memory
-  Stage stage[2];
-  float best[GROUP];             // best t >= 0 per ray over the parts
-};
-
-constexpr int DYNAMIC_SMEM = GROUPS * static_cast<int>(sizeof(Unit));
+constexpr int DYNAMIC_SMEM = GROUPS * 2 * static_cast<int>(sizeof(Stage));
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -177,31 +164,23 @@ __device__ __forceinline__ int32_t staged_row(const Stage& st, int c,
 __global__ void __launch_bounds__(THREADS, 2)
 tile_traverse_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float s_t[THREADS];      // the parts' results, for the merge
-  __shared__ int32_t s_f[THREADS];
-  __shared__ int32_t s_b[THREADS];
 
-  // block -> bucket (uniform); group -> unit of the block and part
+  // block -> bucket (uniform); group -> unit
   int k = 0;
   while (k + 1 < p.n_buckets &&
          static_cast<int>(blockIdx.x) >= p.bucket[k + 1].first_block)
     ++k;
   const Bucket& bk = p.bucket[k];
-  const int parts = bk.parts;
   const int group = threadIdx.x / GROUP;
-  const int slot = group / parts;
-  const int part = group - slot * parts;
   const int lane = threadIdx.x - group * GROUP;
   const int unit =
-      (static_cast<int>(blockIdx.x) - bk.first_block) * (GROUPS / parts) +
-      slot;
+      (static_cast<int>(blockIdx.x) - bk.first_block) * GROUPS + group;
   if (unit >= bk.rows * bk.units_per_row) return;    // past the last unit
   const int row = unit / bk.units_per_row;
   const int tile = __ldg(bk.tidx + row);
   if (tile < 0 || tile >= p.n_tiles) return;         // dummy row
-  const int bar = 1 + slot;           // the unit's barrier and its threads
-  const int n_thr = GROUP * parts;
-  Unit& u = reinterpret_cast<Unit*>(smem)[slot];
+  const int bar = 1 + group;                          // the unit's barrier
+  Stage* stage = reinterpret_cast<Stage*>(smem) + 2 * group;
 
   const int64_t g = (int64_t)tile * p.tile_rays +
                     (int64_t)(unit - row * bk.units_per_row) * GROUP + lane;
@@ -217,34 +196,27 @@ tile_traverse_kernel(const __grid_constant__ Params p) {
   const float* bnd_row = bk.bnd + (int64_t)row * n_blk;
   const float t_max = p.t_max;
   const float inf = __int_as_float(0x7f800000);
-  // part 0 stages the unit's candidates, one per thread
+  // the unit stages its candidates, one per thread
   auto fetch = [&](int ch, int32_t& id, float& bound) {
     const int c = ch * CHUNK + lane;
     id = c < C ? __ldg(cand_row + c) : -1;
     const int b = ch * CHUNK_BLOCKS + lane;
     bound = (lane < CHUNK_BLOCKS && b < n_blk) ? __ldg(bnd_row + b) : inf;
   };
-  const bool stager = part == 0;
 
-  volatile float* best = u.best;
   float t_best = t_max;
   int32_t f_best = -1;
-  int32_t b_best = 0x7fffffff;      // block index of this part's winner
   bool done = false;
   int32_t id;
   float bound;
-  if (stager) {
-    u.best[lane] = t_max;
-    fetch(0, id, bound);
-    stage_chunk(u.stage[0], p.wald, lane, id, bound);
-    if (n_chunks > 1) fetch(1, id, bound);
-  }
+  fetch(0, id, bound);
+  stage_chunk(stage[0], p.wald, lane, id, bound);
+  if (n_chunks > 1) fetch(1, id, bound);
   cp_async_commit();
-  unit_sync(bar, n_thr);            // best[] initialised
 
   for (int ch = 0; ch < n_chunks; ++ch) {
-    if (stager && ch + 1 < n_chunks) {
-      stage_chunk(u.stage[(ch + 1) & 1], p.wald, lane, id, bound);
+    if (ch + 1 < n_chunks) {
+      stage_chunk(stage[(ch + 1) & 1], p.wald, lane, id, bound);
       if (ch + 2 < n_chunks) fetch(ch + 2, id, bound);
     }
     cp_async_commit();
@@ -252,13 +224,13 @@ tile_traverse_kernel(const __grid_constant__ Params p) {
     // barrier: all of chunk ch is in shared memory; the unit stops when no
     // ray of it is live at the chunk's first bound
     const float b0 = __ldg(bnd_row + ch * CHUNK_BLOCKS);
-    const bool live = !done && !(b0 > fminf(t_best, best[lane]));
-    if (!unit_sync_or(bar, n_thr, live)) break;
+    const bool live = !done && !(b0 > t_best);
+    if (!unit_sync_or(bar, GROUP, live)) break;
     if (!done) {
-      const Stage& st = u.stage[ch & 1];
+      const Stage& st = stage[ch & 1];
       const int nb = min(CHUNK_BLOCKS, n_blk - ch * CHUNK_BLOCKS);
-      for (int lb = part; lb < nb; lb += parts) {
-        if (st.bnd[lb] > fminf(t_best, best[lane])) {
+      for (int lb = 0; lb < nb; ++lb) {
+        if (st.bnd[lb] > t_best) {
           done = true;              // the bounds only grow from here
           break;
         }
@@ -270,34 +242,12 @@ tile_traverse_kernel(const __grid_constant__ Params p) {
         if (t_c < t_best) {
           t_best = t_c;
           f_best = f_c;
-          b_best = ch * CHUNK_BLOCKS + lb;
-          if (parts > 1)            // t >= 0 orders as its bits do
-            atomicMin(reinterpret_cast<int*>(u.best) + lane,
-                      __float_as_int(fmaxf(t_c, 0.0f)));
         }
       }
     }
-    unit_sync(bar, n_thr);          // chunk ch's buffer is refilled next
+    unit_sync(bar, GROUP);          // chunk ch's buffer is refilled next
   }
   cp_async_wait<0>();
-
-  if (parts > 1) {                  // merge by (t, block index), lowest first
-    s_t[threadIdx.x] = t_best;
-    s_f[threadIdx.x] = f_best;
-    s_b[threadIdx.x] = b_best;
-    unit_sync(bar, n_thr);
-    if (part != 0) return;
-    for (int q = 1; q < parts; ++q) {
-      const int j = threadIdx.x + q * GROUP;
-      const float t = s_t[j];
-      const int32_t b = s_b[j];
-      if (t < t_best || (t == t_best && b < b_best)) {
-        t_best = t;
-        f_best = s_f[j];
-        b_best = b;
-      }
-    }
-  }
   p.out_t[g] = f_best < 0 ? BIG : t_best;
   p.out_f[g] = f_best;
 }
@@ -308,9 +258,9 @@ extern "C" {
 
 // One launch over all buckets of a call.  ``args`` holds ARGS_PER_BUCKET
 // int64 per bucket, in launch order (kernels/traverse.py::tile_schedule):
-// tidx, cand and bnd pointers, rows B, C, parts, first block, units per
-// row.  Returns the cudaError_t of the launch (0 on success); the kernel
-// runs asynchronously on `stream`.
+// tidx, cand and bnd pointers, rows B, C, first block, units per row.
+// Returns the cudaError_t of the launch (0 on success); the kernel runs
+// asynchronously on `stream`.
 int lbt_tile_traverse(const float* wald, const float* origin,
                       const float* direction, int n_tiles, int tile_rays,
                       float t_max, float* out_t, int32_t* out_f,
@@ -340,16 +290,13 @@ int lbt_tile_traverse(const float* wald, const float* origin,
     b.bnd = reinterpret_cast<const float*>(a[2]);
     b.rows = static_cast<int>(a[3]);
     b.n_cand = static_cast<int>(a[4]);
-    b.parts = static_cast<int>(a[5]);
-    b.first_block = static_cast<int>(a[6]);
-    b.units_per_row = static_cast<int>(a[7]);
-    const bool parts_ok = b.parts == 1 || b.parts == 2 || b.parts == 4;
-    if (a[3] <= 0 || b.n_cand <= 0 || b.n_cand % CAND_BLOCK || !parts_ok ||
+    b.first_block = static_cast<int>(a[5]);
+    b.units_per_row = static_cast<int>(a[6]);
+    if (a[3] <= 0 || b.n_cand <= 0 || b.n_cand % CAND_BLOCK ||
         b.first_block != next ||
         (int64_t)b.units_per_row * GROUP != tile_rays)
       return static_cast<int>(cudaErrorInvalidValue);
-    const int64_t per_block = GROUPS / b.parts;
-    next += (a[3] * b.units_per_row + per_block - 1) / per_block;
+    next += (a[3] * b.units_per_row + GROUPS - 1) / GROUPS;
   }
   if (next != n_blocks) return static_cast<int>(cudaErrorInvalidValue);
   static uint64_t smem_set = 0;     // once per card (bit = device index)

@@ -10,12 +10,9 @@ inside its wrapper.
 
 The launch path is kept short, because a small launch is bound by the
 host, not the card: the launch function is resolved once (only the first
-call takes the build lock), the library is loaded as a `ctypes.PyDLL`
-(its C functions only enqueue work, so a call keeps the interpreter lock
-rather than dropping and taking it again), the stream is PyTorch's raw
-current-stream handle (no `torch.cuda.Stream` object per call), and
-`check_tensor` tests dtype, rank, device and contiguity in one
-expression.
+call takes the build lock), the stream is PyTorch's raw current-stream
+handle (no `torch.cuda.Stream` object per call), and `check_tensor` tests
+dtype, rank, device and contiguity in one expression.
 """
 
 from __future__ import annotations
@@ -105,7 +102,7 @@ class CudaLibrary:
                 finally:
                     if os.path.exists(tmp):
                         os.remove(tmp)
-            lib = ctypes.PyDLL(self.path)
+            lib = ctypes.CDLL(self.path)
             self._declare(lib)
             lib.lbt_cuda_error_string.argtypes = [ctypes.c_int]
             lib.lbt_cuda_error_string.restype = ctypes.c_char_p

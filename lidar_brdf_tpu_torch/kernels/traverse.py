@@ -19,7 +19,6 @@ Counterpart of `lidar_brdf_tpu/kernels/traverse_pallas.py`.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
@@ -31,9 +30,9 @@ from ..geom.intersect import BIG, EPSILON
 from .cuda_build import CudaLibrary, check_tensor, raw_stream
 
 LANES = 128          # tile_rays granularity: one K1 unit of 128 rays,
-GROUPS = 4           # K1 (csrc/tile_traverse.cu): groups of a block,
+GROUPS = 4           # K1 (csrc/tile_traverse.cu): units of a block,
 MAX_BUCKETS = 32     # buckets of a launch,
-ARGS_PER_BUCKET = 8  # int64 launch arguments of a bucket
+ARGS_PER_BUCKET = 7  # int64 launch arguments of a bucket
 CAND_BLOCK = 8       # candidates per tie-rule block
 INT_MISS = 2 ** 30
 
@@ -48,58 +47,29 @@ def _declare(lib):
 KERNEL = CudaLibrary("tile_traverse.cu", _declare, "lbt_tile_traverse")
 
 
-def cand_parts(n_cand: int) -> int:
-    """Groups of a K1 block that may share one unit's 128 rays and split
-    their blocks of 8 candidates: 4 for lists of 256+ candidates, 2 for
-    128, else 1."""
-    return 4 if n_cand >= 256 else 2 if n_cand >= 128 else 1
-
-
-@functools.lru_cache(maxsize=None)
-def card_slots(device_index: int) -> int:
-    """Groups of 128 threads a card runs at once in K1: 2 blocks of 4 per
-    SM."""
-    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
-    return sms * 2 * GROUPS
-
-
-def tile_schedule(buckets, tile_rays: int, slots: int):
+def tile_schedule(buckets, tile_rays: int):
     """K1's work list for one call, from the bucket shapes alone (no device
     read).
 
     The work of a bucket is cut into units, one per 128 consecutive rays of
-    a row's tile (``tile_rays // 128`` units per row, row after row).  A
-    unit is run by ``parts`` groups of 128 threads, one thread per ray and
-    part, the parts taking the row's blocks of 8 candidates interleaved; a
-    block of 4 groups runs ``4 // parts`` consecutive units.  A call whose
-    units, split, all fit on the card at once (the card runs ``slots``
-    groups) gives its longest lists ``cand_parts(C)`` groups per unit,
-    longest first, as far as the idle groups go: there one ray's serial
-    walk sets the time and the split only shortens it.  A call that fills
-    the card takes one group per unit: there the split's extra blocks
-    queue units behind one another and cost more than they save.  Returns
-    ``(entries, n_blocks)``: one entry ``(index, B, C, parts, first_block,
-    units_per_row)`` per bucket with rows and candidates, in launch order,
-    longest lists first (ties keep the input order), and the grid size.
-    Empty buckets get no blocks; a dummy row (tidx == n_tiles) can only be
-    told on the device, where its units return at their first load and
-    write nothing.
+    a row's tile (``tile_rays // 128`` units per row, row after row); a
+    unit is one group of 128 threads, one thread per ray, and a block of 4
+    groups runs 4 consecutive units.  Returns ``(entries, n_blocks)``: one
+    entry ``(index, B, C, first_block, units_per_row)`` per bucket with
+    rows and candidates, in launch order, longest lists first (ties keep
+    the input order), and the grid size.  Empty buckets get no blocks; a
+    dummy row (tidx == n_tiles) can only be told on the device, where its
+    units return at their first load and write nothing.
     """
     shape = [tuple(b[1].shape) for b in buckets]
     order = sorted((i for i, (B, C) in enumerate(shape) if B and C),
                    key=lambda i: -shape[i][1])
     per_row = tile_rays // LANES
-    spare = slots - per_row * sum(shape[i][0] for i in order)
     entries, first = [], 0
     for i in order:
         B, C = shape[i]
-        parts = cand_parts(C)
-        if B * per_row * (parts - 1) > spare:
-            parts = 1
-        spare -= B * per_row * (parts - 1)
-        entries.append((i, B, C, parts, first, per_row))
-        per_block = GROUPS // parts
-        first += -(-B * per_row // per_block)
+        entries.append((i, B, C, first, per_row))
+        first += -(-B * per_row // GROUPS)
     return tuple(entries), first
 
 
@@ -146,8 +116,7 @@ def tile_traverse(wald, origin, direction, buckets, t_max: float,
     _validate(wald, origin, direction, buckets, tile_rays)
     if wald.data_ptr() % 16:
         raise ValueError("wald must start on a 16-byte boundary")
-    index = origin.get_device()
-    entries, n_blocks = tile_schedule(buckets, tile_rays, card_slots(index))
+    entries, n_blocks = tile_schedule(buckets, tile_rays)
     if len(entries) > MAX_BUCKETS or n_blocks >= 2 ** 31:
         raise ValueError(f"{len(entries)} buckets, {n_blocks} blocks: over "
                          f"the kernel's {MAX_BUCKETS} buckets or 2^31 blocks")
@@ -164,7 +133,8 @@ def tile_traverse(wald, origin, direction, buckets, t_max: float,
     rc = KERNEL.launcher()(
         wald.data_ptr(), origin.data_ptr(), direction.data_ptr(),
         n // tile_rays, tile_rays, float(t_max), out_t.data_ptr(),
-        out_f.data_ptr(), len(entries), args, n_blocks, raw_stream(index))
+        out_f.data_ptr(), len(entries), args, n_blocks,
+        raw_stream(origin.get_device()))
     KERNEL.check(rc, "tile_traverse")
     KERNEL.launches += 1
     return out_t, out_f

@@ -31,7 +31,7 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys):
     monkeypatch.setattr(simulate, "PULSE_MIN_FACES", 10_000)
     tls = chip_smoke.tls_workload("cpu")
     assert tls[4].num_pulses == 4096 and tls[0].num_faces > 1500
-    k1 = chip_smoke.phase_kernel_vs_plain(tls)
+    k1, chunk = chip_smoke.phase_kernel_vs_plain(tls)
     als = chip_smoke.als_workload("cpu")
     assert als[4].num_pulses == 2048 and als[4].rays_per_pulse == 10
     assert als[0].num_faces > 15_000 and als[0].face_neighbors is not None
@@ -52,7 +52,7 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys):
     assert fwd["points"] > 0 and fwd["rays"] == 2048 * 10
     chip_smoke.phase_card_vs_cpu()
     k3 = {}
-    chip_smoke.phase_profiles(tls, k1, k3)
+    chip_smoke.phase_profiles(chunk, k1, k3)
     assert k1["device_ms"] is None and k3["host_steps_us"] == {}
     out = capsys.readouterr().out
     assert "faces equal" in out and "K2 als chunk" in out

@@ -63,8 +63,7 @@ def _k1_vs_plain(wald, og, dg, data, t_max, tile_rays):
     return f_k
 
 
-# 1-40 units of 128 rays per tile row; calls this small leave the card
-# idle, so their longest lists also take the candidate split
+# 1-40 units of 128 rays per tile row
 @pytest.mark.parametrize("tile_rays", [128, 640, 1280, 2560, 5120])
 def test_kernel_matches_plain(card, tile_rays):
     scene = synthetic.terrain_with_boxes(np.random.default_rng(tile_rays),
@@ -79,7 +78,7 @@ def test_kernel_matches_plain(card, tile_rays):
 
 def test_kernel_long_lists(card):
     """Candidate lists longer than 1024 (4096 here: random rays make wide
-    tile beams), many 128-candidate stages and a 4-part split per ray."""
+    tile beams): many 128-candidate stages, double-buffered."""
     rng = np.random.default_rng(7)
     scene = synthetic.random_triangles(rng, num_tris=3000, spread=30.0)
     o = rng.uniform(-20, 20, (32 * 256, 3)).astype(np.float32)
@@ -94,10 +93,10 @@ def test_kernel_long_lists(card):
 
 
 @pytest.mark.parametrize("n_cand", [128, 512])
-def test_kernel_planted_tie_across_split(card, n_cand):
-    """Coincident faces 40 (block 1) and 12 (block 6) land in different
-    parts of the split (2 and 4 parts): the earlier block wins, as in the
-    serial walk, though its id is larger."""
+def test_kernel_planted_tie_across_blocks(card, n_cand):
+    """Coincident faces 40 (block 1) and 12 (block 6): the earlier block
+    wins, as in the serial walk, though its id is larger; in a list of one
+    128-candidate stage and of four."""
     wald, o, d, ids = (torch.from_numpy(a).cuda()
                        for a in chip_smoke.planted_tie(n_cand))
     bucket = (torch.zeros(1, dtype=torch.int32, device="cuda"), ids[None],

@@ -1,14 +1,15 @@
-"""K1's one-launch work list and its split-and-merge rule, on the CPU.
+"""K1's one-launch work list and its staged walk, on the CPU.
 
 The tile kernel (`kernels/csrc/tile_traverse.cu`) runs every bucket of a
-call in one launch over the blocks `tile_schedule` lays out, and in long
-rows it splits one ray's candidate blocks across thread groups whose
-partial results merge by (t, block index), lowest first.  The kernel runs
-only on the card (`tests/test_torch_cuda.py` holds it against the plain
-version there); here the schedule is decoded block by block as the kernel
-decodes it, and the merge rule is held against the serial walk of
-`wald_blocks_plain`.  Results are compared exactly: the merge picks one of
-the serial walk's own (t, face) values.
+call in one launch over the blocks `tile_schedule` lays out, four units of
+128 rays a block, and walks each ray's candidates in stages of 128 with
+two exits on the blocks' lower distance bounds: a ray stops at the first
+block whose bound exceeds its best t, and a unit stops at a stage whose
+first bound exceeds the best t of all its rays.  The kernel runs only on
+the card (`tests/test_torch_cuda.py` holds it against the plain version
+there); here the schedule is decoded block by block as the kernel decodes
+it, and the staged walk with its exits is held against the serial walk of
+`wald_blocks_plain`, which has no exit.  Results are compared exactly.
 """
 
 import numpy as np
@@ -24,14 +25,18 @@ TLS_BUCKETS = [(1024, 8, 996), (512, 16, 323), (256, 32, 192),
                (256, 64, 137), (64, 128, 43), (64, 256, 57), (128, 512, 76),
                (128, 1024, 91)]
 TLS_TILES = 2048
+STAGE_BLOCKS = 16      # blocks of 8 in one of K1's 128-candidate stages
 
 
-def _tls_like_buckets(rng, n_tiles):
-    """Buckets of the tls chunk's shapes, plus an empty one: real rows
-    first, each a distinct tile; dummy rows (tidx == n_tiles) after."""
+def _tls_like_buckets(rng, n_tiles, order):
+    """Buckets of the tls chunk's shapes, plus an empty one, in the given
+    order: real rows first, each a distinct tile; dummy rows (tidx ==
+    n_tiles) after."""
     tiles = rng.permutation(n_tiles)
+    shapes = TLS_BUCKETS[:4] + [(0, 8, 0)] + TLS_BUCKETS[4:]
     buckets, at = [], 0
-    for B, C, real in TLS_BUCKETS[:4] + [(0, 8, 0)] + TLS_BUCKETS[4:]:
+    for j in order(len(shapes)):
+        B, C, real = shapes[j]
         tidx = np.full(B, n_tiles, np.int32)
         tidx[:real] = tiles[at:at + real]
         at += real
@@ -41,59 +46,39 @@ def _tls_like_buckets(rng, n_tiles):
     return buckets, tiles[at:]
 
 
-def test_split_only_where_the_card_has_room():
-    """4 rows of 1024 candidates and 8 of 8, one unit each (12 groups
-    unsplit).  On 28 groups the long rows split 4 ways (16 + 8 = 24
-    groups); on 20 groups a 4-way split does not fit and nothing splits."""
-    i32 = dict(dtype=torch.int32)
-    b = [(torch.zeros(8, **i32), torch.zeros((8, 8), **i32),
-          torch.zeros((8, 1))),
-         (torch.zeros(4, **i32), torch.zeros((4, 1024), **i32),
-          torch.zeros((4, 128)))]
-    for slots, parts, blocks in ((28, 4, 4 + 2), (20, 1, 1 + 2)):
-        entries, n_blocks = tr.tile_schedule(b, 128, slots)
-        assert [e[3] for e in entries] == [parts, 1] and n_blocks == blocks
-
-
 def _units(entries, block):
     """The kernel's decode: (entry, unit) of each group of a block."""
     k = 0
-    while k + 1 < len(entries) and block >= entries[k + 1][4]:
+    while k + 1 < len(entries) and block >= entries[k + 1][3]:
         k += 1
-    parts = entries[k][3]
-    per_block = tr.GROUPS // parts
-    return [(entries[k], (block - entries[k][4]) * per_block + slot)
-            for slot in range(per_block)]
+    return [(entries[k], (block - entries[k][3]) * tr.GROUPS + group)
+            for group in range(tr.GROUPS)]
 
 
-# the H100's 132 SMs x 8 groups; one group; a card with room for every
-# split
-@pytest.mark.parametrize("slots", [1056, 1, 10 ** 9])
+ORDERS = {"as culled": lambda n: range(n),
+          "reversed": lambda n: reversed(range(n)),
+          "shuffled": lambda n: np.random.default_rng(5).permutation(n)}
+
+
+@pytest.mark.parametrize("order", list(ORDERS))
 @pytest.mark.parametrize("tile_rays", [128, 640, 1280])
-def test_schedule_covers_every_real_ray_once(tile_rays, slots):
+def test_schedule_covers_every_real_ray_once(tile_rays, order):
     rng = np.random.default_rng(tile_rays)
-    buckets, untouched = _tls_like_buckets(rng, TLS_TILES)
-    entries, n_blocks = tr.tile_schedule(buckets, tile_rays, slots)
+    buckets, untouched = _tls_like_buckets(rng, TLS_TILES, ORDERS[order])
+    entries, n_blocks = tr.tile_schedule(buckets, tile_rays)
     # longest lists first, the empty bucket dropped, blocks laid end to end
     assert [e[2] for e in entries] == [1024, 512, 256, 128, 64, 32, 16, 8]
     assert all(buckets[e[0]][1].shape == (e[1], e[2]) for e in entries)
-    split = [e[3] for e in entries]
-    assert all(p in (1, 2, 4) and p <= tr.cand_parts(e[2])
-               for p, e in zip(split, entries))
-    if slots <= 1056:                # e.g. the tls chunk on the H100
-        assert split == [1] * 8
-    else:
-        assert split == [tr.cand_parts(e[2]) for e in entries]
     first = 0
-    for i, B, C, parts, first_block, per_row in entries:
+    for i, B, C, first_block, per_row in entries:
         assert first_block == first
         assert per_row * tr.LANES == tile_rays
-        first += -(-B * per_row * parts // tr.GROUPS)
+        first += -(-B * per_row // tr.GROUPS)
     assert n_blocks == first
     cover = np.zeros((TLS_TILES, tile_rays), np.int64)
     writes = 0
     for block in range(n_blocks):
-        for (i, B, C, parts, _, per_row), unit in _units(entries, block):
+        for (i, B, C, _, per_row), unit in _units(entries, block):
             if unit >= B * per_row:      # past the bucket's last unit
                 continue
             row, sub = divmod(unit, per_row)
@@ -108,23 +93,24 @@ def test_schedule_covers_every_real_ray_once(tile_rays, slots):
     assert (cover[untouched] == 0).all()
 
 
-@pytest.mark.parametrize("n_cand", [8, 64, 128, 256, 1024, 4096])
-def test_parts_take_every_candidate_block_once(n_cand):
-    """The kernel's staged walk: chunks of 16 blocks, part p taking blocks
-    p, p + parts, ... of each chunk; together the parts take every block
-    once, each part in near-to-far order."""
-    parts = tr.cand_parts(n_cand)
-    n_blk = n_cand // tr.CAND_BLOCK
-    taken = []
-    for p in range(parts):
-        mine = [ch + lb for ch in range(0, n_blk, 16)
-                for lb in range(p, min(16, n_blk - ch), parts)]
-        assert mine == sorted(mine)
-        taken += mine
-    assert sorted(taken) == list(range(n_blk))
+def test_schedule_keeps_input_order_among_equal_lengths():
+    i32 = dict(dtype=torch.int32)
+    b = [(torch.zeros(n, **i32), torch.zeros((n, C), **i32),
+          torch.zeros((n, C // 8))) for n, C in ((3, 16), (5, 64), (6, 16))]
+    entries, n_blocks = tr.tile_schedule(b, 256)
+    assert [e[0] for e in entries] == [1, 0, 2]
+    assert [e[3] for e in entries] == [0, 3, 5] and n_blocks == 8
 
 
-def _tie_scene(seed, n_cand=80):
+def test_schedule_of_a_call_without_rows():
+    i32 = dict(dtype=torch.int32)
+    empty = (torch.zeros(0, **i32), torch.zeros((0, 8), **i32),
+             torch.zeros((0, 1)))
+    assert tr.tile_schedule([], 640) == ((), 0)
+    assert tr.tile_schedule([empty, empty], 640) == ((), 0)
+
+
+def _tie_scene(n_cand, seed):
     """`chip_smoke.planted_tie` as tensors shaped for `wald_blocks_plain`:
     face 40 in block 1 and the coincident face 12 in block 6."""
     wald, o, d, ids = chip_smoke.planted_tie(n_cand, seed)
@@ -138,51 +124,73 @@ def _walk(wald, o, d, ids, tm):
                                 torch.full_like(t0, -1, dtype=torch.int32))
 
 
-@pytest.mark.parametrize("parts", [2, 3, 8])
-@pytest.mark.parametrize("layout", ["contiguous", "interleaved"])
-def test_split_merge_equals_serial_walk(parts, layout):
-    """A ray's candidate blocks cut into ``parts`` (contiguous ranges, or
-    interleaved as the kernel takes them), each walked from t_max, then
-    merged by (t, block index) lowest first: the uncut walk's (t, face),
-    including the planted tie, which the earlier block (larger id) wins."""
-    wald, o, d, ids = _tie_scene(parts)
+def _block_bounds(wald, o, d, ids, tm, kind):
+    """Lower distance bounds of a list's blocks for all rays of the tile:
+    0 everywhere, or each block's nearest hit over the rays (inf where no
+    ray hits it before ``tm``), made a monotone prefix as
+    `TileTraverser.bucket_bounds` makes it, then lowered by 0.5 for
+    "loose"."""
+    n_blk = ids.shape[1] // tr.CAND_BLOCK
+    if kind == "zero":
+        return torch.zeros(n_blk)
+    near = []
+    for blk in range(n_blk):
+        t_c, f_c = _walk(wald, o, d, ids[:, 8 * blk:8 * blk + 8], tm)
+        near.append(float(t_c[f_c >= 0].min()) if bool((f_c >= 0).any())
+                    else float("inf"))
+    bnd = np.minimum.accumulate(np.array(near)[::-1])[::-1]
+    return torch.from_numpy(bnd - (0.5 if kind == "loose" else 0.0)).float()
+
+
+def _staged_walk(wald, o, d, ids, bnd, tm):
+    """One unit's walk as `tile_traverse_kernel` runs it, for all its rays
+    at once.  Returns (t, face, (ray, block) pairs tested)."""
+    n_blk = ids.shape[1] // tr.CAND_BLOCK
+    t = tm.expand(1, o.shape[1]).clone()
+    f = torch.full_like(t, -1, dtype=torch.int32)
+    done = torch.zeros_like(t, dtype=torch.bool)
+    tested = 0
+    for ch in range(0, n_blk, STAGE_BLOCKS):
+        if not bool((~done & ~(bnd[ch] > t)).any()):
+            break                        # no ray of the unit is live
+        for blk in range(ch, min(ch + STAGE_BLOCKS, n_blk)):
+            done |= bnd[blk] > t         # the bounds only grow from here
+            t_c, f_c = _walk(wald, o, d, ids[:, 8 * blk:8 * blk + 8], tm)
+            better = ~done & (t_c < t)
+            t = torch.where(better, t_c, t)
+            f = torch.where(better, f_c, f)
+            tested += int((~done).sum())
+    return t, f, tested
+
+
+@pytest.mark.parametrize("bounds", ["zero", "exact", "loose"])
+@pytest.mark.parametrize("n_cand", [64, 128, 1024, 4096])
+def test_staged_walk_equals_serial_walk(n_cand, bounds):
+    """The kernel's exits skip only blocks that cannot win: its staged walk
+    gives the serial walk's (t, face) bit for bit, the planted tie
+    included (the earlier block, face 40, wins though its id is larger).
+    Real bounds make it test fewer pairs: exact ones always, loose ones
+    where padding follows the 64 real candidates."""
+    wald, o, d, ids = _tie_scene(n_cand, n_cand)
     tm = torch.tensor(100.0)
     t_ser, f_ser = _walk(wald, o, d, ids, tm)
-    tied = f_ser == 40
-    assert int(tied.sum()) > 10            # the tie is exercised
-    n_blk = ids.shape[1] // tr.CAND_BLOCK
-    if layout == "contiguous":
-        cuts = np.array_split(np.arange(n_blk), parts)
-    else:
-        cuts = [np.arange(p, n_blk, parts) for p in range(parts)]
-    t = tm.expand_as(t_ser).clone()
-    f = torch.full_like(f_ser, -1)
-    b = torch.full_like(f_ser, 2 ** 30)
-    for blocks in cuts:
-        # each part's serial walk, and the index of its winning block
-        t_p, f_p = tm.expand_as(t_ser).clone(), torch.full_like(f_ser, -1)
-        b_p = torch.full_like(f_ser, 2 ** 30)
-        for blk in blocks.tolist():
-            t_c, f_c = _walk(wald, o, d,
-                             ids[:, 8 * blk:8 * blk + 8], tm)
-            better = t_c < t_p
-            t_p = torch.where(better, t_c, t_p)
-            f_p = torch.where(better, f_c, f_p)
-            b_p = torch.where(better, torch.full_like(b_p, blk), b_p)
-        take = (t_p < t) | ((t_p == t) & (b_p < b))
-        t = torch.where(take, t_p, t)
-        f = torch.where(take, f_p, f)
-        b = torch.where(take, b_p, b)
+    assert int((f_ser == 40).sum()) > 10 and not bool((f_ser == 12).any())
+    bnd = _block_bounds(wald, o, d, ids, tm, bounds)
+    t, f, tested = _staged_walk(wald, o, d, ids, bnd, tm)
     assert torch.equal(f, f_ser)
     assert torch.equal(t, t_ser)
-    assert bool((b[tied] == 1).all())
+    every = o.shape[1] * (n_cand // tr.CAND_BLOCK)
+    if bounds == "zero":
+        assert tested == every
+    elif bounds == "exact" or n_cand > 64:
+        assert tested < every
 
 
-@pytest.mark.parametrize("n_cand", [128, 512])
+@pytest.mark.parametrize("n_cand", [128, 512, 1024])
 def test_planted_tie_through_tile_traverse(n_cand):
-    """The bucket `tests/test_torch_cuda.py` runs through K1 (2 and 4
-    parts), here through the wrapper's CPU path: the serial walk's faces,
-    face 40 where the coincident pair is nearest."""
+    """The bucket `tests/test_torch_cuda.py` runs through K1, here through
+    the wrapper's CPU path: the serial walk's faces, face 40 where the
+    coincident pair is nearest."""
     wald, o, d, ids = (torch.from_numpy(a)
                        for a in chip_smoke.planted_tie(n_cand))
     bucket = (torch.zeros(1, dtype=torch.int32), ids[None],
