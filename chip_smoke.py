@@ -20,18 +20,19 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    tie planted across two blocks of 8 and the `tls` workload's real
    bucket chunk (one launch per call; CUDA events on a queued stream, also
    without the chunk's dummy rows, and back to back); K2 on a fan over
-   boxes (group 1
-   and 4), a grazing fan with fat ladders, a chunk with padded pulses and
-   one real `als` chunk of 131,072 pulses culled as `Simulator._prep` does
-   it.  Both timed with CUDA events on their real chunk; then K1 and K2 on
-   the same pulses of both scenes (the traverser-choice figures).
+   boxes (group 1 and 4), a grazing fan with fat ladders, a chunk with
+   padded pulses, the planted tie (ladders of 64 and 128, groups of 8 and
+   128 rays) and one real `als` chunk of 131,072 pulses culled as
+   `Simulator._prep` does it (one launch per call).  Both timed with CUDA
+   events on their real chunk; then K1 and K2 on the same pulses of both
+   scenes (the traverser-choice figures; K2 on the `tls` chunk back to
+   back and on a queue).
 3. The `tls` forward scan at full width through `api.simulate` (1,310,720
    rays over a ~40k-face city), warm, then timed; the launch counts are
-   reset just before the timed run: K1's must have risen, K2's not.
+   reset just before the timed run: K1 once per chunk, K2 not.
 4. The `als` forward scan at full width through `api.simulate` (1,048,576
    pulses x 10 rays, 2 returns, over the 4,999,122-face terrain, in chunks
-   of 131,072), warm on one chunk, then timed: K2's count must have risen,
-   K1's not.
+   of 131,072), warm on one chunk, then timed: K2 once per chunk, K1 not.
 5. Card vs CPU at a small size (L = 1 and 2): same seed, same rays, for
    the TLS tile path and the ALS pulse path.
 6. The fwd+bwd training step through the port's bench
@@ -40,24 +41,28 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    L = 1, face pack built) and the `als` step over the 4,999,122-face
    terrain of phase 4 at 131,072 pulses (L = 2, no face pack; the flight's
    pulse count cut so that the one host cull stays ~5 s).  Launch counts
-   are reset before each: K1 must launch in the `tls` steps and K2 not, K2
-   in the `als` steps and K1 not.  Gradients w.r.t. the BRDF table, the ray
+   are reset before each: K1 must launch once per `tls` step and K2 not, K2
+   once per `als` step and K1 not.  Gradients w.r.t. the BRDF table, the ray
    origins and the vertices must be finite, each with a non-zero entry.
    Prints rays/s fwd+bwd, the `BENCH_GRADS` split and host syncs per step.
 7. Card vs CPU gradients at the sizes of phase 5: loss to rtol 1e-5, each
    gradient within atol 1e-4 * max|g| (scatter-add order on the card is not
    fixed, so gradients are not bitwise reproducible).
 8. Profiles, last so that they disturb no timed phase: K1's device time on
-   the `tls` chunk, and K3's and `torch.addcmul`'s, by `torch.profiler`;
-   each step of K3's wrapper on the host over 10,000 calls.
+   the `tls` chunk, K2's on the `als` chunk (as the Simulator calls it, and
+   with the wrapper's two output fills instead), and K3's and
+   `torch.addcmul`'s, by `torch.profiler`; each step of K3's wrapper on the
+   host over 10,000 calls.
 
 The line before the last is `{"kernels": [...]}`; the last line is
 `{"ok": true, "device": {...}}`.  It imports nothing of JAX.
 
 `python3 chip_smoke.py --k1-chunk` runs K1 alone on the `tls` chunk and
-prints one JSON line (launches per call, CUDA-event and profiler times, per
-launch); a copy of the script in the root of another tree of the repo
-measures that tree's K1 the same way.
+`--k2-chunk` K2 alone on the `als` chunk and on the `tls` chunk's
+ladders; each prints one JSON line
+(launches per call, CUDA-event and profiler times).  A copy of the script
+in the root of another tree of the repo measures that tree's kernel the
+same way.
 """
 
 from __future__ import annotations
@@ -71,7 +76,11 @@ import time
 import types
 
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
-H100_F32_OPS_PER_S = 67e12      # f32 outside the tensor cores, same sheet
+# f32 operations outside the tensor cores, one per lane per clock: 132 SMs x
+# 128 f32 lanes x 1.98 GHz boost (H100 SXM data sheet and Hopper white
+# paper).  The sheet's 67 TFLOP/s counts an FMA as two; the kernels are
+# built with --fmad=false, so their multiplies and adds run one by one.
+H100_F32_OPS_PER_S = 132 * 128 * 1.98e9
 OPS_PER_PAIR = 50               # f32 operations per (ray, candidate) test
 TLS_PULSES = 131072
 TLS_RAYS_PULSE = 10
@@ -144,15 +153,14 @@ def host_us(fn, reps: int) -> float:
     return us
 
 
-def kernel_device_ms(fn, reps: int, match: str | None = None) -> dict:
-    """Device time of ``reps`` calls of ``fn()`` by `torch.profiler`: the
-    device kernels whose name contains ``match`` (every kernel when None),
-    as ms per call and ms per launch in launch order, and their count.
-    None values in a CPU rehearsal (no device time exists there)."""
+def device_ms_by_kernel(fn, reps: int) -> dict:
+    """Device time of ``fn()`` by kernel name (`torch.profiler`, ``reps``
+    calls): ms per call, launches per call and ms per launch; {} in a CPU
+    rehearsal (no device time exists there)."""
     import torch
     if DEVICE != "cuda":
         fn()
-        return dict(per_call=None, per_launch=None, launches=None)
+        return {}
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -162,13 +170,33 @@ def kernel_device_ms(fn, reps: int, match: str | None = None) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    ev = sorted((e for e in prof.events()
-                 if e.device_type == DeviceType.CUDA
-                 and (match is None or match in e.name)),
-                key=lambda e: e.time_range.start)
-    ms = [e.time_range.elapsed_us() * 1e-3 for e in ev]
-    return dict(per_call=sum(ms) / reps if ms else None, per_launch=ms,
-                launches=len(ms))
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms, n = out.get(e.name, (0.0, 0))
+            out[e.name] = (ms + e.time_range.elapsed_us() * 1e-3, n + 1)
+    return {k: dict(ms=ms / reps, launches=n / reps, ms_per_launch=ms / n)
+            for k, (ms, n) in out.items()}
+
+
+def device_ms(by: dict, match: str = ""):
+    """Device ms per call of the kernels of ``by`` (`device_ms_by_kernel`)
+    whose name holds ``match``, from each kernel's ms per launch and its
+    whole launches per call (at least one): a trace that lost a few
+    launches' events, as one late in a long run can, still gives the time
+    of a call; None in a CPU rehearsal."""
+    if not by:
+        return None
+    return sum(v["ms_per_launch"] * max(1, round(v["launches"]))
+               for k, v in by.items() if match in k)
+
+
+def k2_device_split(fn, reps: int) -> dict:
+    """Device ms per call of ``fn()``: K2's, the output fills' (None each
+    in a CPU rehearsal), and every kernel's."""
+    by = device_ms_by_kernel(fn, reps)
+    return dict(k2_ms=device_ms(by, "pulse_traverse_kernel"),
+                fills_ms=device_ms(by, "Fill"), kernels=by)
 
 
 def fmt_ms(x) -> str:
@@ -459,29 +487,47 @@ def k1_chunk(reps: int = 20) -> dict:
     """K1 alone on the `tls` chunk, for comparing two trees on one card
     (``python3 chip_smoke.py --k1-chunk``, from a copy of this script in
     the root of either tree): launches per call, CUDA-event ms per call
-    (three runs of ``reps``), profiler device ms per call and per launch
-    (the launches of one call in order: per bucket where a call launches
-    once per bucket)."""
+    (three runs of ``reps``), profiler device ms per call."""
     from lidar_brdf_tpu_torch.kernels import traverse as tr
     tls = tls_workload(DEVICE)
     tr_, og, dg, data, _ = tls_chunk(tls)
     call = lambda: tr.tile_traverse(tr_.wald, og, dg, data, tr_.t_max,
                                     tr_.tile_rays)
-    before = tr.KERNEL.launches
-    call()
-    sync()
-    per_call = tr.KERNEL.launches - before
+    per_call = launches_in(tr.KERNEL, call)
     events = [cuda_ms(call, reps, queued=True) for _ in range(3)]
     call_ms = cuda_ms(call, reps)
-    dev = kernel_device_ms(call, reps, "tile_traverse_kernel")
-    per_launch = dev["per_launch"] or []
-    by_launch = [sum(per_launch[j::per_call]) / reps
-                 for j in range(per_call)] if per_launch else None
+    return dict(source=os.path.dirname(os.path.abspath(__file__)),
+                buckets=[tuple(c.shape) for _, c, _ in data],
+                launches_per_call=per_call, events_ms=events,
+                call_ms=call_ms, device_ms=device_ms(
+                    device_ms_by_kernel(call, reps), "tile_traverse_kernel"))
+
+
+def k2_chunk(reps: int = 20) -> dict:
+    """K2 alone, for comparing two trees on one card (``python3
+    chip_smoke.py --k2-chunk``, from a copy of this script in the root of
+    either tree): on the `als` chunk as the Simulator calls it (``main``)
+    and with the buckets as a plain tuple (``fills``: the wrapper fills the
+    outputs first), and on the `tls` city chunk's ladders (``tls``, the
+    traverser-choice input).  Each: launches per call, CUDA-event ms per
+    call (three runs of ``reps`` queued, one back to back), profiler device
+    ms of K2 and of the output fills."""
+    from lidar_brdf_tpu_torch.kernels import pulse as pp
+    _, tr_, og, dg, data, cull_s = als_chunk(als_workload(DEVICE))
+    tls = tls_pulse_chunk(tls_workload(DEVICE))
     out = dict(source=os.path.dirname(os.path.abspath(__file__)),
-               buckets=[tuple(c.shape) for _, c, _ in data],
-               launches_per_call=per_call, events_ms=events,
-               call_ms=call_ms, device_ms=dev["per_call"],
-               device_ms_by_launch=by_launch)
+               buckets=[tuple(c.shape) for _, c in data],
+               uncovered=getattr(data, "uncovered", None), cull_s=cull_s,
+               tls_buckets=[tuple(c.shape) for _, c in tls[3]])
+    for name, (t, o, d, b) in (("main", (tr_, og, dg, data)),
+                               ("fills", (tr_, og, dg, tuple(data))),
+                               ("tls", tls[:4])):
+        call = lambda: pp.pulse_traverse(t.wald, o, d, b, t.t_max,
+                                         t.kernel_rays)
+        out[name] = dict(
+            launches_per_call=launches_in(pp.KERNEL, call),
+            events_ms=[cuda_ms(call, reps, queued=True) for _ in range(3)],
+            call_ms=cuda_ms(call, reps), device=k2_device_split(call, reps))
     return out
 
 
@@ -596,6 +642,8 @@ def compare_k2(name, wald, o, d, data, t_max, R):
     hit = f_p >= 0
     if not torch.allclose(t_k[hit], t_p[hit], rtol=1e-6, atol=0.0):
         fail(f"{name}: t differs beyond rtol 1e-6")
+    if not bool((t_k[~hit] == t_p[~hit]).all()):
+        fail(f"{name}: a miss's t is not BIG")
     err = float((t_k[hit] - t_p[hit]).abs().max()) if bool(hit.any()) \
         else 0.0
     log(f"[kernel] {name}: {o.shape[0]} rays, {int(hit.sum())} hits, "
@@ -629,13 +677,76 @@ def k2_work(data, n_groups, R):
     return real, padded, nbytes, uniq
 
 
+def k2_tie_cases():
+    """`planted_tie` laid out for K2: [(name, wald, origins, directions,
+    buckets, kernel_rays)].  The tile's 128 rays as 16 groups of 8 sharing
+    the tie's ladder, beside a dummy row (pidx 16 = P), in ladders of 64 and
+    128 candidates (one and eight of K2's 16-candidate stages), and as one
+    group of 128 rays."""
+    import torch
+    out = []
+    for n_cand, R in ((64, 8), (128, 8), (128, 128)):
+        wald, o, d, ids = (torch.from_numpy(a).to(DEVICE)
+                           for a in planted_tie(n_cand))
+        P = 128 // R
+        bucket = (torch.arange(P + 1, dtype=torch.int32, device=DEVICE),
+                  ids.repeat(P + 1, 1))
+        out.append((f"K2 planted tie, {n_cand} candidates, groups of {R}",
+                    wald, o, d, [bucket], R))
+    return out
+
+
+def als_chunk(als):
+    """One real `als` chunk, culled and permuted as `Simulator._prep` does
+    it: (simulator, traverser, origins, directions, `PulseLadders`, host
+    cull seconds)."""
+    from lidar_brdf_tpu_torch.runtime.simulate import Simulator
+    scene, bvh, cfg, mats, rays = als
+    sim = Simulator(scene=scene, bvh=bvh, materials=mats, cfg=cfg,
+                    device=DEVICE)
+    if not sim.use_pulse:
+        fail("the auto rule did not pick the ladders for the als scene")
+    n = min(ALS_CHUNK, rays.num_pulses)
+    t0 = time.perf_counter()
+    sl, data, _ = sim._prep(host_rays(head(rays, n)), 0, n, n)
+    cull_s = time.perf_counter() - t0
+    return (sim, sim.traverser, sl.origin.reshape(-1, 3).contiguous(),
+            sl.direction.reshape(-1, 3).contiguous(), data, cull_s)
+
+
+def tls_pulse_chunk(tls):
+    """The `tls` workload's one chunk on the pulse ladders, culled and
+    permuted as `Simulator._prep` does it (scan order): (traverser,
+    origins, directions, buckets, host cull seconds)."""
+    from lidar_brdf_tpu_torch.runtime.simulate import Simulator
+    scene, bvh, cfg, mats, rays = tls
+    sim = Simulator(scene=scene, bvh=bvh, materials=mats, cfg=cfg,
+                    device=DEVICE, use_pulse=True)
+    n = rays.num_pulses
+    t0 = time.perf_counter()
+    sl, data, _ = sim._prep(host_rays(rays), 0, n, n)
+    cull_s = time.perf_counter() - t0
+    return (sim.traverser, sl.origin.reshape(-1, 3).contiguous(),
+            sl.direction.reshape(-1, 3).contiguous(), data, cull_s)
+
+
+def launches_in(kernel, call) -> int:
+    """Launches of ``kernel`` (a `CudaLibrary`) in one ``call()``."""
+    before = kernel.launches
+    call()
+    sync()
+    return kernel.launches - before
+
+
 def phase_k2_vs_plain(als):
+    """K2 against its plain version on every input, timed on the `als`
+    chunk.  Returns (the Simulator, K2's record, the chunk: traverser,
+    origins, directions, buckets)."""
     import numpy as np
     import torch
     from lidar_brdf_tpu_torch import api
     from lidar_brdf_tpu_torch.io import synthetic
     from lidar_brdf_tpu_torch.kernels import pulse as pp
-    from lidar_brdf_tpu_torch.runtime.simulate import Simulator
     put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)
     errs = []
 
@@ -669,36 +780,35 @@ def phase_k2_vs_plain(als):
     o2, d2 = o.copy(), d.copy()
     o2[-8:], d2[-8:] = 1e10, 0.0
     case("K2 padded chunk", boxes, o2, d2, 4, 4)
+    # a tie across two blocks of 8 (and two stages at 128 candidates)
+    for name, wald, ot, dt, data, R in k2_tie_cases():
+        errs.append(compare_k2(name, wald, ot, dt, data, 100.0, R))
 
-    # one real als chunk, culled and permuted as Simulator._prep does it
-    scene, bvh, cfg, mats, rays = als
-    sim = Simulator(scene=scene, bvh=bvh, materials=mats, cfg=cfg,
-                    device=DEVICE)
-    if not sim.use_pulse:
-        fail("the auto rule did not pick the ladders for the als scene")
-    n = min(ALS_CHUNK, rays.num_pulses)
-    t0 = time.perf_counter()
-    sl, data, _ = sim._prep(host_rays(head(rays, n)), 0, n, n)
-    cull_s = time.perf_counter() - t0
-    tr_ = sim.traverser
+    # one real als chunk, culled and permuted as Simulator._prep does it;
+    # its `PulseLadders` name the uncovered tail, which K2 fills itself
+    sim, tr_, og, dg, data, cull_s = als_chunk(als)
+    n = og.shape[0] // tr_.rays_per_pulse
     R = tr_.kernel_rays
-    og = sl.origin.reshape(-1, 3).contiguous()
-    dg = sl.direction.reshape(-1, 3).contiguous()
     errs.append(compare_k2("K2 als chunk", tr_.wald, og, dg, data,
                            tr_.t_max, R))
     call = lambda: pp.pulse_traverse(tr_.wald, og, dg, data, tr_.t_max, R)
     plain = lambda: pp.pulse_traverse_plain(tr_.wald, og, dg, data,
                                             tr_.t_max, R)
+    per_call = launches_in(pp.KERNEL, call)
+    if DEVICE == "cuda" and per_call != 1:
+        fail(f"K2 launched {per_call} times in one als chunk call")
     ms = cuda_ms(call, 20, queued=True)
     plain_ms = cuda_ms(plain, 3)
     ms2 = cuda_ms(call, 20, queued=True)
+    call_ms = cuda_ms(call, 20)
     real, padded, nbytes, uniq = k2_work(data, og.shape[0] // R, R)
     bound_ms, bound_by, ops_ms, bytes_ms = bound(real, nbytes)
-    log(f"[kernel] als chunk ({n} pulses x {R} rays, {scene.num_faces} "
-        f"faces): host cull {cull_s:.3f} s; K2 {ms:.4f} / {ms2:.4f} ms "
-        f"(CUDA events on a queue of 20 calls, two runs), plain "
-        f"{plain_ms:.4f} ms, launches per chunk "
-        f"{len(data)}, real pairs {real} of {padded} padded, {uniq} "
+    log(f"[kernel] als chunk ({n} pulses x {R} rays, "
+        f"{tr_.wald.shape[0]} faces): host cull {cull_s:.3f} s; K2 "
+        f"{ms:.4f} / {ms2:.4f} ms (CUDA events on a queue of 20 calls, two "
+        f"runs), back-to-back calls {call_ms:.4f} ms each, plain "
+        f"{plain_ms:.4f} ms, launches per call {per_call}, uncovered groups "
+        f"{data.uncovered}, real pairs {real} of {padded} padded, {uniq} "
         f"distinct faces, bytes {nbytes}, bound {bound_ms:.4f} ms (ops "
         f"{ops_ms:.4f}, bytes {bytes_ms:.4f}), "
         f"{real / (min(ms, ms2) * 1e-3) / 1e9:.2f} G real pairs/s")
@@ -708,8 +818,9 @@ def phase_k2_vs_plain(als):
         replaces="lidar_brdf_tpu/kernels/pulse_pallas.py:114",
         launches=None, max_abs_err=max(errs), ms=min(ms, ms2),
         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=None, launches_per_chunk=len(data), pairs_real=real,
-        pairs_padded=padded, bytes=nbytes, cull_s=cull_s)
+        library_ms=None, launches_per_chunk=per_call, call_ms=call_ms,
+        pairs_real=real, pairs_padded=padded, bytes=nbytes,
+        cull_s=cull_s), (tr_, og, dg, data)
 
 
 def phase_traverser_choice(tls, als, k1, als_sim):
@@ -720,20 +831,16 @@ def phase_traverser_choice(tls, als, k1, als_sim):
     from lidar_brdf_tpu_torch.runtime.simulate import Simulator, bsp_order
     out = {}
     # tls chunk: K1 figures from phase 2; K2 on ladders in scan order
-    scene, bvh, cfg, mats, rays = tls
-    sim = Simulator(scene=scene, bvh=bvh, materials=mats, cfg=cfg,
-                    device=DEVICE, use_pulse=True)
+    scene, rays = tls[0], tls[4]
     n = rays.num_pulses
-    t0 = time.perf_counter()
-    sl, data, _ = sim._prep(host_rays(rays), 0, n, n)
-    cull2 = time.perf_counter() - t0
-    t2 = sim.traverser
-    og = sl.origin.reshape(-1, 3).contiguous()
-    dg = sl.direction.reshape(-1, 3).contiguous()
-    ms2 = cuda_ms(lambda: pp.pulse_traverse(t2.wald, og, dg, data, t2.t_max,
-                                            t2.kernel_rays), 20)
+    t2, og, dg, data, cull2 = tls_pulse_chunk(tls)
+    k2 = lambda: pp.pulse_traverse(t2.wald, og, dg, data, t2.t_max,
+                                   t2.kernel_rays)
+    ms2 = cuda_ms(k2, 20)
     out["tls"] = dict(faces=scene.num_faces, pulses=n, k1_ms=k1["ms"],
                       k1_cull_s=k1["cull_s"], k2_ms=ms2, k2_cull_s=cull2,
+                      k2_queued_ms=cuda_ms(k2, 20, queued=True),
+                      k2_launches_per_call=launches_in(pp.KERNEL, k2),
                       k2_buckets=[tuple(c.shape) for _, c in data])
     # als sub-chunk: K1 on BSP order as the tile Simulator orders it, K2
     # on ladders in scan order
@@ -769,6 +876,11 @@ def phase_traverser_choice(tls, als, k1, als_sim):
         log(f"[choice] {name} ({r['faces']} faces, {r['pulses']} pulses): "
             f"K1 {r['k1_ms']:.4f} ms + host cull {r['k1_cull_s']:.3f} s; "
             f"K2 {r['k2_ms']:.4f} ms + host cull {r['k2_cull_s']:.3f} s")
+    r = out["tls"]
+    log(f"[choice] tls K2 (buckets {r['k2_buckets']}): "
+        f"{r['k2_launches_per_call']} launch(es) per call; back-to-back "
+        f"calls {r['k2_ms']:.4f} ms, CUDA events on a queue of 20 calls "
+        f"{r['k2_queued_ms']:.4f} ms")
     return out
 
 
@@ -807,9 +919,10 @@ def phase_forward(name, workload, warm_pulses, kernel):
         f"device {stats['device_s']:.3f} s, readback "
         f"{stats['readback_s']:.3f} s; launches {launches}")
     other = "K2" if kernel == "K1" else "K1"
-    if DEVICE == "cuda" and (launches[kernel] <= 0 or launches[other]):
+    chunks = -(-rays.num_pulses // cfg.chunk_pulses)
+    if DEVICE == "cuda" and (launches[kernel] != chunks or launches[other]):
         fail(f"the {name} forward scan launched {launches}: expected "
-             f"{kernel} only")
+             f"{kernel} once per chunk ({chunks}) and nothing else")
     if n_pts <= 0:
         fail(f"the {name} forward scan produced no points")
     if not (bool(torch.isfinite(inten).all()) and bool((inten >= 0).all())):
@@ -1000,29 +1113,40 @@ def phase_k3_vs_plain():
         library_host_us_1m=out["1M"]["library_host_us"])
 
 
-def phase_profiles(chunk, k1, k3):
+def phase_profiles(chunk, k1, k3, k2_chunk_data, k2):
     """Measurements that would disturb the timed phases, taken last: K1's
-    device time on phase 2's `tls` chunk and K3's and `torch.addcmul`'s on
-    the tile and at K3_BIG by `torch.profiler`, and each step of K3's
-    wrapper on the host over 10,000 calls.  Adds them to the ``k1`` and
+    device time on phase 2's `tls` chunk, K2's on its `als` chunk (as the
+    Simulator calls it, K2 writing the uncovered groups, and with the
+    wrapper's two output fills instead), K3's and `torch.addcmul`'s on the
+    tile and at K3_BIG by `torch.profiler`, and each step of K3's wrapper
+    on the host over 10,000 calls.  Adds them to the ``k1``, ``k2`` and
     ``k3`` records."""
     import torch
+    from lidar_brdf_tpu_torch.kernels import pulse as pp
     from lidar_brdf_tpu_torch.kernels import smoke
     from lidar_brdf_tpu_torch.kernels import traverse as tr
+    t2, o2, d2, data2 = k2_chunk_data
+    for key, data in (("", data2), ("_with_fills", tuple(data2))):
+        split = k2_device_split(lambda: pp.pulse_traverse(
+            t2.wald, o2, d2, data, t2.t_max, t2.kernel_rays), 20)
+        k2["device_ms" + key] = split["k2_ms"]
+        k2["fills_device_ms" + key] = split["fills_ms"]
+        log(f"[profile] K2 als chunk{key.replace('_', ' ')}: device K2 "
+            f"{fmt_ms(split['k2_ms'])} ms, fills {fmt_ms(split['fills_ms'])}"
+            f" ms per call; by kernel {split['kernels']}")
     tr_, og, dg, data = chunk
-    dev = kernel_device_ms(lambda: tr.tile_traverse(
-        tr_.wald, og, dg, data, tr_.t_max, tr_.tile_rays), 20,
-        "tile_traverse_kernel")
-    k1["device_ms"] = dev["per_call"]
-    log(f"[profile] K1 tls chunk: device {fmt_ms(dev['per_call'])} ms per "
-        f"call ({dev['launches']} launches in 20 calls; CUDA events on a "
-        f"queue, fills included: {k1['ms']:.4f} ms)")
+    by = device_ms_by_kernel(lambda: tr.tile_traverse(
+        tr_.wald, og, dg, data, tr_.t_max, tr_.tile_rays), 20)
+    k1["device_ms"] = device_ms(by, "tile_traverse_kernel")
+    log(f"[profile] K1 tls chunk: device {fmt_ms(k1['device_ms'])} ms per "
+        f"call (by kernel {by}; CUDA events on a queue, fills included: "
+        f"{k1['ms']:.4f} ms)")
     tile, big, one, two = k3_inputs()
     for suffix, x in (("", tile), ("_1m", big[:K3_BIG])):
-        k3["device_ms" + suffix] = kernel_device_ms(
-            lambda: smoke.affine_smoke(x), 200)["per_call"]
-        k3["library_device_ms" + suffix] = kernel_device_ms(
-            lambda: torch.addcmul(one, x, two), 200)["per_call"]
+        k3["device_ms" + suffix] = device_ms(device_ms_by_kernel(
+            lambda: smoke.affine_smoke(x), 200))
+        k3["library_device_ms" + suffix] = device_ms(device_ms_by_kernel(
+            lambda: torch.addcmul(one, x, two), 200))
         log(f"[profile] K3 {x.numel()} f32: device K3 "
             f"{fmt_ms(k3['device_ms' + suffix])} ms, torch.addcmul "
             f"{fmt_ms(k3['library_device_ms' + suffix])} ms per call")
@@ -1095,9 +1219,10 @@ def phase_fwd_bwd(name, ws, kernel):
         split[grads] = dict(step_s=t["step_s"],
                             rays_per_s=ws.num_rays / t["step_s"])
     other = "K2" if kernel == "K1" else "K1"
-    if DEVICE == "cuda" and (launches[kernel] <= 0 or launches[other]):
+    if DEVICE == "cuda" and (launches[kernel] != STEP_ITERS + 1
+                             or launches[other]):
         fail(f"the {name} fwd+bwd steps launched {launches}: expected "
-             f"{kernel} only")
+             f"{kernel} once per step ({STEP_ITERS + 1}) and nothing else")
     full = split["full"]
     log(f"[fwd+bwd] {name}: {ws.rays.num_pulses} pulses x "
         f"{ws.rays.rays_per_pulse} rays, {ws.scene.num_faces} faces, L = "
@@ -1239,8 +1364,12 @@ def main() -> int:
     if sys.argv[1:] == ["--k1-chunk"]:
         log(json.dumps({"k1_chunk": k1_chunk()}))
         return 0
+    if sys.argv[1:] == ["--k2-chunk"]:
+        log(json.dumps({"k2_chunk": k2_chunk()}))
+        return 0
     if sys.argv[1:]:
-        fail(f"unknown arguments {sys.argv[1:]} (only --k1-chunk)")
+        fail(f"unknown arguments {sys.argv[1:]} (only --k1-chunk or "
+             f"--k2-chunk)")
     t_start = time.perf_counter()
     card = phase_card_and_build()
     t0 = time.perf_counter()
@@ -1251,7 +1380,7 @@ def main() -> int:
     t0 = time.perf_counter()
     als = als_workload("cuda")
     log(f"[setup] als workload built in {time.perf_counter() - t0:.2f} s")
-    als_sim, k2 = phase_k2_vs_plain(als)
+    als_sim, k2, k2_chunk_data = phase_k2_vs_plain(als)
     choice = phase_traverser_choice(tls, als, k1, als_sim)
     del als_sim
     k1["launches"], tls_fwd = phase_forward("tls", tls, TLS_PULSES, "K1")
@@ -1260,7 +1389,7 @@ def main() -> int:
     (k3["launches"], k1["launches_fwd_bwd"], k2["launches_fwd_bwd"],
      training) = phase_training(als)
     phase_card_vs_cpu_grads()
-    phase_profiles(k1_chunk_data, k1, k3)
+    phase_profiles(k1_chunk_data, k1, k3, k2_chunk_data, k2)
     log(json.dumps({"card": card, "tls_forward": tls_fwd,
                     "als_forward": als_fwd, "traverser_choice": choice,
                     "fwd_bwd": training,

@@ -56,7 +56,8 @@ from .core.types import (MaterialTable, RayBundle, TriangleScene, as_numpy,
 from .io import synthetic
 from .io.materials import MaterialLibrary
 from .kernels.pulse import (PulseLadderTraverser, build_pulse_ladders,
-                            permute_pulse_ladders, renumber_pulse_ladders)
+                            permute_pulse_ladders, renumber_pulse_ladders,
+                            uncovered_groups)
 from .kernels.smoke import affine_smoke, affine_smoke_plain
 from .kernels.traverse import TileTraverser
 from .physics.returns import SimScalars
@@ -213,9 +214,10 @@ def cull(scene, bvh, cfg, rays: RayBundle, materials, kind: str,
         o2 = host["origin"].reshape(-1, 3)
         raw = build_pulse_ladders(bvh, o2, host["direction"].reshape(-1, 3),
                                   R, t_max=t_max)
-        perm, _ = permute_pulse_ladders(raw, rays.num_pulses)
+        perm, layout = permute_pulse_ladders(raw, rays.num_pulses)
         host = {k: v[perm] for k, v in host.items()}
-        data = tr.upload(renumber_pulse_ladders(raw, perm))
+        data = tr.upload(renumber_pulse_ladders(raw, perm),
+                         uncovered_groups(layout, rays.num_pulses))
     else:
         raise ValueError(f"unknown traverser kind {kind!r}")
     cull_s = time.perf_counter() - t0

@@ -51,12 +51,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
 #include "wald.cuh"
 
 namespace {
 
 using lbt::BIG;
 using lbt::CAND_BLOCK;
+using lbt::cp_async16;
+using lbt::cp_async_commit;
+using lbt::cp_async_wait;
 constexpr int GROUP = 128;                         // threads of a group
 constexpr int GROUPS = 4;                          // groups of a block
 constexpr int THREADS = GROUP * GROUPS;
@@ -93,21 +97,6 @@ struct Stage {
 };
 
 constexpr int DYNAMIC_SMEM = GROUPS * 2 * static_cast<int>(sizeof(Stage));
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(s), "l"(__cvta_generic_to_global(gmem)) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
 
 // Barrier of one unit's `n` threads (named barrier `id` >= 1).
 __device__ __forceinline__ void unit_sync(int id, int n) {

@@ -9,9 +9,10 @@ thousands of triangles but one pulse's narrow cone covers a handful.
   group's bounding cone is culled against the BVH (`geom/beamcull.py` and
   the native culler) into a near-to-far candidate ladder; ladders are
   bucketed by padded size K = 8 * 2**k.  Bit-equal to the JAX package.
-* Device half (`pulse_traverse`): per bucket, the nearest (t, face) of
-  every ray of every group against the group's ladder.  On a CUDA tensor
-  it launches `csrc/pulse_traverse.cu` (built with nvcc at first use into
+* Device half (`pulse_traverse`): the nearest (t, face) of every ray of
+  every group against the group's ladder, all buckets in one call.  On a
+  CUDA tensor it launches `csrc/pulse_traverse.cu` once over the work list
+  `pulse_schedule` makes (built with nvcc at first use into
   `build/kernels/`, loaded with ctypes); on a CPU tensor it runs
   `pulse_traverse_plain`, the same semantics in plain PyTorch.  It never
   falls back from one to the other.
@@ -30,6 +31,7 @@ multi-GPU slice.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -42,16 +44,75 @@ from .cuda_build import CudaLibrary, check_tensor, raw_stream
 from .traverse import CAND_BLOCK, wald_blocks_plain
 
 LANES = 128          # bucket rows are padded to a multiple of this
+MAX_THREADS = 128    # K2 (csrc/pulse_traverse.cu): threads of a block,
+MAX_ROWS = 32        # bucket rows of a block at most,
+STAGE = 16           # candidates of a row staged at a time,
+MAX_BUCKETS = 32     # buckets of a launch,
+ARGS_PER_BUCKET = 5  # int64 launch arguments of a bucket
 
 
 def _declare(lib):
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.lbt_pulse_traverse.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci,
-                                       cf, vp, vp, vp]
+    vp, ci, cf, cl = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_int64)
+    lib.lbt_pulse_traverse.argtypes = [
+        vp, vp, vp, ci, ci, cf, vp, vp, ci, ctypes.POINTER(cl), ci, ci, ci,
+        cl, cl, vp]
     lib.lbt_pulse_traverse.restype = ci
 
 
 KERNEL = CudaLibrary("pulse_traverse.cu", _declare, "lbt_pulse_traverse")
+
+
+class PulseSchedule(NamedTuple):
+    """K2's work list for one call (`pulse_schedule`)."""
+    entries: tuple        # (index, B, K, first_block) per bucket, in order
+    n_blocks: int         # row blocks of the buckets (the grid's x)
+    rows_per_block: int   # bucket rows a block takes (the block's y)
+    slice_rays: int       # rays of a row a block takes (the block's x)
+    slices: int           # blocks per row block (the grid's y)
+
+
+def pulse_schedule(buckets, kernel_rays: int) -> PulseSchedule:
+    """K2's work list for one call, from the bucket shapes alone (no device
+    read).
+
+    A block of (``slice_rays``, ``rows_per_block``) threads takes
+    consecutive rows of one bucket, one thread per ray: as many whole
+    groups of ``kernel_rays`` rays as fit in 128 threads, at most 32 rows
+    (the rows it stages in shared memory).  A group of more than 128 rays
+    is cut into ``slices`` of 128, one block each.  Buckets with rows and
+    candidates run longest ladders first (ties keep the input order), their
+    row blocks end to end.  A dummy row (pidx outside [0, P)) can only be
+    told on the device, where its threads load and write nothing.  Raises
+    ValueError for more buckets than the kernel's parameter block holds.
+    """
+    shape = [tuple(b[1].shape) for b in buckets]
+    order = sorted((i for i, (B, K) in enumerate(shape) if B and K),
+                   key=lambda i: -shape[i][1])
+    if len(order) > MAX_BUCKETS:
+        raise ValueError(f"{len(order)} buckets: K2 takes at most "
+                         f"{MAX_BUCKETS} in one call")
+    slice_rays = min(kernel_rays, MAX_THREADS)
+    rows = max(1, min(MAX_THREADS // slice_rays, MAX_ROWS))
+    entries, first = [], 0
+    for i in order:
+        B, K = shape[i]
+        entries.append((i, B, K, first))
+        first += -(-B // rows)
+    return PulseSchedule(tuple(entries), first, rows, slice_rays,
+                         -(-kernel_rays // slice_rays))
+
+
+class PulseLadders(tuple):
+    """One chunk's device buckets, ``(pidx, cand)`` each, as a tuple, with
+    ``uncovered``: the range ``(lo, hi)`` of groups in no bucket when every
+    other group has exactly one real row (the bucket-contiguous layout of
+    `permute_pulse_ladders` + `renumber_pulse_ladders`), else None."""
+
+    def __new__(cls, buckets, uncovered=None):
+        self = super().__new__(cls, buckets)
+        self.uncovered = uncovered
+        return self
 
 
 # ---------------------------------------------------------------------------
@@ -127,6 +188,13 @@ def permute_pulse_ladders(buckets, num_pulses: int):
     return perm, tuple(layout)
 
 
+def uncovered_groups(layout, num_pulses: int) -> tuple:
+    """The range of groups in no bucket in the order of
+    `permute_pulse_ladders` (``layout`` its second result): the tail after
+    the covered ones."""
+    return sum(B for _, B, _ in layout), num_pulses
+
+
 def renumber_pulse_ladders(buckets, perm: np.ndarray):
     """Buckets with each real ``pidx`` replaced by that pulse's position in
     the order ``perm`` (dummy rows keep ``num_pulses``)."""
@@ -167,30 +235,61 @@ def pulse_traverse(wald, origin, direction, buckets, t_max: float,
     ``wald`` (F, 12) f32 Wald rows; ``origin``/``direction`` (N, 3) f32
     with N = P * kernel_rays (P pulse groups, each ``kernel_rays``
     consecutive rays); ``buckets`` a sequence of (pidx (B,) i32, cand (B, K)
-    i32, -1 padded) on the same device.  Rows with pidx outside [0, P) are
-    dummies.  Returns (t (N,) f32, face (N,) i32); misses and groups in no
-    bucket are (BIG, -1).  CUDA tensors launch K2 once per bucket; CPU
-    tensors take `pulse_traverse_plain`.
+    i32) on the same device.  Rows with pidx outside [0, P) are dummies.
+    Each ladder row holds its real ids first and its padding (-1) after, as
+    `build_pulse_ladders` fills it: the kernel stops a row at its first
+    block of 8 that holds padding only.  Returns (t (N,) f32, face (N,)
+    i32); misses and groups in no bucket are (BIG, -1).
+
+    A `PulseLadders` with ``uncovered = (lo, hi)`` promises that the groups
+    in ``range(lo, hi)`` are in no bucket and every other group has exactly
+    one real row: the kernel then writes those groups' (BIG, -1) itself;
+    otherwise the outputs are filled first.  CUDA tensors launch K2 once
+    per call (none when nothing is to be written); CPU tensors take
+    `pulse_traverse_plain`.
     """
     _validate(wald, origin, direction, buckets, kernel_rays)
+    n = origin.shape[0]
+    P = n // kernel_rays
+    uncovered = getattr(buckets, "uncovered", None)
+    if uncovered is not None:
+        lo, hi = (int(x) for x in uncovered)
+        if not 0 <= lo <= hi <= P:
+            raise ValueError(f"uncovered groups [{lo}, {hi}) outside "
+                             f"[0, {P})")
     if not origin.is_cuda:
         if origin.device.type == "cpu":
             return pulse_traverse_plain(wald, origin, direction, buckets,
                                         t_max, kernel_rays)
         raise ValueError(f"unsupported device {origin.device}")
-    launch = KERNEL.launcher()
-    n = origin.shape[0]
-    out_t = torch.full((n,), BIG, dtype=torch.float32, device=origin.device)
-    out_f = torch.full((n,), -1, dtype=torch.int32, device=origin.device)
-    stream = raw_stream(origin.get_device())
-    for pidx, cand in buckets:
-        B, K = cand.shape
-        rc = launch(wald.data_ptr(), origin.data_ptr(), direction.data_ptr(),
-                    pidx.data_ptr(), cand.data_ptr(), B, K, n // kernel_rays,
-                    kernel_rays, float(t_max), out_t.data_ptr(),
-                    out_f.data_ptr(), stream)
-        KERNEL.check(rc, "pulse_traverse")
-        KERNEL.launches += 1
+    if wald.data_ptr() % 16:
+        raise ValueError("wald must start on a 16-byte boundary")
+    sched = pulse_schedule(buckets, kernel_rays)
+    if sched.n_blocks >= 2 ** 31:
+        raise ValueError(f"{sched.n_blocks} blocks: over the kernel's 2^31")
+    dev = origin.device
+    if uncovered is None:
+        out_t = torch.full((n,), BIG, dtype=torch.float32, device=dev)
+        out_f = torch.full((n,), -1, dtype=torch.int32, device=dev)
+        lo = hi = 0
+    else:
+        out_t = torch.empty((n,), dtype=torch.float32, device=dev)
+        out_f = torch.empty((n,), dtype=torch.int32, device=dev)
+    if not sched.entries and lo == hi:
+        return out_t, out_f
+    args = (ctypes.c_int64 * (ARGS_PER_BUCKET * len(sched.entries)))()
+    for j, (i, *ints) in enumerate(sched.entries):
+        pidx, cand = buckets[i]
+        args[ARGS_PER_BUCKET * j:ARGS_PER_BUCKET * (j + 1)] = (
+            pidx.data_ptr(), cand.data_ptr(), *ints)
+    rc = KERNEL.launcher()(
+        wald.data_ptr(), origin.data_ptr(), direction.data_ptr(), P,
+        kernel_rays, float(t_max), out_t.data_ptr(), out_f.data_ptr(),
+        len(sched.entries), args, sched.n_blocks, sched.rows_per_block,
+        sched.slice_rays, lo * kernel_rays, (hi - lo) * kernel_rays,
+        raw_stream(origin.get_device()))
+    KERNEL.check(rc, "pulse_traverse")
+    KERNEL.launches += 1
     return out_t, out_f
 
 
@@ -278,16 +377,19 @@ class PulseLadderTraverser:
         self.t_max = float(t_max)
         return self.t_max
 
-    def upload(self, buckets) -> tuple:
-        """Host buckets -> ((pidx, cand) per bucket) on the device."""
+    def upload(self, buckets, uncovered=None) -> PulseLadders:
+        """Host buckets -> ((pidx, cand) per bucket) on the device, with
+        the range of groups in no bucket (`PulseLadders`)."""
         put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(
             self.device, non_blocking=True)
-        return tuple((put(p), put(c)) for p, c in buckets)
+        return PulseLadders(((put(p), put(c)) for p, c in buckets),
+                            uncovered)
 
     def prepare(self, bvh: BVH, origin, direction,
                 t_max: float | None = None):
         """Host cull for one chunk: ((pidx, cand) per bucket) on the
-        traverser's device.  Sets ``self.t_max``."""
+        traverser's device, in the rays' own order (so no uncovered range
+        is named).  Sets ``self.t_max``."""
         o = np.asarray(as_numpy(origin), np.float32).reshape(-1, 3)
         d = np.asarray(as_numpy(direction), np.float32).reshape(-1, 3)
         t_max = self._resolve_t_max(bvh, o, t_max)

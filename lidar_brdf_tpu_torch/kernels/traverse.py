@@ -200,9 +200,27 @@ def wald_blocks_plain(wald, o, d, ids, tm, t_best, f_best):
     by the tie rule.  Returns the updated pair.  The strict < merge across
     blocks, earlier block winning ties, is a first-occurrence argmin.
     """
+    nb = ids.shape[1] // CAND_BLOCK
+    t_m = wald_t_m_plain(wald, o, d, ids, tm).reshape(
+        t_best.shape + (nb, CAND_BLOCK))
+    t_c = t_m.amin(dim=-1)                             # (B, R, nb)
+    ids_b = ids.reshape(-1, 1, nb, CAND_BLOCK).expand_as(t_m)
+    f_c = torch.where(t_m <= t_c[..., None], ids_b,
+                      torch.full_like(ids_b, INT_MISS)).amin(dim=-1)
+    first = torch.argmin(t_c, dim=-1, keepdim=True)
+    t_win = t_c.gather(-1, first)[..., 0]
+    f_win = f_c.gather(-1, first)[..., 0]
+    better = t_win < t_best
+    return (torch.where(better, t_win, t_best),
+            torch.where(better, f_win, f_best))
+
+
+def wald_t_m_plain(wald, o, d, ids, tm):
+    """Plain PyTorch `wald_t_m` (csrc/wald.cuh): t_m (B, R, C) of rays
+    ``o``/``d`` (B, R, 1, 3) against candidates ``ids`` (B, C), -1 for
+    padding: the hit distance where the Wald test accepts, else ``tm``."""
     ox, oy, oz = o[..., 0], o[..., 1], o[..., 2]
     dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
-    nb = ids.shape[1] // CAND_BLOCK
     rows = wald[torch.clamp(ids, min=0).long()]
     rows = torch.where((ids >= 0)[..., None], rows,
                        torch.zeros_like(rows))[:, None]       # (B,1,C,12)
@@ -218,17 +236,7 @@ def wald_blocks_plain(wald, o, d, ids, tm, t_best, f_best):
         + t * (dx * r[8] + dy * r[9] + dz * r[10])
     ok = (ok_det & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
           & (u + v <= 1.0) & (t >= -EPSILON) & (ids >= 0)[:, None])
-    t_m = torch.where(ok, t, tm).reshape(t_best.shape + (nb, CAND_BLOCK))
-    t_c = t_m.amin(dim=-1)                             # (B, R, nb)
-    ids_b = ids.reshape(-1, 1, nb, CAND_BLOCK).expand_as(t_m)
-    f_c = torch.where(t_m <= t_c[..., None], ids_b,
-                      torch.full_like(ids_b, INT_MISS)).amin(dim=-1)
-    first = torch.argmin(t_c, dim=-1, keepdim=True)
-    t_win = t_c.gather(-1, first)[..., 0]
-    f_win = f_c.gather(-1, first)[..., 0]
-    better = t_win < t_best
-    return (torch.where(better, t_win, t_best),
-            torch.where(better, f_win, f_best))
+    return torch.where(ok, t, tm)
 
 
 class TileTraverser:

@@ -22,7 +22,8 @@ from ..core.types import (BVH, MaterialTable, PointCloud, RayBundle,
                           SURFACE_WATER, TriangleScene, as_numpy,
                           concat_pointclouds, resolve_device)
 from ..kernels.pulse import (PulseLadderTraverser, build_pulse_ladders,
-                             permute_pulse_ladders, renumber_pulse_ladders)
+                             permute_pulse_ladders, renumber_pulse_ladders,
+                             uncovered_groups)
 from ..kernels.traverse import TileTraverser
 from ..physics.returns import SimScalars, simulate_returns
 from ..physics.shading import shade_records
@@ -265,12 +266,13 @@ class Simulator:
         o2 = sl["origin"].reshape(-1, 3)
         raw = build_pulse_ladders(self.bvh, o2, sl["direction"].reshape(-1, 3),
                                   R, t_max=self.t_max)
-        perm, _ = permute_pulse_ladders(raw, o2.shape[0] // R)
+        perm, layout = permute_pulse_ladders(raw, o2.shape[0] // R)
         grp = tr.group
         gperm = perm if grp == 1 else (
             (perm[:, None] * grp + np.arange(grp)[None, :]).reshape(-1))
         sl = {k: v[gperm] for k, v in sl.items()}
-        return sl, tr.upload(renumber_pulse_ladders(raw, perm))
+        return sl, tr.upload(renumber_pulse_ladders(raw, perm),
+                             uncovered_groups(layout, perm.shape[0]))
 
     def run(self, rays: RayBundle, materials: MaterialTable | None = None,
             stats: dict | None = None) -> PointCloud:

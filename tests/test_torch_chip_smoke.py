@@ -35,7 +35,7 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys):
     als = chip_smoke.als_workload("cpu")
     assert als[4].num_pulses == 2048 and als[4].rays_per_pulse == 10
     assert als[0].num_faces > 15_000 and als[0].face_neighbors is not None
-    als_sim, k2 = chip_smoke.phase_k2_vs_plain(als)
+    als_sim, k2, k2_chunk = chip_smoke.phase_k2_vs_plain(als)
     for k in (k1, k2):
         for key in ("name", "route", "source", "replaces", "max_abs_err",
                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"):
@@ -52,11 +52,35 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys):
     assert fwd["points"] > 0 and fwd["rays"] == 2048 * 10
     chip_smoke.phase_card_vs_cpu()
     k3 = {}
-    chip_smoke.phase_profiles(chunk, k1, k3)
+    chip_smoke.phase_profiles(chunk, k1, k3, k2_chunk, k2)
     assert k1["device_ms"] is None and k3["host_steps_us"] == {}
+    assert k2["device_ms"] is None and k2["fills_device_ms"] is None
     out = capsys.readouterr().out
     assert "faces equal" in out and "K2 als chunk" in out
+    assert "K2 planted tie, 128 candidates, groups of 128" in out
     assert "[card-vs-cpu] TLS L=2" in out and "[card-vs-cpu] ALS L=2" in out
+
+
+def test_chip_smoke_k2_chunk_on_cpu(monkeypatch):
+    """`--k2-chunk` at a small size: the `als` chunk with K2 writing the
+    uncovered groups and with the wrapper's fills, and the `tls` ladders;
+    no launch and no device time on the CPU."""
+    from lidar_brdf_tpu_torch.runtime import simulate
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "TLS_PULSES", 2048)
+    monkeypatch.setattr(chip_smoke, "TLS_TRIS", 2000)
+    monkeypatch.setattr(chip_smoke, "ALS_PULSES", 2048)
+    monkeypatch.setattr(chip_smoke, "ALS_TRIS", 20_000)
+    monkeypatch.setattr(chip_smoke, "ALS_CHUNK", 1024)
+    monkeypatch.setattr(simulate, "PULSE_MIN_FACES", 10_000)
+    out = chip_smoke.k2_chunk(reps=2)
+    lo, hi = out["uncovered"]
+    assert 0 < lo < hi == 1024 and out["cull_s"] > 0
+    assert out["buckets"] and out["tls_buckets"]
+    for name in ("main", "fills", "tls"):
+        r = out[name]
+        assert r["launches_per_call"] == 0 and r["device"]["k2_ms"] is None
+        assert len(r["events_ms"]) == 3 and r["call_ms"] > 0
 
 
 def test_chip_smoke_training_phases_on_cpu(monkeypatch, capsys):

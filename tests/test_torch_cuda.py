@@ -174,7 +174,7 @@ def _k2_vs_plain(scene, o, d, R, group=1):
     t_k, f_k = pp.pulse_traverse(tt.wald, og, dg, data, tt.t_max,
                                  tt.kernel_rays)
     torch.cuda.synchronize()
-    assert pp.KERNEL.launches == before + len(data)
+    assert pp.KERNEL.launches == before + 1
     t_p, f_p = pp.pulse_traverse_plain(tt.wald, og, dg, data, tt.t_max,
                                        tt.kernel_rays)
     assert torch.equal(f_k, f_p)
@@ -223,6 +223,64 @@ def test_pulse_kernel_checks_inputs_and_drops_dummy_rows(card):
         pp.pulse_traverse(wald.double(), o, o, [dummy], 10.0, 4)
     with pytest.raises(ValueError):
         pp.pulse_traverse(wald, o, o.cpu(), [dummy], 10.0, 4)
+
+
+def _k2_call_vs_plain(wald, o, d, data, t_max, R):
+    """One K2 call (one launch) and the plain version: faces equal, t to
+    rtol 1e-6 on hits, misses (BIG, -1)."""
+    before = pp.KERNEL.launches
+    t_k, f_k = pp.pulse_traverse(wald, o, d, data, t_max, R)
+    torch.cuda.synchronize()
+    assert pp.KERNEL.launches == before + 1
+    t_p, f_p = pp.pulse_traverse_plain(wald, o, d, data, t_max, R)
+    assert torch.equal(f_k, f_p)
+    hit = f_p >= 0
+    torch.testing.assert_close(t_k[hit], t_p[hit], rtol=1e-6, atol=0)
+    assert bool((t_k[~hit] == BIG).all())
+    return f_k
+
+
+def test_pulse_kernel_planted_tie_across_blocks(card):
+    """Coincident faces 40 (block 1) and 12 (block 6): the earlier block
+    wins though its id is larger, in ladders of one and eight 16-candidate
+    stages, in groups of 8 rays and one group of 128."""
+    for name, wald, o, d, data, R in chip_smoke.k2_tie_cases():
+        f = _k2_call_vs_plain(wald, o, d, data, 100.0, R)
+        assert int((f == 40).sum()) > 10 and not bool((f == 12).any()), name
+
+
+@pytest.mark.parametrize("R", [8, 384])
+@pytest.mark.parametrize("named", [False, True])
+def test_pulse_kernel_mixed_ladders_one_launch(card, R, named):
+    """Ladders of 1-128 real candidates padded to K = 8 ... 128 (five
+    buckets, shuffled, with dummy rows) in one launch; groups of 8 rays
+    and of 384 (three 128-ray slices a row).  The last groups are in no
+    bucket: filled by the wrapper, or by K2 when the range is named."""
+    rng = np.random.default_rng(R)
+    wald, o, d, _ = (torch.from_numpy(a).cuda()
+                     for a in chip_smoke.planted_tie(64))
+    G = 64 if R == 8 else 8
+    o, d = o.repeat(G * R // 128, 1), d.repeat(G * R // 128, 1)
+    lo = G - G // 8                             # groups [lo, G): no bucket
+    by_k = {}
+    for j, g in enumerate(rng.permutation(lo)):
+        n = (5, 12, 30, 60, 120)[j] if j < 5 else int(rng.integers(1, 129))
+        K = 8 * 2 ** int(np.ceil(np.log2(-(-n // 8))))
+        by_k.setdefault(K, []).append((g, rng.integers(0, 64, n)))
+    data = []
+    for K in rng.permutation(sorted(by_k)):
+        rows = by_k[int(K)]
+        cand = np.full((len(rows) + 3, K), -1, np.int32)
+        pidx = np.full(len(rows) + 3, G, np.int32)      # 3 dummy rows
+        for j, (g, ids) in enumerate(rows):
+            pidx[j], cand[j, :len(ids)] = g, ids
+        data.append((torch.from_numpy(pidx).cuda(),
+                     torch.from_numpy(cand).cuda()))
+    assert sorted(c.shape[1] for _, c in data) == [8, 16, 32, 64, 128]
+    if named:
+        data = pp.PulseLadders(data, (lo, G))
+    f = _k2_call_vs_plain(wald, o, d, data, 100.0, R)
+    assert bool((f[lo * R:] == -1).all()) and int((f >= 0).sum()) > 100
 
 
 def test_simulator_pulse_path_card_matches_cpu(card):
