@@ -8,10 +8,11 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases (any failure exits non-zero; nothing is caught and carried on):
 
 1. Card and build: prints the card's name and power limit, builds the CUDA
-   tile kernel (K1), pulse-ladder kernel (K2) and the bench's pre-flight
-   kernel (K3) from `lidar_brdf_tpu_torch/kernels/csrc/` into
-   `build/kernels/` (one nvcc each, started together) and launches each
-   once (K1 and K2 on a one-triangle input).
+   tile kernel (K1), pulse-ladder kernel (K2), the bench's pre-flight
+   kernel (K3) and the packet-walk kernel (K4) from
+   `lidar_brdf_tpu_torch/kernels/csrc/` into `build/kernels/` (one nvcc
+   each, started together) and launches each once (K1, K2 and K4 on a
+   one-triangle input).
 2. Kernel vs plain version on the card: K3 equal bit for bit on the
    bench's (8, 128) tile, on 1M elements and on sizes that are no multiple
    of 4, timed beside `torch.addcmul` (CUDA events and host time per
@@ -22,7 +23,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    without the chunk's dummy rows, and back to back); K2 on a fan over
    boxes (group 1 and 4), a grazing fan with fat ladders, a chunk with
    padded pulses, the planted tie (ladders of 64 and 128, groups of 8 and
-   128 rays) and one real `als` chunk of 131,072 pulses culled as
+   128 rays), whole blocks of padding inside hand-built ladders (no
+   promise of tail padding) and tail-padded ladders under the promise,
+   and one real `als` chunk of 131,072 pulses culled as
    `Simulator._prep` does it (one launch per call).  Both timed with CUDA
    events on their real chunk; then K1 and K2 on the same pulses of both
    scenes (the traverser-choice figures; K2 on the `tls` chunk back to
@@ -33,8 +36,19 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 4. The `als` forward scan at full width through `api.simulate` (1,048,576
    pulses x 10 rays, 2 returns, over the 4,999,122-face terrain, in chunks
    of 131,072), warm on one chunk, then timed: K2 once per chunk, K1 not.
+4b. The topo-bathymetric scan at full width through `api.simulate`: the
+   `als` terrain under a water plane (5,007,314 faces), 532 nm,
+   bathymetric, 3 returns, the flight's first 524,288 pulses (four chunks
+   of 131,072), warm on 8,192, then timed: K2 once per chunk (level 0), K4 twice (levels 1 and
+   2), K1 not; it must give bottom returns.  Then the `tls` scan through
+   `Simulator(use_culled=False)` (no host cull): K4 once per chunk, no K1.
+   K4 against its plain version, faces and t bit for bit and walks as
+   long: a fan over boxes, the grazing fan, zero-direction rays, the `tls`
+   rays in scan order and the water chunk's level-1 rays, the last two
+   timed with CUDA events.
 5. Card vs CPU at a small size (L = 1 and 2): same seed, same rays, for
-   the TLS tile path and the ALS pulse path.
+   the TLS tile path and the ALS pulse path; and `tests/test_water.py`'s
+   bathymetric scan (L = 3, K1 and K4).
 6. The fwd+bwd training step through the port's bench
    (`lidar_brdf_tpu_torch/bench.py`): its pre-flight K3, then the `tls`
    step at full width (131,072 pulses x 10 rays over the ~40k-face city,
@@ -82,6 +96,12 @@ H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 # built with --fmad=false, so their multiplies and adds run one by one.
 H100_F32_OPS_PER_S = 132 * 128 * 1.98e9
 OPS_PER_PAIR = 50               # f32 operations per (ray, candidate) test
+# f32 operations a ray of a K4 walk step: the slab test of an internal
+# node (6 sub, 6 mul, 6 min/max per axis pair, 4 min/max across axes, a
+# max with 0, 2 compares) and the Moller-Trumbore test of a leaf (2 cross
+# products, 4 dot products, the reciprocal, 4 mul, 3 sub, 8 compares)
+OPS_BOX = 26
+OPS_TRI = 60
 TLS_PULSES = 131072
 TLS_RAYS_PULSE = 10
 TLS_TRIS = 40_000
@@ -90,6 +110,9 @@ ALS_TRIS = 5_000_000
 ALS_CHUNK = 131072
 ALS_SUB_PULSES = 8192           # K1 vs K2 on the same als pulses
 ALS_STEP_PULSES = 131072        # the als fwd+bwd step: one chunk
+WATER_PULSES = 524288           # the topo-bathymetric scan: four chunks
+WATER_WARM = 8192               # its warm run
+WATER_CELLS = 64                # water plane cells a side (8,192 faces)
 STEP_ITERS = 5                  # timed training steps per measurement
 K3_BIG = 1 << 20                # K3 vs plain on 1M elements as well
 DEVICE = "cuda"                 # a rehearsal on the CPU may set "cpu"
@@ -343,6 +366,7 @@ def phase_card_and_build():
     from concurrent.futures import ThreadPoolExecutor
     from lidar_brdf_tpu_torch.geom.beamcull import wald_rows_np
     from lidar_brdf_tpu_torch.kernels import cuda_build
+    from lidar_brdf_tpu_torch.kernels import packet as kpk
     from lidar_brdf_tpu_torch.kernels import pulse as pp
     from lidar_brdf_tpu_torch.kernels import traverse as tr
     smi = subprocess.run(
@@ -354,12 +378,13 @@ def phase_card_and_build():
     log(card)
     from lidar_brdf_tpu_torch.kernels import smoke
     # one nvcc per kernel source, started together
-    libs = (("K1", tr.KERNEL), ("K2", pp.KERNEL), ("K3", smoke.KERNEL))
+    libs = (("K1", tr.KERNEL), ("K2", pp.KERNEL), ("K3", smoke.KERNEL),
+            ("K4", kpk.KERNEL))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(libs)) as pool:
         for fut in [pool.submit(k.build, True) for _, k in libs]:
             fut.result()
-    log(f"[build] K1, K2 and K3 built in {time.perf_counter() - t0:.2f} s "
+    log(f"[build] K1-K4 built in {time.perf_counter() - t0:.2f} s "
         f"({cuda_build.NVCC_FLAGS})")
     for name, k in libs:
         log(f"[build] {name} {os.path.basename(k.source)}: "
@@ -392,7 +417,18 @@ def phase_card_and_build():
     torch.cuda.synchronize()
     if not torch.equal(y, x * 2.0 + 1.0):
         fail("K3 one-tile launch did not give 2x + 1")
-    log("[build] K1 one-tile, K2 one-ladder and K3 one-tile launches ok")
+    # a one-leaf tree over the same triangle: 128 rays, one tile
+    tri = torch.tensor([[-1.0, -1.0, 50.0, 2.0, 0.0, 0.0, 1.0, 2.0, 0.0]],
+                       device="cuda")
+    box = torch.tensor([[-1.0, -1.0, 50.0, 1.0, 1.0, 50.0]], device="cuda")
+    i32 = dict(dtype=torch.int32, device="cuda")
+    t, f = kpk.packet_traverse(box, torch.ones(1, **i32),
+                               torch.zeros(1, **i32), tri, o, d)
+    torch.cuda.synchronize()
+    if not (bool((f == 0).all()) and bool(((t - 50.0).abs() < 1e-5).all())):
+        fail(f"K4 one-leaf launch gave faces {f.unique().tolist()}")
+    log("[build] K1 one-tile, K2 one-ladder, K3 one-tile and K4 one-leaf "
+        "launches ok")
     return card
 
 
@@ -507,8 +543,8 @@ def k2_chunk(reps: int = 20) -> dict:
     """K2 alone, for comparing two trees on one card (``python3
     chip_smoke.py --k2-chunk``, from a copy of this script in the root of
     either tree): on the `als` chunk as the Simulator calls it (``main``)
-    and with the buckets as a plain tuple (``fills``: the wrapper fills the
-    outputs first), and on the `tls` city chunk's ladders (``tls``, the
+    and with the uncovered groups not named (``fills``: the wrapper fills
+    the outputs first), and on the `tls` city chunk's ladders (``tls``, the
     traverser-choice input).  Each: launches per call, CUDA-event ms per
     call (three runs of ``reps`` queued, one back to back), profiler device
     ms of K2 and of the output fills."""
@@ -520,7 +556,8 @@ def k2_chunk(reps: int = 20) -> dict:
                uncovered=getattr(data, "uncovered", None), cull_s=cull_s,
                tls_buckets=[tuple(c.shape) for _, c in tls[3]])
     for name, (t, o, d, b) in (("main", (tr_, og, dg, data)),
-                               ("fills", (tr_, og, dg, tuple(data))),
+                               ("fills", (tr_, og, dg, pp.PulseLadders(
+                                   data, tail_padded=True))),
                                ("tls", tls[:4])):
         call = lambda: pp.pulse_traverse(t.wald, o, d, b, t.t_max,
                                          t.kernel_rays)
@@ -696,6 +733,34 @@ def k2_tie_cases():
     return out
 
 
+def k2_padding_cases():
+    """K2's ladder contract: [(name, wald, origins, directions, buckets,
+    kernel_rays)].  The planted tie's 64 real ids with whole blocks of 8
+    of padding before real ones (one block in a row's first stage, two in
+    another's third) in a hand-built bucket, as a list (no promise of tail
+    padding: K2 must skip those blocks); and the tie's ladders of 128
+    (64 real, then padding) as `PulseLadders(tail_padded=True)`, where K2
+    stops at the padding.  16 groups of 8 rays."""
+    import torch
+    from lidar_brdf_tpu_torch.kernels import pulse as pp
+    out = []
+    for n_cand in (64, 128):
+        wald, o, d, ids = (torch.from_numpy(a).to(DEVICE)
+                           for a in planted_tie(n_cand))
+        pidx = torch.arange(16, dtype=torch.int32, device=DEVICE)
+        if n_cand == 128:
+            out.append(("K2 tail-padded ladders, promised", wald, o, d,
+                        pp.PulseLadders([(pidx, ids.repeat(16, 1))],
+                                        tail_padded=True), 8))
+            continue
+        gap = torch.full((8,), -1, dtype=torch.int32, device=DEVICE)
+        rows = torch.stack([torch.cat([ids[:8], gap, ids[8:], gap, gap]),
+                            torch.cat([gap, ids[:40], gap, gap, ids[40:]])])
+        out.append(("K2 interior padding, hand-built bucket", wald, o, d,
+                    [(pidx, rows.repeat(8, 1))], 8))
+    return out
+
+
 def als_chunk(als):
     """One real `als` chunk, culled and permuted as `Simulator._prep` does
     it: (simulator, traverser, origins, directions, `PulseLadders`, host
@@ -764,15 +829,7 @@ def phase_k2_vs_plain(als):
     for group in (1, 4):
         case(f"K2 fan over boxes, group {group}", boxes, o, d, 4, group)
     # tests/test_pallas.py:208-236: grazing fan, fat ladders
-    rough = synthetic.rough_terrain(np.random.default_rng(1234),
-                                    num_tris=20_000, half=30.0)
-    az = np.linspace(0, 2 * np.pi, 16, endpoint=False)
-    el = np.linspace(-0.25, -0.02, 16)
-    aa, ee = np.meshgrid(az, el, indexing="ij")
-    dg = np.stack([np.cos(ee) * np.cos(aa), np.sin(ee),
-                   np.cos(ee) * np.sin(aa)], -1).reshape(-1, 3)
-    dg = (dg / np.linalg.norm(dg, axis=1, keepdims=True)).astype(np.float32)
-    og = np.tile(np.array([0.0, 3.0, 0.0], np.float32), (dg.shape[0], 1))
+    rough, og, dg = grazing_fan()
     data = case("K2 grazing fan", rough, og, dg, 2)
     if max(c.shape[1] for _, c in data) < 64:
         fail("the grazing fan made no fat ladder")
@@ -780,8 +837,9 @@ def phase_k2_vs_plain(als):
     o2, d2 = o.copy(), d.copy()
     o2[-8:], d2[-8:] = 1e10, 0.0
     case("K2 padded chunk", boxes, o2, d2, 4, 4)
-    # a tie across two blocks of 8 (and two stages at 128 candidates)
-    for name, wald, ot, dt, data, R in k2_tie_cases():
+    # a tie across two blocks of 8 (and two stages at 128 candidates);
+    # padding inside ladders, and tail padding under the promise
+    for name, wald, ot, dt, data, R in k2_tie_cases() + k2_padding_cases():
         errs.append(compare_k2(name, wald, ot, dt, data, 100.0, R))
 
     # one real als chunk, culled and permuted as Simulator._prep does it;
@@ -884,29 +942,49 @@ def phase_traverser_choice(tls, als, k1, als_sim):
     return out
 
 
-def phase_forward(name, workload, warm_pulses, kernel):
-    """One forward scan at full width through `api.simulate`, after a warm
-    run on the first ``warm_pulses`` pulses.  Both launch counts are set to
-    0 just before the timed run and read just after: ``kernel`` ("K1" or
-    "K2") must have launched, the other kernel not."""
-    import torch
-    from lidar_brdf_tpu_torch import api
+KERNELS = ("K1", "K2", "K4")       # the traversal kernels of the scans
+
+
+def traversal_libs() -> dict:
+    """The traversal kernels' `CudaLibrary` by id."""
+    from lidar_brdf_tpu_torch.kernels import packet as kpk
     from lidar_brdf_tpu_torch.kernels import pulse as pp
     from lidar_brdf_tpu_torch.kernels import traverse as tr
+    return {"K1": tr.KERNEL, "K2": pp.KERNEL, "K4": kpk.KERNEL}
+
+
+def phase_forward(name, workload, warm_pulses, per_chunk, **sim_kw):
+    """One forward scan at full width, after a warm run on the first
+    ``warm_pulses`` pulses: through `api.simulate`, or through a
+    `Simulator` built with ``sim_kw`` when given.  The traversal kernels'
+    launch counts are set to 0 just before the timed run and read just
+    after: each kernel of ``per_chunk`` ({id: launches per chunk}) must
+    have launched that often per chunk, every other one not."""
+    import torch
+    from lidar_brdf_tpu_torch import api
+    from lidar_brdf_tpu_torch.runtime.simulate import Simulator
     scene, bvh, cfg, mats, rays = workload
     n_rays = rays.num_pulses * rays.rays_per_pulse
+
+    def scan(r, stats=None):
+        if not sim_kw:
+            return api.simulate(scene, cfg, materials=mats, bvh=bvh, rays=r,
+                                device=DEVICE, stats=stats)
+        return Simulator(scene=scene, bvh=bvh, materials=mats, cfg=cfg,
+                         device=DEVICE, **sim_kw).run(r, stats=stats)
+
     t0 = time.perf_counter()
-    api.simulate(scene, cfg, materials=mats, bvh=bvh,
-                 rays=head(rays, warm_pulses), device=DEVICE)
+    scan(head(rays, warm_pulses))
     warm_s = time.perf_counter() - t0
     stats = {}
     sync()
-    tr.KERNEL.launches = pp.KERNEL.launches = 0    # main path starts here
+    libs = traversal_libs()
+    for lib in libs.values():                   # main path starts here
+        lib.launches = 0
     t0 = time.perf_counter()
-    cloud = api.simulate(scene, cfg, materials=mats, bvh=bvh, rays=rays,
-                         device=DEVICE, stats=stats)
+    cloud = scan(rays, stats)
     wall = time.perf_counter() - t0
-    launches = dict(K1=tr.KERNEL.launches, K2=pp.KERNEL.launches)
+    launches = {k: lib.launches for k, lib in libs.items()}
     m = cloud.mask
     n_pts = int(m.sum())
     inten = cloud.intensity[m]
@@ -918,38 +996,307 @@ def phase_forward(name, workload, warm_pulses, kernel):
         f"{stats['order_s']:.3f} s, host cull {stats['cull_s']:.3f} s, "
         f"device {stats['device_s']:.3f} s, readback "
         f"{stats['readback_s']:.3f} s; launches {launches}")
-    other = "K2" if kernel == "K1" else "K1"
     chunks = -(-rays.num_pulses // cfg.chunk_pulses)
-    if DEVICE == "cuda" and (launches[kernel] != chunks or launches[other]):
+    want = {k: per_chunk.get(k, 0) * chunks for k in KERNELS}
+    if DEVICE == "cuda" and launches != want:
         fail(f"the {name} forward scan launched {launches}: expected "
-             f"{kernel} once per chunk ({chunks}) and nothing else")
+             f"{want} ({chunks} chunks)")
     if n_pts <= 0:
         fail(f"the {name} forward scan produced no points")
     if not (bool(torch.isfinite(inten).all()) and bool((inten >= 0).all())):
         fail(f"{name} intensities are not finite and non-negative")
     if not bool(torch.isfinite(cloud.position[m]).all()):
         fail(f"{name} positions are not finite")
-    return launches[kernel], dict(
+    return launches, cloud, dict(
         rays=n_rays, faces=scene.num_faces, points=n_pts, wall_s=wall,
         rays_per_s=n_rays / wall, launches=launches, **stats)
 
 
-def compare_clouds(what, g, c):
-    """Card cloud ``g`` vs CPU cloud ``c``, slot by slot."""
+def compare_clouds(what, g, c, bathymetric=False):
+    """Card cloud ``g`` vs CPU cloud ``c``, slot by slot.  On a
+    bathymetric scan the bottom returns' intensities are held to rtol 1e-2
+    (atol 1e-20): the decay's exponent divides by the sine of the in-water
+    angle, which the card's and the CPU's arccos and sine give within a
+    few ulp of an ill-conditioned point for near-vertical rays."""
     import torch
     for k in ("mask", "comp_id", "return_number"):
         if not torch.equal(getattr(g, k), getattr(c, k)):
             fail(f"card vs CPU ({what}): {k} differs")
     if not torch.allclose(g.position, c.position, rtol=0, atol=1e-4):
         fail(f"card vs CPU ({what}): positions differ beyond 1e-4")
-    if not torch.allclose(g.intensity, c.intensity, rtol=1e-4, atol=0):
-        fail(f"card vs CPU ({what}): intensity differs beyond rtol 1e-4")
+    bottom = ((c.asprs == 2) & (c.return_number >= 1) if bathymetric
+              else torch.zeros_like(c.mask))
+    if not (torch.allclose(g.intensity[~bottom], c.intensity[~bottom],
+                           rtol=1e-4, atol=0)
+            and torch.allclose(g.intensity[bottom], c.intensity[bottom],
+                               rtol=1e-2, atol=1e-20)):
+        fail(f"card vs CPU ({what}): intensity differs beyond its rtol")
     m = c.mask
     log(f"[card-vs-cpu] {what}: {int(m.sum())} points "
         f"({int((c.return_number[m] == 1).sum())} second returns) "
         f"equal; max |dpos| "
         f"{float((g.position - c.position).abs().max()):.3e}, max "
         f"|dI| {float((g.intensity - c.intensity).abs().max()):.3e}")
+
+
+def pad_tiles(o, d):
+    """Rays (N, 3) padded to whole 128-ray tiles as `intersect_packed_scene`
+    pads them (origin 1e10, direction 0)."""
+    import torch
+    pad = (-o.shape[0]) % 128
+    if pad:
+        o = torch.cat([o, o.new_full((pad, 3), 1e10)])
+        d = torch.cat([d, d.new_zeros((pad, 3))])
+    return o.contiguous(), d.contiguous()
+
+
+def once_ms(fn) -> float:
+    """Milliseconds of one ``fn()``: CUDA events around it on the card, the
+    host clock in a CPU rehearsal."""
+    import torch
+    sync()
+    if DEVICE != "cuda":
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def compare_k4(name, packed, o, d):
+    """K4 vs its plain version on rays ``o``/``d`` (padded to tiles here):
+    faces equal, t equal bit for bit, every tile's walk as long.  Returns
+    (steps (T, 2): node steps and leaf steps per tile, the plain version's
+    ms for the call)."""
+    import torch
+    from lidar_brdf_tpu_torch.kernels import packet as kpk
+    o, d = pad_tiles(o, d)
+    T = o.shape[0] // 128
+    steps_k = torch.zeros((T, 2), dtype=torch.int32, device=o.device)
+    steps_p = torch.zeros_like(steps_k)
+    t_k, f_k = kpk.packet_traverse(*packed, o, d, steps=steps_k)
+    out = {}
+    plain_ms = once_ms(lambda: out.setdefault("p", kpk.packet_traverse_plain(
+        *packed, o, d, steps=steps_p)))
+    t_p, f_p = out["p"]
+    sync()
+    diff = (f_k != f_p).nonzero().flatten()
+    if diff.numel():
+        fail(f"{name}: {diff.numel()} faces differ between K4 and plain "
+             f"(first rays {diff[:5].tolist()})")
+    if not torch.equal(t_k, t_p):
+        fail(f"{name}: t not bit-equal between K4 and plain")
+    if not torch.equal(steps_k, steps_p):
+        fail(f"{name}: walk lengths differ between K4 and plain")
+    hit = f_p >= 0
+    log(f"[kernel] {name}: {o.shape[0]} rays ({T} tiles), {int(hit.sum())} "
+        f"hits: faces and t equal bit for bit; node steps "
+        f"{int(steps_k[:, 0].sum())} (leaves {int(steps_k[:, 1].sum())}), "
+        f"longest walk {int(steps_k[:, 0].max())}; plain {plain_ms:.1f} ms")
+    return steps_k, plain_ms
+
+
+def k4_bound(steps, n_rays):
+    """(bound ms, "bytes" or "operations", ops ms, bytes ms) of one K4
+    call: the counted steps x 128 lanes x the operations a step does (the
+    slab test at a node, Moller-Trumbore at a leaf), and 32 bytes a ray
+    (rays in, (t, face) out; the node and triangle rows that the rays of
+    a tile share are not counted)."""
+    node = int(steps[:, 0].sum())
+    leaf = int(steps[:, 1].sum())
+    ops = 128 * ((node - leaf) * OPS_BOX + leaf * OPS_TRI)
+    ops_ms = ops / H100_F32_OPS_PER_S * 1e3
+    bytes_ms = 32 * n_rays / H100_BYTES_PER_S * 1e3
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes", ops_ms, bytes_ms)
+
+
+def grazing_fan():
+    """`tests/test_pallas.py:208-236`'s grazing fan over a rough terrain:
+    (scene, origins, directions), 256 rays from 3 m up."""
+    import numpy as np
+    from lidar_brdf_tpu_torch.io import synthetic
+    rough = synthetic.rough_terrain(np.random.default_rng(1234),
+                                    num_tris=20_000, half=30.0)
+    az = np.linspace(0, 2 * np.pi, 16, endpoint=False)
+    el = np.linspace(-0.25, -0.02, 16)
+    aa, ee = np.meshgrid(az, el, indexing="ij")
+    dg = np.stack([np.cos(ee) * np.cos(aa), np.sin(ee),
+                   np.cos(ee) * np.sin(aa)], -1).reshape(-1, 3)
+    dg = (dg / np.linalg.norm(dg, axis=1, keepdims=True)).astype(np.float32)
+    og = np.tile(np.array([0.0, 3.0, 0.0], np.float32), (dg.shape[0], 1))
+    return rough, og, dg
+
+
+def water_workload(als):
+    """The topo-bathymetric `als` configuration: the `als` terrain
+    (component 0, STONE, ASPRS 2) under a water plane at y = 0 over the
+    same 1 km square (`ground_plane(half=500, cells=64)`: component 1,
+    WATER, ASPRS 9; the relief spans +-6 m, so about half the pulses meet
+    water first); the `als` sensor at 532 nm, bathymetric, water height 0,
+    3 returns, `table_at(532)`; the flight's first WATER_PULSES pulses (the
+    flight plan over this scene's box is the `als` one)."""
+    import numpy as np
+    from lidar_brdf_tpu_torch import api
+    from lidar_brdf_tpu_torch.core.types import (SURFACE_TERRAIN,
+                                                 SURFACE_WATER, as_numpy)
+    from lidar_brdf_tpu_torch.io import synthetic
+    from lidar_brdf_tpu_torch.io.materials import MaterialLibrary
+    terrain, _, cfg, _, rays = als
+    wv, wf = synthetic.ground_plane(half=500.0, y=0.0, cells=WATER_CELLS)
+    tv, tf = as_numpy(terrain.vertices), as_numpy(terrain.faces)
+    scene = synthetic.scene_from_arrays(
+        np.concatenate([tv, wv]), np.concatenate([tf, wf + len(tv)]),
+        comp_of_face=np.repeat(np.int32([0, 1]), [len(tf), len(wf)]),
+        num_components=2, comp_material=np.int32([7, 6]),
+        comp_surface=np.int32([SURFACE_TERRAIN, SURFACE_WATER]),
+        comp_asprs=np.int32([2, 9]))
+    scene = api.attach_face_neighbors(scene)
+    bvh = api.build_scene_bvh(scene)
+    cfg = cfg.with_(bathymetric=True, water_height=0.0,
+                    wavelength_nm=(532, 532), max_returns=3)
+    mats = MaterialLibrary.default().table_at(532)
+    rays = head(rays, min(WATER_PULSES, rays.num_pulses))
+    log(f"[setup] water: {scene.num_faces} faces ({len(wf)} water), "
+        f"{rays.num_pulses} pulses x {rays.rays_per_pulse} rays, L = "
+        f"{cfg.max_returns}, bathymetric at 532 nm")
+    return scene, bvh, cfg, mats, rays
+
+
+def phase_water(water):
+    """The topo-bathymetric scan through `api.simulate`, timed after a
+    warm run: K2 once a chunk (level 0), K4 twice (the refracted levels 1
+    and 2), K1 never; it must give bottom returns (ASPRS 2 at return
+    number >= 1).  Then the first chunk once more through a `Simulator`
+    whose packet walk keeps the level-1 rays it is handed (in the chunk's
+    bucket order, as on the main path).  Returns (launches, the scan's
+    record, (packed scene, level-1 origins, level-1 directions))."""
+    from lidar_brdf_tpu_torch.geom.packet import (intersect_packed_scene,
+                                                  pack_scene)
+    from lidar_brdf_tpu_torch.runtime.simulate import Simulator
+    scene, bvh, cfg, mats, rays = water
+    L = cfg.max_returns
+    launches, cloud, res = phase_forward(
+        "water", water, min(WATER_WARM, rays.num_pulses),
+        {"K2": 1, "K4": L - 1})
+    m = cloud.mask
+    bottom = int((m & (cloud.asprs == 2) & (cloud.return_number >= 1)).sum())
+    surface = int((m & (cloud.asprs == 9)).sum())
+    log(f"[water] {surface} water-surface returns, {bottom} bottom returns "
+        f"(ASPRS 2, return number >= 1)")
+    if bottom <= 0:
+        fail("the water scan gave no bottom returns")
+    res.update(surface_returns=surface, bottom_returns=bottom)
+    sim = Simulator(scene=scene, bvh=bvh, materials=mats, cfg=cfg,
+                    device=DEVICE)
+    packed = pack_scene(sim.scene, sim.bvh)
+    seen = []
+
+    def walk(o, d):
+        seen.append((o.reshape(-1, 3), d.reshape(-1, 3)))
+        return intersect_packed_scene(packed, o, d)
+
+    sim.packet_fn = walk
+    n = min(cfg.chunk_pulses, rays.num_pulses)
+    sl, data, _ = sim._prep(host_rays(head(rays, n)), 0, n, n)
+    sim.run_chunk(sl, 0, data)
+    sync()
+    if len(seen) != L - 1:
+        fail(f"the water chunk walked {len(seen)} bounce levels, not {L - 1}")
+    return launches, res, (packed, *seen[0])
+
+
+def phase_k4_vs_plain(tls, level1):
+    """K4 against its plain version, faces and t bit-equal and walks as
+    long: on the fan over boxes, the grazing fan, zero-direction padding
+    rays, the `tls` chunk in scan order (what ``use_culled=False`` hands
+    it) and the water scan's level-1 rays; timed with CUDA events on the
+    last two.  Returns K4's record (its time and bound on the level-1
+    rays, the main path's input)."""
+    import numpy as np
+    import torch
+    from lidar_brdf_tpu_torch import api
+    from lidar_brdf_tpu_torch.geom.packet import pack_scene
+    from lidar_brdf_tpu_torch.io import synthetic
+    from lidar_brdf_tpu_torch.kernels import packet as kpk
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)
+    boxes = synthetic.terrain_with_boxes(np.random.default_rng(1234),
+                                         num_boxes=6)
+    o, d = fan_rays(64)
+    og, dg = o.copy(), d.copy()
+    og[1000:1100], dg[1000:1100] = 1e10, 0.0     # zero-direction padding
+    dg[3000:3050] = 0.0
+    rough, o2, d2 = grazing_fan()
+    for name, scene, oo, dd in (
+            ("K4 fan over boxes", boxes, o, d),
+            ("K4 grazing fan", rough, o2, d2),
+            ("K4 fan with zero-direction rays", boxes, og, dg)):
+        packed = pack_scene(scene.to(DEVICE), api.build_scene_bvh(scene))
+        compare_k4(name, packed, put(oo), put(dd))
+    out = {}
+    scene, bvh, _, _, rays = tls
+    cases = (("tls", pack_scene(scene.to(DEVICE), bvh),
+              rays.origin.reshape(-1, 3), rays.direction.reshape(-1, 3)),
+             ("water", *level1))
+    for key, packed, oo, dd in cases:
+        steps, plain_ms = compare_k4(f"K4 {key} rays", packed, oo, dd)
+        op, dp = pad_tiles(oo, dd)
+        call = lambda: kpk.packet_traverse(*packed, op, dp)
+        per_call = launches_in(kpk.KERNEL, call)
+        if DEVICE == "cuda" and per_call != 1:
+            fail(f"K4 launched {per_call} times in one call")
+        ms = [cuda_ms(call, 10, queued=True) for _ in range(2)]
+        bound_ms, bound_by, ops_ms, bytes_ms = k4_bound(steps, oo.shape[0])
+        node, leaf = int(steps[:, 0].sum()), int(steps[:, 1].sum())
+        out[key] = dict(rays=oo.shape[0], ms=min(ms), ms_runs=ms,
+                        plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by=bound_by, node_steps=node, leaf_steps=leaf,
+                        longest_walk=int(steps[:, 0].max()))
+        log(f"[kernel] K4 {key} rays: {ms[0]:.4f} / {ms[1]:.4f} ms (CUDA "
+            f"events on a queue of 10 calls, two runs), plain "
+            f"{plain_ms:.1f} ms; {node} node steps x 128 lanes ({leaf} "
+            f"leaves): bound {bound_ms:.4f} ms ({bound_by}; ops "
+            f"{ops_ms:.4f}, bytes {bytes_ms:.4f})")
+    w = out["water"]
+    return dict(name="packet_traverse", route="cuda",
+                source="lidar_brdf_tpu_torch/kernels/csrc/packet_traverse.cu",
+                replaces="lidar_brdf_tpu/geom/packet.py:148",
+                launches=None, max_abs_err=0.0, ms=w["ms"],
+                plain_ms=w["plain_ms"], bound_ms=w["bound_ms"],
+                bound_by=w["bound_by"], library_ms=None, water=w,
+                tls=out["tls"])
+
+
+def water_over_ground():
+    """`tests/test_water.py`'s scene (ground at y = 0, water at y = 2, 30 m
+    squares) and ALS scan (linear, 30 m up, 2 rays a pulse, 3 returns,
+    bathymetric at 532 nm, no shiny-surface error)."""
+    import numpy as np
+    from lidar_brdf_tpu_torch.core.config import (LiDARType, SensorConfig,
+                                                  ShadingMode)
+    from lidar_brdf_tpu_torch.core.types import SURFACE_TERRAIN, SURFACE_WATER
+    from lidar_brdf_tpu_torch.io import synthetic
+    gv, gf = synthetic.ground_plane(half=30.0, y=0.0)
+    wv, wf = synthetic.ground_plane(half=30.0, y=2.0)
+    scene = synthetic.scene_from_arrays(
+        np.concatenate([gv, wv]), np.concatenate([gf, wf + len(gv)]),
+        comp_of_face=np.repeat(np.int32([0, 1]), [len(gf), len(wf)]),
+        num_components=2, comp_material=np.int32([7, 6]),
+        comp_surface=np.int32([SURFACE_TERRAIN, SURFACE_WATER]),
+        comp_asprs=np.int32([2, 9]))
+    cfg = SensorConfig(
+        lidar_type=LiDARType.AERIAL_LINEAR, als_position=(0.0, 30.0, 0.0),
+        als_fov_horizontal=30.0, als_speed=10.0, als_scan_frequency=4,
+        als_pulse_frequency=200, rays_per_pulse=2, max_returns=3,
+        chunk_pulses=2048, shading_mode=ShadingMode.MEASURED,
+        include_shiny_surface_error=False, bathymetric=True,
+        water_height=2.0, wavelength_nm=(532, 532))
+    return scene, cfg
 
 
 def phase_card_vs_cpu():
@@ -959,6 +1306,7 @@ def phase_card_vs_cpu():
                                                   ShadingMode)
     from lidar_brdf_tpu_torch.io import synthetic
     from lidar_brdf_tpu_torch.io.materials import MaterialLibrary
+    from lidar_brdf_tpu_torch.kernels import packet as kpk
     from lidar_brdf_tpu_torch.kernels import pulse as pp
     from lidar_brdf_tpu_torch.runtime.simulate import Simulator
     mats = MaterialLibrary.default().table_at(1064)
@@ -1002,6 +1350,20 @@ def phase_card_vs_cpu():
         if DEVICE == "cuda" and pp.KERNEL.launches <= before:
             fail("the ALS card-vs-CPU run launched K2 no time")
         compare_clouds(f"ALS L={L}", *clouds)
+
+    # the water scene of tests/test_water.py: ALS, bathymetric at 532 nm,
+    # 3 returns; the hybrid (K1 level 0, K4 bounces)
+    scene, cfg = water_over_ground()
+    bvh = api.build_scene_bvh(scene)
+    mats = MaterialLibrary.default().table_at(532)
+    rays = api.build_rays(cfg, scene, device="cpu")
+    before = kpk.KERNEL.launches
+    clouds = [Simulator(scene=scene, bvh=bvh, materials=mats, cfg=cfg,
+                        device=dev).run(rays.to(dev))
+              for dev in (DEVICE, "cpu")]
+    if DEVICE == "cuda" and kpk.KERNEL.launches <= before:
+        fail("the water card-vs-CPU run launched K4 no time")
+    compare_clouds("water L=3", *clouds, bathymetric=True)
 
 
 def k3_host_steps(x, reps: int = 10_000) -> dict:
@@ -1126,7 +1488,8 @@ def phase_profiles(chunk, k1, k3, k2_chunk_data, k2):
     from lidar_brdf_tpu_torch.kernels import smoke
     from lidar_brdf_tpu_torch.kernels import traverse as tr
     t2, o2, d2, data2 = k2_chunk_data
-    for key, data in (("", data2), ("_with_fills", tuple(data2))):
+    for key, data in (("", data2), ("_with_fills", pp.PulseLadders(
+            data2, tail_padded=True))):
         split = k2_device_split(lambda: pp.pulse_traverse(
             t2.wald, o2, d2, data, t2.t_max, t2.kernel_rays), 20)
         k2["device_ms" + key] = split["k2_ms"]
@@ -1383,18 +1746,36 @@ def main() -> int:
     als_sim, k2, k2_chunk_data = phase_k2_vs_plain(als)
     choice = phase_traverser_choice(tls, als, k1, als_sim)
     del als_sim
-    k1["launches"], tls_fwd = phase_forward("tls", tls, TLS_PULSES, "K1")
-    k2["launches"], als_fwd = phase_forward("als", als, ALS_CHUNK, "K2")
+    launches, _, tls_fwd = phase_forward("tls", tls, TLS_PULSES, {"K1": 1})
+    k1["launches"] = launches["K1"]
+    launches, _, als_fwd = phase_forward("als", als, ALS_CHUNK, {"K2": 1})
+    k2["launches"] = launches["K2"]
+    t0 = time.perf_counter()
+    water = water_workload(als)
+    log(f"[setup] water workload built in {time.perf_counter() - t0:.2f} s")
+    water_launches, water_fwd, level1 = phase_water(water)
+    del water
+    _, _, tls_walk = phase_forward("tls, use_culled=False", tls, TLS_PULSES,
+                                   {"K4": 1}, use_culled=False)
+    log(f"[tls] packet walk (K4, no host cull) {tls_walk['rays_per_s']:.0f} "
+        f"rays/s wall, device {tls_walk['device_s']:.3f} s; culled (K1) "
+        f"{tls_fwd['rays_per_s']:.0f} rays/s, device "
+        f"{tls_fwd['device_s']:.3f} s")
+    k4 = phase_k4_vs_plain(tls, level1)
+    del level1
+    k4["launches"] = water_launches["K4"]
+    k2["launches_water"] = water_launches["K2"]
     phase_card_vs_cpu()
     (k3["launches"], k1["launches_fwd_bwd"], k2["launches_fwd_bwd"],
      training) = phase_training(als)
     phase_card_vs_cpu_grads()
     phase_profiles(k1_chunk_data, k1, k3, k2_chunk_data, k2)
     log(json.dumps({"card": card, "tls_forward": tls_fwd,
-                    "als_forward": als_fwd, "traverser_choice": choice,
-                    "fwd_bwd": training,
+                    "als_forward": als_fwd, "water_forward": water_fwd,
+                    "tls_packet_walk_forward": tls_walk,
+                    "traverser_choice": choice, "fwd_bwd": training,
                     "seconds": time.perf_counter() - t_start}))
-    log(json.dumps({"kernels": [k1, k2, k3]}))
+    log(json.dumps({"kernels": [k1, k2, k3, k4]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

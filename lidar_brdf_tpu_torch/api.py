@@ -75,9 +75,11 @@ def build_rays(cfg: SensorConfig, scene: TriangleScene | None = None,
 def simulate(scene: TriangleScene, cfg: SensorConfig,
              materials: MaterialTable | None = None, bvh: BVH | None = None,
              rays: RayBundle | None = None, device="cuda",
-             stats: dict | None = None) -> PointCloud:
-    """One-call simulation: rays -> culled traversal -> returns ->
-    intensity, at the configured wavelength.  Returns a host PointCloud."""
+             stats: dict | None = None,
+             noise_buf: torch.Tensor | None = None) -> PointCloud:
+    """One-call simulation: rays -> traversal -> returns -> intensity, at
+    the configured wavelength.  Returns a host PointCloud.  ``stats`` as in
+    `Simulator.run`; ``noise_buf`` overrides the sim-noise buffer."""
     dev = resolve_device(device)
     if materials is None:
         materials = MaterialLibrary.default().table_at(cfg.wavelength_nm[0])
@@ -86,5 +88,40 @@ def simulate(scene: TriangleScene, cfg: SensorConfig,
     if rays is None:
         rays = build_rays(cfg, scene, device=dev)
     sim = Simulator(scene=scene, bvh=bvh, materials=materials, cfg=cfg,
-                    device=dev)
+                    device=dev, noise_buf=noise_buf)
     return sim.run(rays, stats=stats)
+
+
+def simulate_spectral(scene: TriangleScene, cfg: SensorConfig,
+                      library: MaterialLibrary | None = None,
+                      bvh: BVH | None = None, rays: RayBundle | None = None,
+                      device="cuda", noise_buf: torch.Tensor | None = None
+                      ) -> dict[int, PointCloud]:
+    """Wavelength sweep: one simulation per nm in ``cfg.wavelength_nm``
+    (the reference's per-wavelength loop, `LiDARSimulation.cpp:303`).
+
+    As the reference re-binds only the per-wavelength material tables
+    (`prepareMaterialData`, cpp:428-437), one `Simulator` serves every
+    wavelength through ``run(materials=...)``; a change of the bathymetric
+    flag (green aerial wavelengths, below 533 nm) takes a second one, since
+    it changes the physics.  ``noise_buf`` overrides the sim-noise buffer.
+    Returns host PointClouds by wavelength.
+    """
+    dev = resolve_device(device)
+    library = library or MaterialLibrary.default()
+    bvh = bvh if bvh is not None else build_scene_bvh(scene)
+    if rays is None:
+        rays = build_rays(cfg, scene, device=dev)
+    out: dict[int, PointCloud] = {}
+    sims: dict[bool, Simulator] = {}
+    lo, hi = cfg.wavelength_nm
+    for wl in range(int(lo), int(hi) + 1):
+        materials = library.table_at(wl)
+        bathy = bool(wl < 533
+                     and cfg.lidar_type != LiDARType.TERRESTRIAL_SPHERICAL)
+        if bathy not in sims:
+            sims[bathy] = Simulator(scene=scene, bvh=bvh, materials=materials,
+                                    cfg=cfg.with_(bathymetric=bathy),
+                                    device=dev, noise_buf=noise_buf)
+        out[wl] = sims[bathy].run(rays, materials=materials)
+    return out

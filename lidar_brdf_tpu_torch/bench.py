@@ -238,7 +238,8 @@ def step_loss(ws: Workload, params: dict) -> torch.Tensor:
     rays = RayBundle(origin=params["origin"], direction=ws.rays.direction,
                      gps_time=ws.rays.gps_time)
     cloud = simulate_chunk(scene, mats, rays, ws.noise, ws.scalars, ws.cfg,
-                           traverse_fn=ws.traverser, traverse_data=ws.data)
+                           scene_has_water=False, traverse_fn=ws.traverser,
+                           traverse_data=ws.data)
     return torch.where(cloud.mask, cloud.intensity,
                        torch.zeros_like(cloud.intensity)).sum()
 

@@ -56,7 +56,7 @@ def _declare(lib):
                       ctypes.c_int64)
     lib.lbt_pulse_traverse.argtypes = [
         vp, vp, vp, ci, ci, cf, vp, vp, ci, ctypes.POINTER(cl), ci, ci, ci,
-        cl, cl, vp]
+        cl, cl, ci, vp]
     lib.lbt_pulse_traverse.restype = ci
 
 
@@ -107,11 +107,14 @@ class PulseLadders(tuple):
     """One chunk's device buckets, ``(pidx, cand)`` each, as a tuple, with
     ``uncovered``: the range ``(lo, hi)`` of groups in no bucket when every
     other group has exactly one real row (the bucket-contiguous layout of
-    `permute_pulse_ladders` + `renumber_pulse_ladders`), else None."""
+    `permute_pulse_ladders` + `renumber_pulse_ladders`), else None; and
+    ``tail_padded``: every ladder row holds its real ids first and its
+    padding (-1) after, as `build_pulse_ladders` fills them."""
 
-    def __new__(cls, buckets, uncovered=None):
+    def __new__(cls, buckets, uncovered=None, tail_padded=False):
         self = super().__new__(cls, buckets)
         self.uncovered = uncovered
+        self.tail_padded = bool(tail_padded)
         return self
 
 
@@ -235,11 +238,14 @@ def pulse_traverse(wald, origin, direction, buckets, t_max: float,
     ``wald`` (F, 12) f32 Wald rows; ``origin``/``direction`` (N, 3) f32
     with N = P * kernel_rays (P pulse groups, each ``kernel_rays``
     consecutive rays); ``buckets`` a sequence of (pidx (B,) i32, cand (B, K)
-    i32) on the same device.  Rows with pidx outside [0, P) are dummies.
-    Each ladder row holds its real ids first and its padding (-1) after, as
-    `build_pulse_ladders` fills it: the kernel stops a row at its first
-    block of 8 that holds padding only.  Returns (t (N,) f32, face (N,)
-    i32); misses and groups in no bucket are (BIG, -1).
+    i32) on the same device.  Rows with pidx outside [0, P) are dummies;
+    padding (-1) may sit anywhere in a ladder row.  Returns (t (N,) f32,
+    face (N,) i32); misses and groups in no bucket are (BIG, -1).
+
+    A `PulseLadders` with ``tail_padded`` promises that every row holds its
+    real ids first and its padding after (what `build_pulse_ladders`
+    makes): the kernel then stops a row at its first block of 8 that holds
+    padding only.  Without the promise it skips such a block and goes on.
 
     A `PulseLadders` with ``uncovered = (lo, hi)`` promises that the groups
     in ``range(lo, hi)`` are in no bucket and every other group has exactly
@@ -287,6 +293,7 @@ def pulse_traverse(wald, origin, direction, buckets, t_max: float,
         kernel_rays, float(t_max), out_t.data_ptr(), out_f.data_ptr(),
         len(sched.entries), args, sched.n_blocks, sched.rows_per_block,
         sched.slice_rays, lo * kernel_rays, (hi - lo) * kernel_rays,
+        int(getattr(buckets, "tail_padded", False)),
         raw_stream(origin.get_device()))
     KERNEL.check(rc, "pulse_traverse")
     KERNEL.launches += 1
@@ -378,12 +385,13 @@ class PulseLadderTraverser:
         return self.t_max
 
     def upload(self, buckets, uncovered=None) -> PulseLadders:
-        """Host buckets -> ((pidx, cand) per bucket) on the device, with
-        the range of groups in no bucket (`PulseLadders`)."""
+        """Host buckets of `build_pulse_ladders` (tail-padded rows) ->
+        ((pidx, cand) per bucket) on the device, with the range of groups
+        in no bucket (`PulseLadders`)."""
         put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(
             self.device, non_blocking=True)
         return PulseLadders(((put(p), put(c)) for p, c in buckets),
-                            uncovered)
+                            uncovered, tail_padded=True)
 
     def prepare(self, bvh: BVH, origin, direction,
                 t_max: float | None = None):

@@ -1,18 +1,23 @@
-"""Pulse reduction and multi-return extraction, water-free path
-(counterpart of `lidar_brdf_tpu/physics/returns.py`).
+"""Pulse reduction and multi-return extraction (counterpart of
+`lidar_brdf_tpu/physics/returns.py`).
 
 Semantics from `reduceCollisions-comp.glsl`:
   * per-pulse nearest-hit winner among the pulse's beam samples  (:186-199)
   * footprint merge radius 2*d*pulseRadius*(2-|cos|), same-face and
     contiguous-triangle merging                                  (:201-223)
   * scan angle, corrected distance, gps time += 2d/c             (:225-233)
-  * validation: noisy max-range cut, per-return loss probability (:132-151)
+  * validation: noisy max-range cut, per-return loss probability, water
+    single-bounce rule                                           (:132-151)
   * shiny-surface and terrain-induced displacement errors        (:98-130)
+  * next-bounce state: refraction through water, returnNumber++  (:152-170)
 plus the `addOutlier-comp.glsl` atmospheric outliers.
 
-Only the water-free, non-bathymetric branch is ported (the main path);
-water scenes, bathymetric mode and the packet walk raise
-`NotImplementedError` until they are ported.
+Two paths, as in the JAX package.  Water-free, non-bathymetric scenes never
+move a ray, so their level loop is discrete and every record field is
+computed once afterwards (`_returns_noretraverse`).  Water scenes and
+bathymetric mode refract rays at water hits and walk the whole tree again
+for every bounce level (`_returns_retraverse`: the JAX package's
+`lax.scan`, here a Python loop over the few return levels).
 """
 
 from __future__ import annotations
@@ -24,11 +29,11 @@ import torch
 
 from ..core.config import SensorConfig
 from ..core.types import (MaterialTable, RayBundle, SURFACE_TERRAIN,
-                          TriangleScene, _TensorFields)
+                          SURFACE_WATER, TriangleScene, _TensorFields)
 from ..geom.intersect import BIG, face_normal_from_verts, refine_hit_verts
 from ..utils import noise as noise_mod
-from ..utils.safemath import (clip, maximum, safe_arccos, safe_norm,
-                              safe_unit)
+from ..utils.safemath import (clip, dot3, maximum, safe_arccos, safe_norm,
+                              safe_sqrt, safe_unit)
 from .types import OutlierRecord, ReturnRecord
 
 LIGHT_SPEED = 299792458.0
@@ -130,43 +135,381 @@ def _faces_contiguous(va, vb, comp_a, comp_b):
     return (comp_a == comp_b) & shared
 
 
+def _scan_angle(dir_w, sensor_normal: tuple):
+    """Scan angle in degrees, acos(sum(nd * sensor_normal * nd)) of the
+    unit reverse direction nd, clipped to [-90, 90] (`reduceCollisions`
+    :225-233).  The normal is host floats (a small device constant would
+    cost a host-to-device copy, a host sync, on every call).  The sum is
+    taken in float64 and rounded once: for near-vertical aerial rays it
+    sits within 1e-5 of 1, where arccos turns each f32 ulp of it into a
+    sizable share of the angle (and the terrain-induced error scales the
+    angle by half a metre a degree)."""
+    nd = safe_unit(-dir_w.double())
+    ang = [nd[:, k] * sensor_normal[k] * nd[:, k] for k in range(3)]
+    arg = (ang[0] + ang[1] + ang[2]).to(dir_w.dtype)
+    return (clip(safe_arccos(arg), -_HALF_PI, _HALF_PI) / _HALF_PI * 90.0)
+
+
+def _displace(point_w, dir_w, start_w, corrected, angle, shininess,
+              comp_rand, nz, terrain, cfg):
+    """The recorded point: the winner's hit moved by the shiny-surface
+    error along the ray and, on ``terrain`` slots, the terrain-induced
+    error (`reduceCollisions-comp.glsl:98-130`).  ``comp_rand`` is the
+    component's noise draw, ``nz`` the winner ray's noise row."""
+    point_rec = point_w
+    if cfg.include_shiny_surface_error:
+        factor = 1.0 - shininess
+        comp_rand = comp_rand * SHINY_MODEL_WEIGHT
+        pt_rand = nz[:, noise_mod.POINT_STREAM] * SHINY_INDIVIDUAL_ERROR
+        shift = (dir_w * (factor * factor * corrected
+                          * SHINY_DISTANCE_WEIGHT)[:, None]
+                 + dir_w * ((comp_rand + pt_rand) * factor)[:, None])
+        point_rec = point_rec + shift
+    if cfg.include_terrain_induced_error:
+        height = start_w[:, 1] - point_rec[:, 1]
+        vn = nz[:, noise_mod.TERRAIN_V_STREAM]
+        hn = nz[:, noise_mod.TERRAIN_H_STREAM]
+        v_err = vn * (VERTICAL_TERRAIN_ERROR_HEIGHT_W * height
+                      + VERTICAL_TERRAIN_ERROR_ANGLE_W * angle)
+        h_err = hn * HORIZONTAL_TERRAIN_ERROR_W * height
+        h_axis = torch.stack([nz[:, noise_mod.AXIS_X_STREAM],
+                              torch.zeros_like(v_err),
+                              nz[:, noise_mod.AXIS_Z_STREAM]], -1)
+        up = torch.stack([0.0 * v_err, 1.0 * v_err, 0.0 * v_err], -1)
+        shift = up + h_axis * h_err[:, None]
+        point_rec = torch.where(terrain[:, None], point_rec + shift,
+                                point_rec)
+    return point_rec
+
+
+def _refract(I, N, eta):
+    """GLSL refract(I, N, eta) (used by `computeRayDirection`, :64-73)."""
+    cosi = dot3(N, I)[..., None]
+    k = 1.0 - eta[..., None] ** 2 * (1.0 - cosi ** 2)
+    refr = eta[..., None] * I - (eta[..., None] * cosi + safe_sqrt(k)) * N
+    return torch.where(k < 0.0, torch.zeros_like(refr), refr)
+
+
 def simulate_returns(scene: TriangleScene, materials: MaterialTable,
                      rays: RayBundle, noise_buf: torch.Tensor,
                      scalars: SimScalars, cfg: SensorConfig, *,
                      base_ray_index: int = 0, traverse_fn=None,
                      traverse_data=None, scene_has_water: bool = True,
-                     face_pack=None):
+                     face_pack=None, packet_fn=None):
     """Per-return extraction for one chunk of pulses.
 
     ``traverse_fn(origin, direction[, traverse_data]) -> Hit`` gives the
-    level-0 hits.  ``face_pack``: None builds the (F, 23) pack when the
-    scene has at most P * L faces (the JAX package's gate: the F-row build
-    pays only when it replaces as many per-winner gathers), False never
-    builds it (every winner gathers its own vertex, uv and material rows),
-    a tensor is used as given.  Returns (records (L, P), outliers (L, P),
-    num_returns (P,), final ray origins).
+    level-0 hits.  ``packet_fn(origin, direction) -> Hit`` is the packet
+    walk over the whole scene (`geom/packet.py::make_packet_traverser`,
+    packed once by the caller); it stands in for a missing
+    ``traverse_fn``.  On water scenes (``scene_has_water``) and in
+    bathymetric mode the refracted bounce levels traverse again: on
+    ``packet_fn`` when level 0 was culled (``traverse_data``: candidates
+    cover only the rays the host saw; the hybrid), else on level 0's
+    traverser, as in the JAX package.  ``face_pack``: None builds the
+    (F, 23) pack when the scene has at most P * L faces (the JAX package's
+    gate: the F-row build pays only when it replaces as many per-winner
+    gathers), False never builds it (every winner gathers its own vertex,
+    uv and material rows), a tensor is used as given.  Returns (records
+    (L, P), outliers (L, P), num_returns (P,), final ray origins
+    (P, R, 3)).
     """
-    if scene_has_water or cfg.bathymetric:
-        raise NotImplementedError(
-            "water scenes and bathymetric mode need the refraction scan and "
-            "the packet walk, which are not ported yet")
+    retraverse = bool(cfg.bathymetric) or scene_has_water
+    hybrid = retraverse and traverse_data is not None
+    if packet_fn is None and (traverse_fn is None or hybrid):
+        raise ValueError("this chunk needs the packet walk: pass packet_fn "
+                         "(geom/packet.py::make_packet_traverser)")
     if traverse_fn is None:
-        raise NotImplementedError(
-            "the packet walk (geom/packet.py) is not ported yet; pass the "
-            "tile traverser")
+        traverse_fn = packet_fn
     if traverse_data is not None:
         hits0 = traverse_fn(rays.origin, rays.direction, traverse_data)
     else:
         hits0 = traverse_fn(rays.origin, rays.direction)
+    bounce_fn = packet_fn if hybrid else traverse_fn
     sensor_normal = (1.0, 0.0, 1.0) if cfg.is_terrestrial else (1.0, 1.0, 0.0)
     if face_pack is None:
         if scene.num_faces <= rays.num_pulses * max(cfg.max_returns, 1):
             face_pack = build_face_pack(scene, materials, noise_buf)
     elif face_pack is False:
         face_pack = None
-    return _returns_noretraverse(
+    if not retraverse:
+        return _returns_noretraverse(
+            scene, materials, rays, noise_buf, scalars, cfg, hits0,
+            face_pack, base_ray_index, sensor_normal)
+    return _returns_retraverse(
         scene, materials, rays, noise_buf, scalars, cfg, hits0, face_pack,
-        base_ray_index, sensor_normal)
+        base_ray_index, sensor_normal, bounce_fn)
+
+
+def _stack(records) -> object:
+    """Records of the levels, one per level, stacked into one (L, ...)."""
+    cls = type(records[0])
+    return cls(**{f: torch.stack([getattr(r, f) for r in records])
+                  for f in cls.__dataclass_fields__})
+
+
+def _returns_retraverse(scene: TriangleScene, materials: MaterialTable,
+                        rays: RayBundle, noise_buf: torch.Tensor,
+                        scalars: SimScalars, cfg: SensorConfig, hits0,
+                        face_pack: torch.Tensor | None, base_ray_index: int,
+                        sensor_normal: tuple, bounce_fn):
+    """Return extraction for water scenes and bathymetric mode.
+
+    A water hit refracts the rays that go on (`computeRayDirection`), so
+    every bounce level traverses again (``bounce_fn``) from the rays' new
+    origins and directions.  Per-ray state is flat (N = P * R
+    rows), as in the JAX package's scan; level 0 takes ``hits0``.  Every
+    record field stays differentiable where the JAX package's is: through
+    the ray state (origins move to refracted water hits), the winner rows
+    and the face rows; the traversals are forward-only.  Gathers are plain
+    indexing (see `_returns_noretraverse`).
+    """
+    P, R = rays.num_pulses, rays.rays_per_pulse
+    N = P * R
+    max_returns = cfg.max_returns
+    bathymetric = bool(cfg.bathymetric)
+    dev = rays.origin.device
+    base = int(base_ray_index) & _U32
+    start2 = rays.origin.reshape(N, 3)
+    p_arange = torch.arange(P, dtype=torch.int64, device=dev)
+    pulse_gidx = base // max(R, 1) + p_arange
+    rep = lambda x: x[:, None].expand(P, R).reshape(N)
+    repv = lambda x: x[:, None, :].expand(P, R, x.shape[-1]).reshape(N, -1)
+
+    faces_aug = None
+    if face_pack is None or scene.face_neighbors is None:
+        #   faces_aug (F, 4): [v0, v1, v2, comp]
+        faces_aug = torch.cat([scene.faces, scene.face_comp[:, None]], dim=1)
+    if face_pack is None:
+        comp_aug = torch.stack([scene.comp_material, scene.comp_surface],
+                               dim=1)
+        vert_ksns = torch.stack([scene.vertex_ks, scene.vertex_ns], dim=1)
+        mat_aug = torch.stack([materials.refractive_index,
+                               materials.roughness], dim=1)
+
+    def step(state, hits, level):
+        (origin2, dir2, prev2, active2, return_count, prev_water,
+         prev_point) = state
+        t2 = hits.t.reshape(N)
+        face2 = hits.face.reshape(N)
+        faces_pr = face2.reshape(P, R)
+        valid2 = (face2 >= 0) & active2
+        valid_hit = valid2.reshape(P, R)
+        t_pr = t2.reshape(P, R)
+        w = torch.argmin(torch.where(valid_hit, t_pr,
+                                     torch.full_like(t_pr, BIG)), dim=1)
+        flat_w = p_arange * R + w
+        origin_w, dir_w = origin2[flat_w], dir2[flat_w]
+        start_w, prev_dir_w_raw = start2[flat_w], prev2[flat_w]
+        face_w = face2[flat_w]
+        has_winner = valid2[flat_w]
+        safe_fw = torch.clamp(face_w, min=0).long()
+        if face_pack is not None:
+            frow = face_pack[safe_fw]                           # (P, 23)
+            v0, v1, v2 = frow[:, 0:3], frow[:, 3:6], frow[:, 6:9]
+            verts_w = None
+            comp_w = frow[:, 20].to(torch.int32)
+            mat_w = frow[:, 21].to(torch.int32)
+            surface_w = frow[:, 22].to(torch.int32)
+        else:
+            rows_w = faces_aug[safe_fw]                         # (P, 4)
+            verts_w = rows_w[:, 0:3].long()
+            v0 = scene.vertices[verts_w[:, 0]]
+            v1 = scene.vertices[verts_w[:, 1]]
+            v2 = scene.vertices[verts_w[:, 2]]
+            comp_w = rows_w[:, 3]
+            crow_w = comp_aug[comp_w.long()]
+            mat_w, surface_w = crow_w[:, 0], crow_w[:, 1]
+        _, point_w, (u_w, v_w), _ = refine_hit_verts(origin_w, dir_w, v0, v1,
+                                                     v2, face_w)
+        normal_w = face_normal_from_verts(v0, v1, v2)
+        # a pulse without a winner refines against face 0 at t = BIG: pin
+        # it to the ray origin (finite, gradient-neutral, never read)
+        point_w = torch.where(has_winner[:, None], point_w, origin_w)
+        is_water = (surface_w & SURFACE_WATER) != 0
+        is_terrain = (surface_w & SURFACE_TERRAIN) != 0
+
+        # per-ray hit points (they move water-hit origins and drive the
+        # discrete merge decisions)
+        hit_t = torch.where(valid2, t2, torch.zeros_like(t2))
+        point_i2 = origin2 + dir2 * hit_t[:, None]
+
+        # footprint merge (`reduceCollisions` :201-223)
+        footprint = safe_norm(point_w - start_w) * scalars.pulse_radius
+        cos_inc = torch.abs(dot3(normal_w, -safe_unit(dir_w)))
+        allowed = 2.0 * footprint * (2.0 - cos_inc)
+        d_to_winner = safe_norm(point_i2.reshape(P, R, 3)
+                                - point_w[:, None, :])
+        if scene.face_neighbors is not None:
+            cont_w = scene.face_neighbors[safe_fw]
+            contiguous = (faces_pr[:, :, None]
+                          == cont_w[:, None, :]).any(dim=-1)
+        else:
+            rows_i = faces_aug[torch.clamp(faces_pr, min=0).long()]
+            if verts_w is None:
+                verts_w = faces_aug[safe_fw][:, 0:3]
+            contiguous = _faces_contiguous(
+                rows_i[..., 0:3], verts_w[:, None, :],
+                rows_i[..., 3], comp_w[:, None])
+        same = (valid_hit
+                & ((d_to_winner < allowed[:, None])
+                   | (faces_pr == face_w[:, None])
+                   | contiguous))
+        same = same & has_winner[:, None]
+        num_intersected = same.sum(dim=1).to(torch.int32)
+        continue_ray = valid_hit & ~same
+
+        # winner record fields (:225-233)
+        corrected = safe_norm(point_w - start_w)
+        angle = _scan_angle(dir_w, sensor_normal)
+        gps = rays.gps_time + corrected * 2.0 / LIGHT_SPEED
+
+        # validation (`validateCollision` :132-151)
+        nz = noise_mod.stream_rows(noise_buf, (base + flat_w) & _U32)
+        dnoise = nz[:, noise_mod.DISTANCE_STREAM]
+        b0, b1 = scalars.max_range_boundary[0], scalars.max_range_boundary[1]
+        noisy_max = scalars.max_range + dnoise * (b1 - b0) + b0
+        if face_pack is not None:
+            ksns, mrow = frow[:, 15:17], frow[:, 17:19]
+        else:
+            ksns = vert_ksns[verts_w[:, 0]]
+            mrow = mat_aug[mat_w.long()]
+        shininess = clip(torch.pow(maximum(ksns[:, 0], 0.0), ksns[:, 1])
+                         * mrow[:, 1], 0.0, 1.0)
+        loss_thr = torch.where(
+            shininess < scalars.loss_threshold, torch.zeros_like(shininess),
+            scalars.loss_mult * torch.pow(
+                maximum(shininess + scalars.loss_add, 0.0),
+                scalars.loss_power))
+        lost = (nz[:, noise_mod.LOSS_STREAM] <= loss_thr) & (not bathymetric)
+        first_return = return_count == 0
+        valid_col = (has_winner & (corrected < noisy_max)
+                     & (~is_water | first_return) & ~lost)
+
+        # error displacements (:98-130)
+        comp_rand = (frow[:, 19] if face_pack is not None
+                     else noise_mod.stream_sample(
+                         noise_buf, comp_w, noise_mod.MODEL_COMP_STREAM))
+        point_rec = _displace(point_w, dir_w, start_w, corrected, angle,
+                              shininess, comp_rand, nz,
+                              is_terrain & valid_col, cfg)
+
+        if face_pack is not None:
+            uv0, uv1, uv2 = frow[:, 9:11], frow[:, 11:13], frow[:, 13:15]
+        else:
+            uvs = scene.vertex_uv[verts_w]                      # (P, 3, 2)
+            uv0, uv1, uv2 = uvs[:, 0], uvs[:, 1], uvs[:, 2]
+        uv_rec = (uv0 * (1.0 - u_w - v_w)[:, None]
+                  + uv1 * u_w[:, None]
+                  + uv2 * v_w[:, None])
+
+        z = lambda v: torch.where(valid_col, v, torch.zeros_like(v))
+        zv = lambda v: torch.where(valid_col[:, None], v, torch.zeros_like(v))
+        record = ReturnRecord(
+            mask=valid_col,
+            point=zv(point_rec),
+            normal=zv(normal_w),
+            uv=zv(uv_rec),
+            distance=z(corrected),
+            angle=z(angle),
+            gps_time=z(gps),
+            comp=torch.where(valid_col, comp_w, torch.full_like(comp_w, -1)),
+            material=torch.where(valid_col, mat_w, torch.zeros_like(mat_w)),
+            face=torch.where(valid_col, face_w.to(torch.int32),
+                             torch.full_like(comp_w, -1)),
+            num_intersected=num_intersected,
+            return_number=return_count,
+            winner_ray=w.to(torch.int32),
+            start=start_w,
+            direction=dir_w,
+            prev_was_water=prev_water,
+            prev_point=prev_point,
+        )
+
+        # outliers (`addOutlier-comp.glsl:29-64`): the draw depends on the
+        # pulse and the level
+        onz = noise_mod.stream_rows(
+            noise_buf, (pulse_gidx + level * OUTLIER_LEVEL_STRIDE) & _U32)
+        o_prob = onz[:, noise_mod.OUTLIER_STREAM]
+        if cfg.include_outliers:
+            o_mask = valid_col & ((o_prob * 2.0 - 1.0)
+                                  > scalars.outlier_threshold)
+        else:
+            o_mask = torch.zeros_like(valid_col)
+        o_dn = onz[:, noise_mod.OUTLIER_DISTANCE_STREAM] * 1.5
+        o_r0, o_r1 = scalars.outlier_range[0], scalars.outlier_range[1]
+        o_dist = (o_dn * (o_r1 - o_r0) + o_r0) * corrected
+        # addOutlier reads previousDirection after reduceCollisions updated
+        # it: the winner goes on (previousDirection := direction) only on a
+        # bathymetric water revive (`reduceCollisions-comp.glsl:156-161`)
+        exceed = (return_count + 1) >= max_returns
+        winner_continues = (~exceed) & is_water & bathymetric
+        prev_dir_w = safe_unit(torch.where(winner_continues[:, None], dir_w,
+                                           prev_dir_w_raw))
+        outlier = OutlierRecord(
+            mask=o_mask,
+            point=start_w + prev_dir_w * o_dist[:, None],
+            distance=o_dist,
+        )
+
+        # state update (`validateCollision` :152-170)
+        revive = valid_hit & is_water[:, None] & bathymetric
+        new_active_valid = (~exceed[:, None]) & (continue_ray | revive)
+        active_next = torch.where(valid_col[:, None], new_active_valid,
+                                  continue_ray).reshape(N)
+        eta = mrow[:, 0]
+        # the interface normal against the incident ray (GLSL refract
+        # assumes dot(N, I) < 0)
+        n2 = repv(normal_w)                                     # (N, 3)
+        flip = torch.sign(dot3(n2, dir2))[:, None]
+        n_or = -torch.where(flip == 0, torch.ones_like(flip), flip) * n2
+        refr2 = safe_unit(_refract(dir2, n_or, rep(eta)))
+        water_upd2 = rep(valid_col & is_water)[:, None]         # (N, 1)
+        origin_next = torch.where(water_upd2, point_i2 + dir2 * 1e-4,
+                                  origin2)
+        dir_next = torch.where(water_upd2, refr2, dir2)
+        # previousDirection := direction only for rays that go on
+        prev_dir_next = torch.where(
+            (valid_col[:, None] & new_active_valid).reshape(N)[:, None],
+            dir2, prev2)
+        count_next = return_count + valid_col.to(torch.int32)
+        prev_water_next = torch.where(valid_col, is_water, prev_water)
+        # the error-shifted point, as the reference stores it
+        # (`computeIntensity-comp.glsl:27` reads it back)
+        prev_point_next = torch.where(valid_col[:, None], point_rec,
+                                      prev_point)
+        new_state = (origin_next, dir_next, prev_dir_next, active_next,
+                     count_next, prev_water_next, prev_point_next)
+        return new_state, record, outlier
+
+    state = (start2, rays.direction.reshape(N, 3),
+             rays.direction.reshape(N, 3),               # previousDirection
+             torch.ones(N, dtype=torch.bool, device=dev),  # continueRay
+             torch.zeros(P, dtype=torch.int32, device=dev),  # returnNumber
+             torch.zeros(P, dtype=torch.bool, device=dev),  # prev was water
+             torch.zeros((P, 3), dtype=torch.float32, device=dev))
+    records, outliers = [], []
+    for level in range(max_returns):
+        # level 0 on the primary hits; refracted bounce levels traverse
+        # again
+        hits = hits0 if level == 0 else bounce_fn(
+            state[0].reshape(P, R, 3), state[1].reshape(P, R, 3))
+        state, rec, out = step(state, hits, level)
+        records.append(rec)
+        outliers.append(out)
+    return (_stack(records), _stack(outliers), state[4],
+            state[0].reshape(P, R, 3))
+
+
+def final_winner_origins(records: ReturnRecord, final_origin) -> torch.Tensor:
+    """Each recorded return's winner-ray origin from the final ray state
+    (`computeColor` reads `rayData[collision.rayIndex].origin` after the
+    bounce loop, `computeColor-comp.glsl:77`): (L, P, 3)."""
+    L, P = records.winner_ray.shape
+    R = final_origin.shape[1]
+    w = torch.clamp(records.winner_ray, min=0).long()
+    idx = torch.arange(P, device=w.device)[None, :] * R + w
+    return final_origin.reshape(P * R, 3)[idx.reshape(-1)].reshape(L, P, 3)
 
 
 def _returns_noretraverse(scene: TriangleScene, materials: MaterialTable,
@@ -361,42 +704,16 @@ def _returns_noretraverse(scene: TriangleScene, materials: MaterialTable,
     is_terrain = (surface_w & SURFACE_TERRAIN) != 0
 
     corrected = safe_norm(point_w - origin_w)
-    nd = safe_unit(-dir_w)
-    # (nd * sensor_normal * nd) summed, with the normal as host floats: a
-    # small device constant would cost a host-to-device copy (a host sync)
-    # on every call
-    ang = [nd[:, k] * sensor_normal[k] * nd[:, k] for k in range(3)]
-    angle = (clip(safe_arccos(ang[0] + ang[1] + ang[2]),
-                  -_HALF_PI, _HALF_PI) / _HALF_PI * 90.0)
+    angle = _scan_angle(dir_w, sensor_normal)
     gps = rays.gps_time.repeat(L) + corrected * 2.0 / LIGHT_SPEED
 
     nz = noise_mod.stream_rows(noise_buf, (base + flat_w_K) & _U32)
     shininess = clip(torch.pow(maximum(ksns[:, 0], 0.0), ksns[:, 1])
                      * mrow[:, 1], 0.0, 1.0)
 
-    point_rec = point_w
-    if cfg.include_shiny_surface_error:
-        factor = 1.0 - shininess
-        comp_rand = comp_rand_sh * SHINY_MODEL_WEIGHT
-        pt_rand = nz[:, noise_mod.POINT_STREAM] * SHINY_INDIVIDUAL_ERROR
-        shift = (dir_w * (factor * factor * corrected
-                          * SHINY_DISTANCE_WEIGHT)[:, None]
-                 + dir_w * ((comp_rand + pt_rand) * factor)[:, None])
-        point_rec = point_rec + shift
-    if cfg.include_terrain_induced_error:
-        height = origin_w[:, 1] - point_rec[:, 1]
-        vn = nz[:, noise_mod.TERRAIN_V_STREAM]
-        hn = nz[:, noise_mod.TERRAIN_H_STREAM]
-        v_err = vn * (VERTICAL_TERRAIN_ERROR_HEIGHT_W * height
-                      + VERTICAL_TERRAIN_ERROR_ANGLE_W * angle)
-        h_err = hn * HORIZONTAL_TERRAIN_ERROR_W * height
-        h_axis = torch.stack([nz[:, noise_mod.AXIS_X_STREAM],
-                              torch.zeros_like(v_err),
-                              nz[:, noise_mod.AXIS_Z_STREAM]], -1)
-        up = torch.stack([0.0 * v_err, 1.0 * v_err, 0.0 * v_err], -1)
-        shift = up + h_axis * h_err[:, None]
-        point_rec = torch.where((is_terrain & valid_col)[:, None],
-                                point_rec + shift, point_rec)
+    point_rec = _displace(point_w, dir_w, origin_w, corrected, angle,
+                          shininess, comp_rand_sh, nz,
+                          is_terrain & valid_col, cfg)
 
     uv_rec = (uv0 * (1.0 - u_w - v_w)[:, None]
               + uv1 * u_w[:, None]

@@ -1,8 +1,9 @@
 """Reflectance + radar equation over recorded returns (counterpart of
 `lidar_brdf_tpu/physics/shading.py`; `computeColor-comp.glsl:84-100`).
 
-MEASURED (table lookup) and LAMBERTIAN shading are ported; ANALYTIC and the
-bathymetric branch raise `NotImplementedError` until they are.
+MEASURED (table lookup) and LAMBERTIAN shading are ported, with the
+bathymetric intensity branch; ANALYTIC raises `NotImplementedError` until it
+is.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from ..core.config import SensorConfig, ShadingMode
 from ..core.types import MaterialTable, TriangleScene
 from ..utils.safemath import abs_, dot3, safe_unit
 from .brdf import measured_brdf_factor
-from .intensity import radar_intensity
+from .intensity import bathymetric_intensity, radar_intensity
 from .returns import SimScalars
 from .types import ReturnRecord
 
@@ -25,10 +26,10 @@ def shade_records(scene: TriangleScene, materials: MaterialTable,
     """Intensity for each (return level, pulse) record slot.
 
     ``final_winner_origin`` is the winner ray's origin after the bounce
-    loop (on the water-free path, the record's start point).
+    loop (on the water-free path, the record's start point).  In
+    bathymetric mode a return whose pulse hit water at its previous return
+    takes the bathymetric intensity.
     """
-    if cfg.bathymetric:
-        raise NotImplementedError("bathymetric intensity is not ported yet")
     rec_shape = records.mask.shape
     fl = lambda a: a.reshape((-1,) + tuple(a.shape[len(rec_shape):]))
     comp = fl(records.comp)
@@ -53,6 +54,17 @@ def shade_records(scene: TriangleScene, materials: MaterialTable,
         reflectance_weight=scalars.reflectance_weight,
         atmospheric_attenuation=scalars.atmospheric_attenuation,
         system_attenuation=scalars.system_attenuation)
+    if cfg.bathymetric:
+        bathy = bathymetric_intensity(
+            fl(records.distance), ray_power, brdf,
+            start_point=fl(records.start), hit_point=point,
+            prev_hit_point=fl(records.prev_point),
+            direction=fl(records.direction),
+            sensor_diameter=scalars.sensor_diameter,
+            reflectance_weight=scalars.reflectance_weight,
+            atmospheric_attenuation=scalars.atmospheric_attenuation,
+            water_height=scalars.water_height)
+        intensity = torch.where(fl(records.prev_was_water), bathy, intensity)
     mask = fl(records.mask)
     return torch.where(mask, intensity,
                        torch.zeros_like(intensity)).reshape(rec_shape)

@@ -21,11 +21,13 @@ from ..core.config import SensorConfig
 from ..core.types import (BVH, MaterialTable, PointCloud, RayBundle,
                           SURFACE_WATER, TriangleScene, as_numpy,
                           concat_pointclouds, resolve_device)
+from ..geom.packet import make_packet_traverser
 from ..kernels.pulse import (PulseLadderTraverser, build_pulse_ladders,
                              permute_pulse_ladders, renumber_pulse_ladders,
                              uncovered_groups)
 from ..kernels.traverse import TileTraverser
-from ..physics.returns import SimScalars, simulate_returns
+from ..physics.returns import (SimScalars, final_winner_origins,
+                               simulate_returns)
 from ..physics.shading import shade_records
 from ..physics.types import OutlierRecord, ReturnRecord
 from ..utils import noise as noise_mod
@@ -109,26 +111,34 @@ def records_to_pointcloud(scene: TriangleScene, records: ReturnRecord,
 def simulate_chunk(scene: TriangleScene, materials: MaterialTable,
                    rays: RayBundle, noise_buf: torch.Tensor,
                    scalars: SimScalars, cfg: SensorConfig, *,
-                   base_ray_index: int = 0, traverse_fn=None,
-                   traverse_data=None, face_pack=None) -> PointCloud:
-    """Differentiable pass for one chunk of pulses on a water-free scene.
+                   base_ray_index: int = 0, scene_has_water: bool = True,
+                   traverse_fn=None, traverse_data=None, face_pack=None,
+                   packet_fn=None) -> PointCloud:
+    """Differentiable pass for one chunk of pulses.
 
     A caller that hands in ``scene.vertices``, ``materials.brdf_table``,
     ``rays.origin`` or a scalar with ``requires_grad`` gets gradients
     through the record pass and shading.  The traversal itself is
     forward-only (its kernels see detached rays), as the JAX package stops
-    gradients before its Pallas kernels.  ``face_pack`` as in
-    `simulate_returns`.
+    gradients before its Pallas kernels.  ``scene_has_water`` (True unless
+    the caller knows the scene has no water surface, as in the JAX
+    package), ``traverse_fn``, ``traverse_data``, ``face_pack`` and
+    ``packet_fn`` as in `simulate_returns`.
     """
-    records, outliers, num_returns, _ = simulate_returns(
+    records, outliers, num_returns, final_origin = simulate_returns(
         scene, materials, rays, noise_buf, scalars, cfg,
         base_ray_index=base_ray_index, traverse_fn=traverse_fn,
-        traverse_data=traverse_data, scene_has_water=False,
-        face_pack=face_pack)
-    # water-free, non-bathymetric: the post-loop winner origin IS the
-    # recorded start point
-    intensity = shade_records(scene, materials, records, records.start,
-                              scalars, cfg, rays.rays_per_pulse)
+        traverse_data=traverse_data, scene_has_water=scene_has_water,
+        face_pack=face_pack, packet_fn=packet_fn)
+    # shading reads the winner origins after the bounce loop
+    # (`computeColor-comp.glsl:88,96`); water-free, non-bathymetric scenes
+    # never move an origin, so there it is the recorded start point
+    if scene_has_water or cfg.bathymetric:
+        fo = final_winner_origins(records, final_origin)
+    else:
+        fo = records.start
+    intensity = shade_records(scene, materials, records, fo, scalars, cfg,
+                              rays.rays_per_pulse)
     return records_to_pointcloud(scene, records, outliers, num_returns,
                                  intensity, cfg.include_outliers)
 
@@ -154,7 +164,8 @@ def _pad_slice(rays: dict, lo: int, hi: int, chunk: int) -> dict:
 class Simulator:
     """Bind scene + config; stream chunks of pulses through the device.
 
-    Two traversals, chosen by `pick_pulse_ladders` (``use_pulse``):
+    Three traversals.  With the host cull (``use_culled``, the default),
+    two, chosen by `pick_pulse_ladders` (``use_pulse``):
 
     * tile path (scenes of up to 100k faces): pulses are BSP-reordered into
       coherent 640-ray tiles, the host culls per-chunk candidate buckets,
@@ -167,10 +178,14 @@ class Simulator:
       (`permute_pulse_ladders`) before upload, so every pulse sits in the
       slot, and draws the noise, it has in the JAX package's `Simulator`.
 
-    A chunk whose tile beams or pulse cones are too wide to cull raises
-    `NotImplementedError`: it needs the packet walk, which is not ported
-    yet.  ``noise_buf`` overrides the sim-noise buffer (tests pass the JAX
-    one).
+    The third is the packet walk over the whole tree (`geom/packet.py`, the
+    CUDA kernel K4 on the card): every chunk with ``use_culled=False`` (no
+    reorder, no host cull), a chunk whose tile beams or pulse cones are too
+    wide to cull, and the refracted bounce levels of water scenes and of
+    bathymetric mode (level 0 stays culled: the hybrid).  The scene is
+    packed for it once, at its first use.  ``reorder`` (None = auto: on the
+    culled tile path) BSP-orders the pulses; ``noise_buf`` overrides the
+    sim-noise buffer (tests pass the JAX one).
     """
 
     scene: TriangleScene
@@ -181,15 +196,17 @@ class Simulator:
     noise_buf: torch.Tensor | None = None
     use_pulse: bool | None = None     # None = auto (`pick_pulse_ladders`)
     pulse_group: int | None = None    # pulses per shared ladder (None = 1)
+    use_culled: bool | None = None    # False: the packet walk for every chunk
+    reorder: bool | None = None       # None = auto (the culled tile path)
 
     def __post_init__(self):
         from ..api import attach_face_neighbors
         self.device = resolve_device(self.device)
         scene = attach_face_neighbors(self.scene)
-        if bool((as_numpy(scene.comp_surface) & SURFACE_WATER).any()):
-            raise NotImplementedError(
-                "water scenes need the refraction scan and the packet walk, "
-                "which are not ported yet")
+        self.scene_has_water = bool(
+            (as_numpy(scene.comp_surface) & SURFACE_WATER).any())
+        self.use_culled = self.use_culled is not False
+        self.packet_fn = None
         scene_min_y = float(as_numpy(scene.vertices)[:, 1].min())
         self.scene = scene.to(self.device)
         self.materials = self.materials.to(self.device)
@@ -201,8 +218,16 @@ class Simulator:
         b0, b1 = self.cfg.max_range_soft_boundary
         self.t_max = float(self.cfg.max_range + abs(b0) + abs(b1) + 1.0)
         rpp = max(self.cfg.rays_per_pulse, 1)
-        self.use_pulse = pick_pulse_ladders(scene.num_faces, self.use_pulse)
-        if self.use_pulse:
+        self.use_pulse = self.use_culled and pick_pulse_ladders(
+            scene.num_faces, self.use_pulse)
+        # BSP order only with the cull; auto: the tile path (the natural
+        # scan order is coherent per pulse)
+        self.reorder = self.use_culled and bool(
+            not self.use_pulse if self.reorder is None else self.reorder)
+        self.traverser = None
+        if not self.use_culled:
+            self.block_pulses = None
+        elif self.use_pulse:
             self.block_pulses = max(1, 640 // rpp)
             # a power of two that divides chunk_pulses, so it divides every
             # chunk `run` dispatches (JAX runtime/simulate.py:259-263)
@@ -223,31 +248,45 @@ class Simulator:
                 scene, tile_rays=self.block_pulses * rpp,
                 device=self.device)
 
+    def packet_walk(self):
+        """The packet walk over the scene (`make_packet_traverser`): packed
+        at the first call, then kept in ``packet_fn``."""
+        if self.packet_fn is None:
+            self.packet_fn = make_packet_traverser(self.scene, self.bvh)
+        return self.packet_fn
+
     def run_chunk(self, rays: RayBundle, base_ray_index: int, traverse_data,
                   materials: MaterialTable | None = None) -> PointCloud:
-        """One padded chunk on the device; returns a device PointCloud."""
+        """One padded chunk on the device; returns a device PointCloud.
+        ``traverse_data`` None sends level 0 through the packet walk."""
+        culled = traverse_data is not None
+        walk = (not culled or self.scene_has_water
+                or bool(self.cfg.bathymetric))
         return simulate_chunk(
             self.scene, self.materials if materials is None else materials,
             rays, self.noise_buf, self.scalars, self.cfg,
-            base_ray_index=base_ray_index, traverse_fn=self.traverser,
-            traverse_data=traverse_data)
+            base_ray_index=base_ray_index,
+            scene_has_water=self.scene_has_water,
+            traverse_fn=self.traverser if culled else None,
+            traverse_data=traverse_data,
+            packet_fn=self.packet_walk() if walk else None)
 
     def _prep(self, rays: dict, lo: int, hi: int, chunk: int):
         """Host cull for one padded chunk (worker thread: numpy and the
         native OpenMP culler release the GIL).  Returns the chunk's device
-        RayBundle, its traverse data and the seconds taken."""
+        RayBundle, its traverse data (None for the packet walk: without
+        the cull, or where the chunk's tile beams or pulse cones are too
+        wide to cull) and the seconds taken."""
         t0 = time.perf_counter()
         sl = _pad_slice(rays, lo, hi, chunk)
         o, d = sl["origin"], sl["direction"]
-        if not self.traverser.beams_ok(o, d):
-            raise NotImplementedError(
-                "this chunk's ray tiles or pulse cones are too wide to "
-                "beam-cull; it needs the packet walk (geom/packet.py), which "
-                "is not ported yet")
-        if self.use_pulse:
-            sl, data = self._prep_pulse(sl)
-        else:
-            data = self.traverser.prepare(self.bvh, o, d, t_max=self.t_max)
+        data = None
+        if self.use_culled and self.traverser.beams_ok(o, d):
+            if self.use_pulse:
+                sl, data = self._prep_pulse(sl)
+            else:
+                data = self.traverser.prepare(self.bvh, o, d,
+                                              t_max=self.t_max)
         dev = RayBundle(**{k: torch.from_numpy(np.ascontiguousarray(v)).to(
             self.device, non_blocking=True) for k, v in sl.items()})
         return dev, data, time.perf_counter() - t0
@@ -276,8 +315,8 @@ class Simulator:
 
     def run(self, rays: RayBundle, materials: MaterialTable | None = None,
             stats: dict | None = None) -> PointCloud:
-        """All pulses in power-of-two chunks (in BSP order on the tile
-        path); returns a host (CPU) PointCloud.  ``stats``, when given,
+        """All pulses in power-of-two chunks (in BSP order with
+        ``reorder``); returns a host (CPU) PointCloud.  ``stats``, when given,
         accumulates seconds of host gather and BSP reorder (``order_s``),
         host cull (``cull_s``), device work (``device_s``, host clock to a
         synchronize) and readback (``readback_s``)."""
@@ -286,7 +325,7 @@ class Simulator:
         t0 = time.perf_counter()
         host = {k: as_numpy(getattr(rays, k))
                 for k in ("origin", "direction", "gps_time")}
-        if not self.use_pulse:      # the scan order is coherent per pulse
+        if self.reorder:
             order = bsp_order(rays, self.block_pulses)
             host = {k: v[order] for k, v in host.items()}
         order_s = time.perf_counter() - t0

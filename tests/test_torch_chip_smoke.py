@@ -46,9 +46,9 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys):
     choice = chip_smoke.phase_traverser_choice(tls, als, k1, als_sim)
     assert set(choice) == {"tls", "als"}
     assert choice["als"]["pulses"] == 512
-    _, fwd = chip_smoke.phase_forward("tls", tls, 4096, "K1")
+    _, _, fwd = chip_smoke.phase_forward("tls", tls, 4096, {"K1": 1})
     assert fwd["points"] > 0 and fwd["rays"] == 4096 * 10
-    _, fwd = chip_smoke.phase_forward("als", als, 1024, "K2")
+    _, _, fwd = chip_smoke.phase_forward("als", als, 1024, {"K2": 1})
     assert fwd["points"] > 0 and fwd["rays"] == 2048 * 10
     chip_smoke.phase_card_vs_cpu()
     k3 = {}
@@ -58,7 +58,51 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys):
     out = capsys.readouterr().out
     assert "faces equal" in out and "K2 als chunk" in out
     assert "K2 planted tie, 128 candidates, groups of 128" in out
+    assert "K2 interior padding, hand-built bucket" in out
+    assert "K2 tail-padded ladders, promised" in out
     assert "[card-vs-cpu] TLS L=2" in out and "[card-vs-cpu] ALS L=2" in out
+    assert "[card-vs-cpu] water L=3" in out
+
+
+def test_chip_smoke_water_and_packet_walk_on_cpu(monkeypatch, capsys):
+    """The topo-bathymetric scan (the `als` terrain under a water plane,
+    3 returns at 532 nm), the `tls` scan with ``use_culled=False`` and K4
+    against its plain version, at a small size."""
+    from lidar_brdf_tpu_torch.runtime import simulate
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "TLS_PULSES", 2048)
+    monkeypatch.setattr(chip_smoke, "TLS_TRIS", 2000)
+    monkeypatch.setattr(chip_smoke, "ALS_PULSES", 2048)
+    monkeypatch.setattr(chip_smoke, "ALS_TRIS", 20_000)
+    monkeypatch.setattr(chip_smoke, "ALS_CHUNK", 1024)
+    monkeypatch.setattr(chip_smoke, "WATER_PULSES", 2048)
+    monkeypatch.setattr(chip_smoke, "WATER_WARM", 512)
+    monkeypatch.setattr(chip_smoke, "WATER_CELLS", 8)
+    monkeypatch.setattr(simulate, "PULSE_MIN_FACES", 10_000)
+    als = chip_smoke.als_workload("cpu")
+    water = chip_smoke.water_workload(als)
+    scene, _, cfg, _, rays = water
+    assert scene.num_faces == als[0].num_faces + 2 * 8 * 8
+    assert cfg.bathymetric and cfg.max_returns == 3
+    assert rays.num_pulses == 2048 and rays.rays_per_pulse == 10
+    launches, res, level1 = chip_smoke.phase_water(water)
+    assert res["bottom_returns"] > 0 and res["surface_returns"] > 0
+    assert res["rays"] == 2048 * 10 and set(launches) == {"K1", "K2", "K4"}
+    packed, o1, d1 = level1
+    assert o1.shape == d1.shape == (1024 * 10, 3)
+    tls = chip_smoke.tls_workload("cpu")
+    _, _, walk = chip_smoke.phase_forward("tls packet walk", tls, 2048,
+                                          {"K4": 1}, use_culled=False)
+    assert walk["points"] > 0 and walk["cull_s"] < 0.5
+    k4 = chip_smoke.phase_k4_vs_plain(tls, level1)
+    for key in ("name", "route", "source", "replaces", "max_abs_err", "ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms"):
+        assert key in k4
+    assert k4["bound_by"] == "operations" and k4["bound_ms"] > 0
+    assert k4["water"]["leaf_steps"] < k4["water"]["node_steps"]
+    out = capsys.readouterr().out
+    assert "K4 water rays" in out and "K4 grazing fan" in out
+    assert "bottom returns" in out
 
 
 def test_chip_smoke_k2_chunk_on_cpu(monkeypatch):

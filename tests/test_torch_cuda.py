@@ -1,6 +1,7 @@
-"""The CUDA kernels (K1 tiles, K2 pulse ladders, K3 the bench's pre-flight)
-on the card vs their plain PyTorch versions, and the fwd+bwd step's
-gradients on the card vs the CPU.
+"""The CUDA kernels (K1 tiles, K2 pulse ladders, K3 the bench's pre-flight,
+K4 the packet walk) on the card vs their plain PyTorch versions, the
+water and packet-walk scans and the fwd+bwd step's gradients on the card
+vs the CPU.
 
 Every test here needs an NVIDIA Hopper card and nvcc; without one each
 skips.  The file imports nothing of JAX, so on a card host without JAX it
@@ -8,8 +9,8 @@ runs on its own, without `tests/conftest.py` (which imports JAX):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Faces must be equal and t equal to rtol 1e-6 where a face is hit; K3
-equal bit for bit.  Gradients: loss to rtol 1e-5, each gradient within
+Faces must be equal and t equal to rtol 1e-6 where a face is hit; K3 and
+K4 equal bit for bit.  Gradients: loss to rtol 1e-5, each gradient within
 atol 1e-4 * max|g| (the card's scatter-add order is not fixed).
 """
 
@@ -22,6 +23,7 @@ from lidar_brdf_tpu_torch import api, bench
 from lidar_brdf_tpu_torch.core.config import LiDARType, SensorConfig
 from lidar_brdf_tpu_torch.geom.intersect import BIG
 from lidar_brdf_tpu_torch.io import synthetic
+from lidar_brdf_tpu_torch.kernels import packet as kpk
 from lidar_brdf_tpu_torch.kernels import pulse as pp
 from lidar_brdf_tpu_torch.kernels import smoke
 from lidar_brdf_tpu_torch.kernels import traverse as tr
@@ -307,6 +309,87 @@ def test_simulator_pulse_path_card_matches_cpu(card):
     assert int(c.mask.sum()) > 1500
     torch.testing.assert_close(g.position, c.position, rtol=0, atol=1e-4)
     torch.testing.assert_close(g.intensity, c.intensity, rtol=1e-4, atol=0)
+
+
+def test_pulse_kernel_padding_contract(card):
+    """Whole blocks of padding inside hand-built ladders (a list: no
+    promise) are skipped, not taken for the ladder's end; tail-padded
+    ladders under the promise stop there.  Both equal the plain version."""
+    for name, wald, o, d, data, R in chip_smoke.k2_padding_cases():
+        f = _k2_call_vs_plain(wald, o, d, data, 100.0, R)
+        assert int((f == 40).sum()) > 10 and not bool((f == 12).any()), name
+
+
+@pytest.mark.parametrize("case", ["fan", "grazing", "padding"])
+def test_packet_kernel_matches_plain(card, case):
+    """K4 vs its plain version (`chip_smoke.compare_k4`: faces and t bit
+    for bit, walks as long), one launch a call."""
+    from lidar_brdf_tpu_torch.geom.packet import pack_scene
+    if case == "grazing":
+        scene, o, d = chip_smoke.grazing_fan()
+    else:
+        scene = synthetic.terrain_with_boxes(np.random.default_rng(1234),
+                                             num_boxes=6)
+        o, d = chip_smoke.fan_rays(64)
+        if case == "padding":
+            o[1000:1100], d[1000:1100] = 1e10, 0.0
+            d[3000:3050] = 0.0
+            o, d = o[:4000], d[:4000]
+    packed = pack_scene(scene.to("cuda"), api.build_scene_bvh(scene))
+    og, dg = torch.from_numpy(o).cuda(), torch.from_numpy(d).cuda()
+    steps, _ = chip_smoke.compare_k4(f"K4 {case}", packed, og, dg)
+    assert bool((steps[:, 0] > 0).all())
+    op, dp = chip_smoke.pad_tiles(og, dg)
+    before = kpk.KERNEL.launches
+    kpk.packet_traverse(*packed, op, dp)
+    torch.cuda.synchronize()
+    assert kpk.KERNEL.launches == before + 1
+    with pytest.raises(ValueError):
+        kpk.packet_traverse(*packed, op, dp, tile=64)
+    with pytest.raises(ValueError):
+        kpk.packet_traverse(*packed, op, dp.cpu())
+
+
+def test_water_simulator_card_matches_cpu(card):
+    """`tests/test_water.py`'s bathymetric scan on the card and on the CPU
+    (`chip_smoke.py` phase 5's water case): K1 level 0, K4 bounces."""
+    scene, cfg = chip_smoke.water_over_ground()
+    bvh = api.build_scene_bvh(scene)
+    mats = api.MaterialLibrary.default().table_at(532)
+    rays = api.build_rays(cfg, scene, device="cpu")
+    before = kpk.KERNEL.launches
+    g = Simulator(scene=scene, bvh=bvh, materials=mats, cfg=cfg,
+                  device="cuda").run(rays.to("cuda"))
+    assert kpk.KERNEL.launches > before
+    c = Simulator(scene=scene, bvh=bvh, materials=mats, cfg=cfg,
+                  device="cpu").run(rays)
+    chip_smoke.compare_clouds("water L=3", g, c, bathymetric=True)
+    m = c.mask
+    assert int(((c.asprs == 2) & (c.return_number >= 1) & m).sum()) > 100
+
+
+def test_packet_walk_simulator_card_matches_cpu(card):
+    """``use_culled=False``: every level on the packet walk, no host cull,
+    on the card and on the CPU."""
+    scene = synthetic.terrain_with_boxes(np.random.default_rng(1234),
+                                         num_boxes=4)
+    bvh = api.build_scene_bvh(scene)
+    mats = api.MaterialLibrary.default().table_at(1064)
+    cfg = SensorConfig(tls_position=(0.0, 9.0, 0.0),
+                       tls_fov_horizontal=360.0, tls_fov_vertical=60.0,
+                       tls_middle_angle_vertical=-45.0,
+                       tls_resolution_horizontal=32,
+                       tls_resolution_vertical=16, rays_per_pulse=6,
+                       pulse_radius=0.1, max_returns=2, chunk_pulses=512)
+    rays = api.build_rays(cfg, scene, device="cpu")
+    before = (kpk.KERNEL.launches, tr.KERNEL.launches)
+    g = Simulator(scene=scene, bvh=bvh, materials=mats, cfg=cfg,
+                  device="cuda", use_culled=False).run(rays.to("cuda"))
+    assert kpk.KERNEL.launches == before[0] + 1
+    assert tr.KERNEL.launches == before[1]
+    c = Simulator(scene=scene, bvh=bvh, materials=mats, cfg=cfg,
+                  device="cpu", use_culled=False).run(rays)
+    chip_smoke.compare_clouds("tls packet walk", g, c)
 
 
 # sizes that are no multiple of 4 go through the float4 body's scalar tail

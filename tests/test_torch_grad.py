@@ -148,8 +148,8 @@ def port_loss_fn(ch: Chunk, pack=None):
                          gps_time=p["rays"].gps_time)
         fp = build_face_pack(scene, mats, p["noise"]) if pack else pack
         cloud = tchunk(scene, mats, rays, p["noise"], sc, p["cfg"],
-                       traverse_fn=ch.ttr, traverse_data=ch.tdata,
-                       face_pack=fp)
+                       scene_has_water=False, traverse_fn=ch.ttr,
+                       traverse_data=ch.tdata, face_pack=fp)
         return torch.where(cloud.mask, cloud.intensity,
                            torch.zeros_like(cloud.intensity)).sum()
 
@@ -373,7 +373,8 @@ def test_vertex_grads_match_finite_differences():
     def loss(verts):
         cloud = tchunk(dataclasses.replace(scene, vertices=verts), mats,
                        rays, f64(p["noise"]), sc, p["cfg"],
-                       traverse_fn=trav, traverse_data=ch.tdata)
+                       scene_has_water=False, traverse_fn=trav,
+                       traverse_data=ch.tdata)
         return torch.where(cloud.mask, cloud.distance,
                            torch.zeros_like(cloud.distance)).sum()
 

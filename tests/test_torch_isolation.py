@@ -24,6 +24,7 @@ def _modules():
 def test_importing_the_port_loads_no_jax():
     mods = _modules()
     for m in ("kernels.traverse", "kernels.pulse", "kernels.cuda_build",
+              "kernels.packet", "geom.packet", "physics.intensity",
               "sensors.als", "sensors.paths"):
         assert "lidar_brdf_tpu_torch." + m in mods
     code = ("import importlib, sys\n"

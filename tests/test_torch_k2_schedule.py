@@ -5,7 +5,8 @@ The pulse-ladder kernel (`kernels/csrc/pulse_traverse.cu`) runs every
 bucket of a call in one launch over the blocks `pulse_schedule` lays out,
 a block taking whole groups of rays, one thread per ray.  It tests no
 padding id (-1), stops a ladder row at its first block of 8 that holds
-padding only, and stages ladders 16 candidates at a time.  The kernel runs
+padding only when the caller promises tail-padded ladders (and skips such
+a block otherwise), and stages ladders 16 candidates at a time.  The kernel runs
 only on the card (`tests/test_torch_cuda.py` holds it against the plain
 version there); here the schedule is decoded block by block and thread by
 thread as the kernel decodes it, `build_pulse_ladders` is shown to keep the
@@ -195,12 +196,13 @@ def test_ladders_keep_real_ids_as_a_prefix(case):
     assert (rows[:lo] == 1).all() and (rows[lo:] == 0).all()
 
 
-def _kernel_walk(wald, o, d, ladder, tm):
+def _kernel_walk(wald, o, d, ladder, tm, tail_padded=True):
     """One ladder row's rays (R, 3) as `pulse_traverse_kernel` walks them:
     stages of `pp.STAGE` candidates; per block of 8, no test on a padding
     id, the real candidates' min t_m (tm when none is lower) and the min
-    id at it, merged by strict <; a stop at the first block of padding
-    only.  Returns (t, face, candidates tested per ray)."""
+    id at it, merged by strict <; at the first block of padding only, a
+    stop with ``tail_padded`` and a skip without.  Returns (t, face,
+    candidates tested per ray)."""
     R, K = o.shape[0], ladder.shape[0]
     t_m = tr.wald_t_m_plain(wald, o[None, :, None], d[None, :, None],
                             ladder[None], tm)[0]                 # (R, K)
@@ -213,6 +215,8 @@ def _kernel_walk(wald, o, d, ladder, tm):
         for b in blocks:
             ids = [int(x) for x in ladder[b:b + tr.CAND_BLOCK]]
             if max(ids) < 0:
+                if not tail_padded:
+                    continue
                 done = True
                 break
             t_c = tm.expand(R).clone()
@@ -234,7 +238,7 @@ def _kernel_walk(wald, o, d, ladder, tm):
         f_best, tested
 
 
-def _walk_vs_plain(wald, o, d, ladders, R, t_max):
+def _walk_vs_plain(wald, o, d, ladders, R, t_max, tail_padded=True):
     """Every ladder row through `_kernel_walk` and `pulse_traverse_plain`
     (row g holds group g): equal bit for bit.  Returns (t, face, tested)."""
     P = len(ladders)
@@ -246,7 +250,7 @@ def _walk_vs_plain(wald, o, d, ladders, R, t_max):
         wald, o, d, [(torch.arange(P, dtype=torch.int32), cand)], t_max, R)
     tm = torch.tensor(t_max, dtype=torch.float32)
     walks = [_kernel_walk(wald, o[g * R:(g + 1) * R], d[g * R:(g + 1) * R],
-                          cand[g], tm) for g in range(P)]
+                          cand[g], tm, tail_padded) for g in range(P)]
     t_k = torch.cat([w[0] for w in walks])
     f_k = torch.cat([w[1] for w in walks])
     assert torch.equal(f_k, f_p)
@@ -281,6 +285,56 @@ def test_staged_walk_padding_anywhere_and_real_misses():
     assert bool((f[16:] == -1).all()) and bool((t[16:] == BIG).all())
     assert bool((f[:16] >= 0).any())
     assert tested == [64, 64 - 22, 3, 0]
+
+
+def _interior_padding():
+    """The planted tie's ladder with whole blocks of 8 of padding inside
+    it: the tie's two faces (block 1 and block 6 of the original) then sit
+    behind an all-padding block, in the same and in a later stage."""
+    wald, o, d, ids = (torch.from_numpy(a) for a in chip_smoke.planted_tie(64))
+    gap = torch.full((tr.CAND_BLOCK,), -1, dtype=torch.int32)
+    one = torch.cat([ids[:8], gap, ids[8:]])            # block 1 of 16
+    three = torch.cat([gap, ids[:40], gap, gap, ids[40:]])
+    return wald, o, d, [one, three, ids]
+
+
+@pytest.mark.parametrize("tail_padded", [False, True])
+def test_staged_walk_interior_padding_both_modes(tail_padded):
+    """Ladders with an all-padding block of 8 before real ids (a bucket a
+    caller builds by hand): without the tail-padding promise the kernel's
+    walk skips the block and equals the plain version, which tests every
+    candidate; with it, the walk stops there (exact only for tail-padded
+    rows, which `build_pulse_ladders` makes and `PulseLadderTraverser`
+    promises)."""
+    wald, o, d, ladders = _interior_padding()
+    R = 8
+    if not tail_padded:
+        _, f, tested = _walk_vs_plain(wald, o[:24], d[:24], ladders, R,
+                                      100.0, tail_padded=False)
+        assert tested == [64, 64, 64] and int((f == 40).sum()) > 0
+        return
+    tm = torch.tensor(100.0)
+    t, f, tested = _kernel_walk(wald, o[:R], d[:R], ladders[1], tm)
+    assert tested == 0 and bool((f == -1).all())       # stopped at block 0
+    _, f, tested = _kernel_walk(wald, o[:R], d[:R], ladders[0], tm)
+    assert tested == 8
+
+
+def test_ladders_carry_the_tail_padding_promise():
+    """A `PulseLadders` promises tail padding only when told to; the
+    traverser's upload (what the Simulator and the bench hand K2) says
+    so; a plain tuple or a hand-built `PulseLadders` does not."""
+    scene, o, d, R = _ladder_inputs("fan")
+    tt = pp.PulseLadderTraverser(scene, rays_per_pulse=R, device="cpu")
+    data = tt.prepare(api.build_scene_bvh(scene), o, d, t_max=500.0)
+    assert isinstance(data, pp.PulseLadders) and data.tail_padded
+    assert not pp.PulseLadders(list(data)).tail_padded
+    assert not getattr(tuple(data), "tail_padded", False)
+    # the CPU path gives the same faces in both modes
+    og, dg = torch.from_numpy(o), torch.from_numpy(d)
+    f1 = pp.pulse_traverse(tt.wald, og, dg, data, tt.t_max, R)[1]
+    f2 = pp.pulse_traverse(tt.wald, og, dg, tuple(data), tt.t_max, R)[1]
+    assert torch.equal(f1, f2) and bool((f1 >= 0).any())
 
 
 def test_staged_walk_hit_at_exactly_t_max():

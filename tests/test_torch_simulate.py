@@ -6,8 +6,9 @@ Both BSP-order the pulses the same way, so slots line up: mask, comp_id
 and return_number exact; positions atol 1e-4; intensity rtol 1e-4.
 
 The field of view is narrower than in that test (90 x 40 degrees instead
-of 360 x 60): there the tile beams are too wide, the JAX package quietly
-takes its packet walk, and the port (which has no packet walk yet) raises.
+of 360 x 60), so that the tile beams cull; the 360 x 60 scan, whose beams
+are too wide and which both packages send through the packet walk, and a
+water scene are in `test_unported_paths_raise`.
 """
 
 import dataclasses
@@ -110,6 +111,8 @@ def test_entry_points_need_a_card_unless_asked_for_cpu():
         tapi.build_rays(cfg, scene)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tapi.simulate(scene, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tapi.simulate_spectral(scene, cfg)
     mats = tapi.MaterialLibrary.default().table_at(1064)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TSim(scene=scene, bvh=tapi.build_scene_bvh(scene), materials=mats,
@@ -118,13 +121,23 @@ def test_entry_points_need_a_card_unless_asked_for_cpu():
     assert rays.origin.device.type == "cpu"
 
 
+def _port_run(scene, bvh, mats, cfg, rays, noise, **kw):
+    """The port's `Simulator(device="cpu").run` on the JAX inputs."""
+    tsim = TSim(scene=convert.scene_from_numpy(_np(scene)),
+                bvh=convert.bvh_from_numpy(_np(bvh)),
+                materials=convert.materials_from_numpy(_np(mats)),
+                cfg=tcfg.SensorConfig.from_json(cfg.to_json()),
+                device="cpu", noise_buf=convert.noise_from_numpy(noise), **kw)
+    return tsim, tsim.run(convert.rays_from_numpy(_np(rays)))
+
+
 def test_unported_paths_raise():
-    scene = tsyn.terrain_with_boxes(np.random.default_rng(0), num_boxes=2,
-                                    water_patch=True)
-    mats = tapi.MaterialLibrary.default().table_at(1064)
-    with pytest.raises(NotImplementedError):
-        TSim(scene=scene, bvh=tapi.build_scene_bvh(scene), materials=mats,
-             cfg=tcfg.SensorConfig(), device="cpu")
+    """ANALYTIC shading still raises.  The paths that raised before the
+    packet walk was ported now match the JAX `Simulator` slot by slot: a
+    water scene (the hybrid: culled level 0, packet-walk bounces) and the
+    360 x 60 degree scan of `tests/test_pallas.py:93-120`, whose tile
+    beams are too wide to cull (level 0 on the packet walk).  Discrete
+    fields exact; positions atol 1e-4, intensity rtol 1e-4."""
     dry = tsyn.terrain_with_boxes(np.random.default_rng(0), num_boxes=2)
     # analytic BRDF shading, on a narrow scan that culls fine
     analytic = tcfg.SensorConfig(
@@ -134,10 +147,34 @@ def test_unported_paths_raise():
         rays_per_pulse=2, shading_mode=tcfg.ShadingMode.ANALYTIC)
     with pytest.raises(NotImplementedError, match="analytic"):
         tapi.simulate(dry, analytic, device="cpu")
-    # a 360-degree scan of few pulses makes wide tile beams: packet walk
-    cfg = tcfg.SensorConfig(tls_position=(0.0, 9.0, 0.0),
-                            tls_fov_horizontal=360.0,
-                            tls_resolution_horizontal=32,
-                            tls_resolution_vertical=16, rays_per_pulse=2)
-    with pytest.raises(NotImplementedError, match="packet walk"):
-        tapi.simulate(dry, cfg, device="cpu")
+    mats = MaterialLibrary.default().table_at(1064)
+    wide = _cfg(tls_fov_horizontal=360.0, tls_fov_vertical=60.0)
+    for water, cfg in ((True, _cfg(max_returns=2, pulse_radius=0.1)),
+                       (False, wide)):
+        scene = jsyn.terrain_with_boxes(np.random.default_rng(1234),
+                                        num_boxes=4, water_patch=water)
+        bvh = build_scene_bvh(scene)
+        rays = build_rays(cfg, scene)
+        sim = Simulator(scene=scene, bvh=bvh, materials=mats, cfg=cfg,
+                        use_pallas=True, compact_readback=False)
+        beams = sim._culler.beams_ok(np.asarray(rays.origin),
+                                     np.asarray(rays.direction))
+        assert beams == water and sim.scene_has_water == water
+        cj = sim.run(rays)
+        tsim, ct = _port_run(scene, bvh, mats, cfg, rays, sim.noise_buf)
+        assert tsim.scene_has_water == water
+        assert tsim.block_pulses == sim.block_pulses
+        for k in ("mask", "comp_id", "return_number", "num_returns",
+                  "asprs"):
+            np.testing.assert_array_equal(getattr(ct, k).numpy(),
+                                          np.asarray(getattr(cj, k)),
+                                          err_msg=k)
+        m = ct.mask.numpy()
+        assert m.sum() > 300
+        if water:
+            assert (ct.asprs.numpy()[m] == 9).sum() > 10
+        np.testing.assert_allclose(ct.position.numpy(),
+                                   np.asarray(cj.position), rtol=0, atol=1e-4)
+        np.testing.assert_allclose(ct.intensity.numpy(),
+                                   np.asarray(cj.intensity), rtol=1e-4,
+                                   atol=0)

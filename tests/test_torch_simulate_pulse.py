@@ -26,6 +26,7 @@ from lidar_brdf_tpu.io.materials import MaterialLibrary
 from lidar_brdf_tpu.runtime.simulate import Simulator
 from lidar_brdf_tpu_torch.core import config as tcfg
 from lidar_brdf_tpu_torch.core import convert
+from lidar_brdf_tpu_torch.kernels import pulse as tpp
 from lidar_brdf_tpu_torch.kernels.pulse import PulseLadderTraverser
 from lidar_brdf_tpu_torch.runtime.simulate import Simulator as TSim
 
@@ -118,24 +119,42 @@ def test_tls_pulse_path_matches_jax_slot_by_slot(beam):
 
 
 def test_wide_pulse_cones_raise():
-    """A pulse whose rays spread wider than the cull's cone limit needs the
-    packet walk; the port raises instead of taking another path."""
-    scene = convert.scene_from_numpy(_np(jsyn.terrain_with_boxes(
-        np.random.default_rng(0), num_boxes=2)))
-    cfg = tcfg.SensorConfig(tls_position=(0.0, 9.0, 0.0),
-                            tls_resolution_horizontal=16,
-                            tls_resolution_vertical=8, rays_per_pulse=2,
-                            chunk_pulses=128)
-    sim = TSim(scene=scene, bvh=convert.bvh_from_numpy(_np(build_scene_bvh(
-        jsyn.terrain_with_boxes(np.random.default_rng(0), num_boxes=2)))),
-        materials=convert.materials_from_numpy(_np(
-            MaterialLibrary.default().table_at(1064))),
-        cfg=cfg, device="cpu", use_pulse=True, pulse_group=64)
+    """A pulse group whose rays spread wider than the cull's cone limit
+    takes the packet walk for level 0, in scan order (no ladders, no
+    permutation), as the JAX `Simulator` does: slot by slot equal to it."""
+    scene = jsyn.terrain_with_boxes(np.random.default_rng(0), num_boxes=2)
+    cfg = SensorConfig(tls_position=(0.0, 9.0, 0.0),
+                       tls_resolution_horizontal=16,
+                       tls_resolution_vertical=8, rays_per_pulse=2,
+                       chunk_pulses=128, max_returns=2, pulse_radius=0.1,
+                       shading_mode=ShadingMode.MEASURED)
+    bvh = build_scene_bvh(scene)
+    mats = MaterialLibrary.default().table_at(1064)
+    rays = build_rays(cfg, scene)
+    sim = Simulator(scene=scene, bvh=bvh, materials=mats, cfg=cfg,
+                    use_pulse=True, pulse_group=64, compact_readback=False)
     assert sim.pulse_group == 64
-    from lidar_brdf_tpu_torch import api as tapi
-    rays = tapi.build_rays(cfg, scene, device="cpu")
-    with pytest.raises(NotImplementedError, match="packet walk"):
-        sim.run(rays)
+    assert not sim._culler.beams_ok(np.asarray(rays.origin),
+                                    np.asarray(rays.direction))
+    cj = sim.run(rays)
+    tsim = TSim(scene=convert.scene_from_numpy(_np(scene)),
+                bvh=convert.bvh_from_numpy(_np(bvh)),
+                materials=convert.materials_from_numpy(_np(mats)),
+                cfg=tcfg.SensorConfig.from_json(cfg.to_json()), device="cpu",
+                use_pulse=True, pulse_group=64,
+                noise_buf=convert.noise_from_numpy(sim.noise_buf))
+    assert tsim.pulse_group == 64 and not tsim.reorder
+    launches = tpp.KERNEL.launches
+    ct = tsim.run(convert.rays_from_numpy(_np(rays)))
+    assert tpp.KERNEL.launches == launches
+    for k in ("mask", "comp_id", "return_number", "num_returns", "asprs"):
+        np.testing.assert_array_equal(getattr(ct, k).numpy(),
+                                      np.asarray(getattr(cj, k)), err_msg=k)
+    assert ct.mask.numpy().sum() > 40
+    np.testing.assert_allclose(ct.position.numpy(), np.asarray(cj.position),
+                               rtol=0, atol=1e-4)
+    np.testing.assert_allclose(ct.intensity.numpy(), np.asarray(cj.intensity),
+                               rtol=1e-4, atol=0)
 
 
 def test_pulse_group_is_a_power_of_two_dividing_the_chunk():
