@@ -38,8 +38,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    of 131,072), warm on one chunk, then timed: K2 once per chunk, K1 not.
 4b. The topo-bathymetric scan at full width through `api.simulate`: the
    `als` terrain under a water plane (5,007,314 faces), 532 nm,
-   bathymetric, 3 returns, the flight's first 524,288 pulses (four chunks
-   of 131,072), warm on 8,192, then timed: K2 once per chunk (level 0), K4 twice (levels 1 and
+   bathymetric, 3 returns, the `als` cell's 1,048,576 pulses (eight
+   chunks of 131,072), warm on 8,192, then timed: K2 once per chunk (level 0), K4 twice (levels 1 and
    2), K1 not; it must give bottom returns.  Then the `tls` scan through
    `Simulator(use_culled=False)` (no host cull): K4 once per chunk, no K1.
    K4 against its plain version, faces and t bit for bit and walks as
@@ -110,7 +110,7 @@ ALS_TRIS = 5_000_000
 ALS_CHUNK = 131072
 ALS_SUB_PULSES = 8192           # K1 vs K2 on the same als pulses
 ALS_STEP_PULSES = 131072        # the als fwd+bwd step: one chunk
-WATER_PULSES = 524288           # the topo-bathymetric scan: four chunks
+WATER_PULSES = 1_048_576        # the topo-bathymetric scan: eight chunks
 WATER_WARM = 8192               # its warm run
 WATER_CELLS = 64                # water plane cells a side (8,192 faces)
 STEP_ITERS = 5                  # timed training steps per measurement
