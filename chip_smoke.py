@@ -545,9 +545,13 @@ def k2_chunk(reps: int = 20) -> dict:
     either tree): on the `als` chunk as the Simulator calls it (``main``)
     and with the uncovered groups not named (``fills``: the wrapper fills
     the outputs first), and on the `tls` city chunk's ladders (``tls``, the
-    traverser-choice input).  Each: launches per call, CUDA-event ms per
-    call (three runs of ``reps`` queued, one back to back), profiler device
-    ms of K2 and of the output fills."""
+    traverser-choice input); ``main_skip`` and ``tls_skip`` are the same
+    ladders without the tail-padding promise (a row skips its blocks of
+    padding and walks on to K), which must give the same (t, face).  Each:
+    launches per call, CUDA-event ms per call (three runs of ``reps``
+    queued, one back to back), profiler device ms of K2 and of the output
+    fills."""
+    import torch
     from lidar_brdf_tpu_torch.kernels import pulse as pp
     _, tr_, og, dg, data, cull_s = als_chunk(als_workload(DEVICE))
     tls = tls_pulse_chunk(tls_workload(DEVICE))
@@ -555,10 +559,20 @@ def k2_chunk(reps: int = 20) -> dict:
                buckets=[tuple(c.shape) for _, c in data],
                uncovered=getattr(data, "uncovered", None), cull_s=cull_s,
                tls_buckets=[tuple(c.shape) for _, c in tls[3]])
-    for name, (t, o, d, b) in (("main", (tr_, og, dg, data)),
-                               ("fills", (tr_, og, dg, pp.PulseLadders(
-                                   data, tail_padded=True))),
-                               ("tls", tls[:4])):
+    no_promise = lambda b: pp.PulseLadders(b, b.uncovered)
+    cases = (("main", (tr_, og, dg, data)),
+             ("main_skip", (tr_, og, dg, no_promise(data))),
+             ("fills", (tr_, og, dg, pp.PulseLadders(data,
+                                                     tail_padded=True))),
+             ("tls", tls[:4]),
+             ("tls_skip", (*tls[:3], no_promise(tls[3]))))
+    for a, b in ((0, 1), (3, 4)):
+        (t, o, d, x), y = cases[a][1], cases[b][1][3]
+        ra = pp.pulse_traverse(t.wald, o, d, x, t.t_max, t.kernel_rays)
+        rb = pp.pulse_traverse(t.wald, o, d, y, t.t_max, t.kernel_rays)
+        if not (torch.equal(ra[0], rb[0]) and torch.equal(ra[1], rb[1])):
+            fail(f"K2 {cases[a][0]} and {cases[b][0]} disagree")
+    for name, (t, o, d, b) in cases:
         call = lambda: pp.pulse_traverse(t.wald, o, d, b, t.t_max,
                                          t.kernel_rays)
         out[name] = dict(
@@ -1072,7 +1086,7 @@ def compare_k4(name, packed, o, d):
     """K4 vs its plain version on rays ``o``/``d`` (padded to tiles here):
     faces equal, t equal bit for bit, every tile's walk as long.  Returns
     (steps (T, 2): node steps and leaf steps per tile, the plain version's
-    ms for the call)."""
+    ms for the call, the max |dt| over the rays that hit in both)."""
     import torch
     from lidar_brdf_tpu_torch.kernels import packet as kpk
     o, d = pad_tiles(o, d)
@@ -1089,16 +1103,20 @@ def compare_k4(name, packed, o, d):
     if diff.numel():
         fail(f"{name}: {diff.numel()} faces differ between K4 and plain "
              f"(first rays {diff[:5].tolist()})")
+    hit = (f_k >= 0) & (f_p >= 0)
+    err = float((t_k[hit] - t_p[hit]).abs().max()) if bool(hit.any()) \
+        else 0.0
     if not torch.equal(t_k, t_p):
-        fail(f"{name}: t not bit-equal between K4 and plain")
+        fail(f"{name}: t not bit-equal between K4 and plain (max |dt| over "
+             f"hits {err:.3e})")
     if not torch.equal(steps_k, steps_p):
         fail(f"{name}: walk lengths differ between K4 and plain")
-    hit = f_p >= 0
     log(f"[kernel] {name}: {o.shape[0]} rays ({T} tiles), {int(hit.sum())} "
-        f"hits: faces and t equal bit for bit; node steps "
-        f"{int(steps_k[:, 0].sum())} (leaves {int(steps_k[:, 1].sum())}), "
-        f"longest walk {int(steps_k[:, 0].max())}; plain {plain_ms:.1f} ms")
-    return steps_k, plain_ms
+        f"hits: faces equal, max |dt| {err:.3e}, t equal bit for bit; node "
+        f"steps {int(steps_k[:, 0].sum())} (leaves "
+        f"{int(steps_k[:, 1].sum())}), longest walk "
+        f"{int(steps_k[:, 0].max())}; plain {plain_ms:.1f} ms")
+    return steps_k, plain_ms, err
 
 
 def k4_bound(steps, n_rays):
@@ -1232,19 +1250,21 @@ def phase_k4_vs_plain(tls, level1):
     og[1000:1100], dg[1000:1100] = 1e10, 0.0     # zero-direction padding
     dg[3000:3050] = 0.0
     rough, o2, d2 = grazing_fan()
+    errs = []
     for name, scene, oo, dd in (
             ("K4 fan over boxes", boxes, o, d),
             ("K4 grazing fan", rough, o2, d2),
             ("K4 fan with zero-direction rays", boxes, og, dg)):
         packed = pack_scene(scene.to(DEVICE), api.build_scene_bvh(scene))
-        compare_k4(name, packed, put(oo), put(dd))
+        errs.append(compare_k4(name, packed, put(oo), put(dd))[2])
     out = {}
     scene, bvh, _, _, rays = tls
     cases = (("tls", pack_scene(scene.to(DEVICE), bvh),
               rays.origin.reshape(-1, 3), rays.direction.reshape(-1, 3)),
              ("water", *level1))
     for key, packed, oo, dd in cases:
-        steps, plain_ms = compare_k4(f"K4 {key} rays", packed, oo, dd)
+        steps, plain_ms, err = compare_k4(f"K4 {key} rays", packed, oo, dd)
+        errs.append(err)
         op, dp = pad_tiles(oo, dd)
         call = lambda: kpk.packet_traverse(*packed, op, dp)
         per_call = launches_in(kpk.KERNEL, call)
@@ -1266,7 +1286,7 @@ def phase_k4_vs_plain(tls, level1):
     return dict(name="packet_traverse", route="cuda",
                 source="lidar_brdf_tpu_torch/kernels/csrc/packet_traverse.cu",
                 replaces="lidar_brdf_tpu/geom/packet.py:148",
-                launches=None, max_abs_err=0.0, ms=w["ms"],
+                launches=None, max_abs_err=max(errs), ms=w["ms"],
                 plain_ms=w["plain_ms"], bound_ms=w["bound_ms"],
                 bound_by=w["bound_by"], library_ms=None, water=w,
                 tls=out["tls"])

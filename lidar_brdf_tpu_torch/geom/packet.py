@@ -21,8 +21,6 @@ import torch
 from ..core.types import BVH, Hit, TriangleScene, as_numpy
 from ..kernels.packet import TILE, packet_traverse
 
-DEFAULT_TILE = TILE
-
 
 class PackedScene(NamedTuple):
     """Traversal-ready arrays on the compute device."""
@@ -58,7 +56,7 @@ def pack_scene(scene: TriangleScene, bvh: BVH) -> PackedScene:
 
 
 def intersect_packed_scene(packed: PackedScene, origin, direction, *,
-                           tile: int = DEFAULT_TILE, steps=None) -> Hit:
+                           steps=None) -> Hit:
     """Nearest-hit intersection by the packet walk.
 
     ``origin``/``direction``: (..., 3).  Rays are flattened and tiled in
@@ -71,21 +69,19 @@ def intersect_packed_scene(packed: PackedScene, origin, direction, *,
     o = origin.detach().reshape(-1, 3).float()
     d = direction.detach().reshape(-1, 3).float()
     n_rays = o.shape[0]
-    pad = (-n_rays) % tile
+    pad = (-n_rays) % TILE
     if pad:
         o = torch.cat([o, o.new_full((pad, 3), 1e10)])
         d = torch.cat([d, d.new_zeros((pad, 3))])
-    t, f = packet_traverse(*packed, o.contiguous(), d.contiguous(), tile,
-                           steps)
+    t, f = packet_traverse(*packed, o.contiguous(), d.contiguous(), steps)
     return Hit(t=t[:n_rays].reshape(shape), face=f[:n_rays].reshape(shape))
 
 
-def make_packet_traverser(scene: TriangleScene, bvh: BVH,
-                          tile: int = DEFAULT_TILE):
+def make_packet_traverser(scene: TriangleScene, bvh: BVH):
     """Pack once; returns ``traverse(origin, direction) -> Hit``."""
     packed = pack_scene(scene, bvh)
 
     def traverse(origin, direction):
-        return intersect_packed_scene(packed, origin, direction, tile=tile)
+        return intersect_packed_scene(packed, origin, direction)
 
     return traverse

@@ -42,7 +42,7 @@ KERNEL = CudaLibrary("packet_traverse.cu", _declare, "lbt_packet_traverse")
 
 
 def _validate(node_box, node_skip, node_face, tri_rows, origin, direction,
-              tile, steps):
+              steps):
     dev = origin.get_device()
     check_tensor("node_box", node_box, torch.float32, 2, dev)
     check_tensor("node_skip", node_skip, torch.int32, 1, dev)
@@ -56,37 +56,34 @@ def _validate(node_box, node_skip, node_face, tri_rows, origin, direction,
         raise ValueError("node_box must be (N, 6), node_skip and node_face "
                          "(N,), tri_rows (F, 9)")
     if origin.shape[1] != 3 or direction.shape != origin.shape \
-            or origin.shape[0] % tile:
-        raise ValueError(f"origin/direction must be (T * {tile}, 3)")
+            or origin.shape[0] % TILE:
+        raise ValueError(f"origin/direction must be (T * {TILE}, 3)")
     if steps is not None:
         check_tensor("steps", steps, torch.int32, 2, dev)
-        if tuple(steps.shape) != (origin.shape[0] // tile, 2):
+        if tuple(steps.shape) != (origin.shape[0] // TILE, 2):
             raise ValueError("steps must be (tiles, 2)")
 
 
 def packet_traverse(node_box, node_skip, node_face, tri_rows, origin,
-                    direction, tile: int = TILE, steps=None):
+                    direction, steps=None):
     """Nearest (t, face) per ray by the packet walk.
 
     ``node_box`` (N, 6) f32 [min, max], ``node_skip`` and ``node_face``
     (N,) i32 (leaf face, -1 internal), ``tri_rows`` (F, 9) f32 [v0, e1,
-    e2]; ``origin``/``direction`` (T * tile, 3) f32, tiles of ``tile``
-    consecutive rays.  Returns (t (T * tile,) f32, face (T * tile,) i32);
+    e2]; ``origin``/``direction`` (T * 128, 3) f32, tiles of 128
+    consecutive rays.  Returns (t (T * 128,) f32, face (T * 128,) i32);
     misses are (BIG, -1).  ``steps``, when given, a (T, 2) i32 tensor that
     receives each tile's walk length: node steps, of which leaf steps.
-    CUDA tensors launch K4 once (tiles of 128 only); CPU tensors take
+    CUDA tensors launch K4 once; CPU tensors take
     `packet_traverse_plain`.
     """
     _validate(node_box, node_skip, node_face, tri_rows, origin, direction,
-              tile, steps)
+              steps)
     if not origin.is_cuda:
         if origin.device.type == "cpu":
             return packet_traverse_plain(node_box, node_skip, node_face,
-                                         tri_rows, origin, direction, tile,
-                                         steps)
+                                         tri_rows, origin, direction, steps)
         raise ValueError(f"unsupported device {origin.device}")
-    if tile != TILE:
-        raise ValueError(f"K4 walks tiles of {TILE} rays, not {tile}")
     if node_box.shape[0] >= 2 ** 31:
         raise ValueError("over 2^31 nodes")
     n = origin.shape[0]
@@ -105,7 +102,7 @@ def packet_traverse(node_box, node_skip, node_face, tri_rows, origin,
 
 
 def packet_traverse_plain(node_box, node_skip, node_face, tri_rows, origin,
-                          direction, tile: int = TILE, steps=None):
+                          direction, steps=None):
     """Plain PyTorch version of K4: same signature and results.
 
     One loop step advances every tile that is still walking by one node,
@@ -115,17 +112,17 @@ def packet_traverse_plain(node_box, node_skip, node_face, tri_rows, origin,
     """
     dev = origin.device
     n = origin.shape[0]
-    T = n // tile
+    T = n // TILE
     N = node_box.shape[0]
-    o = origin.reshape(T, tile, 3)
-    d = direction.reshape(T, tile, 3)
+    o = origin.reshape(T, TILE, 3)
+    d = direction.reshape(T, TILE, 3)
     tiny = torch.full_like(d, TINY_DIR)
     d_safe = torch.where(torch.abs(d) < TINY_DIR,
                          torch.where(d < 0, -tiny, tiny), d)
     inv_d = 1.0 / d_safe
     node = torch.zeros(T, dtype=torch.int64, device=dev)
-    t_best = torch.full((T, tile), BIG, dtype=torch.float32, device=dev)
-    f_best = torch.full((T, tile), -1, dtype=torch.int32, device=dev)
+    t_best = torch.full((T, TILE), BIG, dtype=torch.float32, device=dev)
+    f_best = torch.full((T, TILE), -1, dtype=torch.int32, device=dev)
     count = torch.zeros((T, 2), dtype=torch.int32, device=dev)
     live = torch.arange(T, device=dev) if N else \
         torch.zeros(0, dtype=torch.int64, device=dev)

@@ -135,18 +135,14 @@ def _faces_contiguous(va, vb, comp_a, comp_b):
     return (comp_a == comp_b) & shared
 
 
-def _scan_angle(dir_w, sensor_normal: tuple):
+def _scan_angle(nd, sensor_normal: tuple):
     """Scan angle in degrees, acos(sum(nd * sensor_normal * nd)) of the
     unit reverse direction nd, clipped to [-90, 90] (`reduceCollisions`
     :225-233).  The normal is host floats (a small device constant would
     cost a host-to-device copy, a host sync, on every call).  The sum is
-    taken in float64 and rounded once: for near-vertical aerial rays it
-    sits within 1e-5 of 1, where arccos turns each f32 ulp of it into a
-    sizable share of the angle (and the terrain-induced error scales the
-    angle by half a metre a degree)."""
-    nd = safe_unit(-dir_w.double())
+    taken in nd's dtype and rounded once to float32."""
     ang = [nd[:, k] * sensor_normal[k] * nd[:, k] for k in range(3)]
-    arg = (ang[0] + ang[1] + ang[2]).to(dir_w.dtype)
+    arg = (ang[0] + ang[1] + ang[2]).to(torch.float32)
     return (clip(safe_arccos(arg), -_HALF_PI, _HALF_PI) / _HALF_PI * 90.0)
 
 
@@ -361,7 +357,11 @@ def _returns_retraverse(scene: TriangleScene, materials: MaterialTable,
 
         # winner record fields (:225-233)
         corrected = safe_norm(point_w - start_w)
-        angle = _scan_angle(dir_w, sensor_normal)
+        # in float64 here: a refracted near-vertical aerial ray's sum sits
+        # within 1e-5 of 1, where arccos turns each f32 ulp of it into a
+        # sizable share of the angle (and the terrain-induced error scales
+        # the angle by half a metre a degree)
+        angle = _scan_angle(safe_unit(-dir_w.double()), sensor_normal)
         gps = rays.gps_time + corrected * 2.0 / LIGHT_SPEED
 
         # validation (`validateCollision` :132-151)
@@ -704,7 +704,7 @@ def _returns_noretraverse(scene: TriangleScene, materials: MaterialTable,
     is_terrain = (surface_w & SURFACE_TERRAIN) != 0
 
     corrected = safe_norm(point_w - origin_w)
-    angle = _scan_angle(dir_w, sensor_normal)
+    angle = _scan_angle(safe_unit(-dir_w), sensor_normal)
     gps = rays.gps_time.repeat(L) + corrected * 2.0 / LIGHT_SPEED
 
     nz = noise_mod.stream_rows(noise_buf, (base + flat_w_K) & _U32)

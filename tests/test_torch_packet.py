@@ -149,20 +149,20 @@ def test_plain_walk_matches_jax_and_brute(case):
 
 
 def test_tiles_change_the_walk_not_the_hits():
-    """The same rays in tiles of 128, in tiles of 32 and shuffled into
-    other tiles: the same hits up to box-versus-triangle rounding (what
-    lets the Simulator hand the walk its pulses in bucket order)."""
+    """The same rays in scan order, shifted by half a tile and shuffled
+    into other tiles: the same hits up to box-versus-triangle rounding
+    (what lets the Simulator hand the walk its pulses in bucket order)."""
     scene, o, d = _case("fan")
     _, _, packed = _port(scene)
-    hit = lambda oo, dd, tile: tpk.intersect_packed_scene(
-        packed, torch.from_numpy(oo), torch.from_numpy(dd), tile=tile)
-    base = hit(o, d, 128)
-    perm = np.random.default_rng(0).permutation(o.shape[0])
-    for h, inv in ((hit(o, d, 32), None),
-                   (hit(o[perm], d[perm], 128), np.argsort(perm))):
-        f, t = h.face.numpy(), h.t.numpy()
-        if inv is not None:
-            f, t = f[inv], t[inv]
+    hit = lambda oo, dd: tpk.intersect_packed_scene(
+        packed, torch.from_numpy(oo), torch.from_numpy(dd))
+    base = hit(o, d)
+    n = o.shape[0]
+    for perm in (np.roll(np.arange(n), 64),
+                 np.random.default_rng(0).permutation(n)):
+        h = hit(o[perm], d[perm])
+        inv = np.argsort(perm)
+        f, t = h.face.numpy()[inv], h.t.numpy()[inv]
         _assert_hits_match(scene, base.face.numpy(), base.t.numpy(), f, t,
                            o, d)
 
