@@ -23,9 +23,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    without the chunk's dummy rows, and back to back); K2 on a fan over
    boxes (group 1 and 4), a grazing fan with fat ladders, a chunk with
    padded pulses, the planted tie (ladders of 64 and 128, groups of 8 and
-   128 rays), whole blocks of padding inside hand-built ladders (no
-   promise of tail padding) and tail-padded ladders under the promise,
-   and one real `als` chunk of 131,072 pulses culled as
+   128 rays), whole blocks of padding inside hand-built ladders and
+   tail-padded ladders, and one real `als` chunk of 131,072 pulses culled as
    `Simulator._prep` does it (one launch per call).  Both timed with CUDA
    events on their real chunk; then K1 and K2 on the same pulses of both
    scenes (the traverser-choice figures; K2 on the `tls` chunk back to
@@ -545,13 +544,9 @@ def k2_chunk(reps: int = 20) -> dict:
     either tree): on the `als` chunk as the Simulator calls it (``main``)
     and with the uncovered groups not named (``fills``: the wrapper fills
     the outputs first), and on the `tls` city chunk's ladders (``tls``, the
-    traverser-choice input); ``main_skip`` and ``tls_skip`` are the same
-    ladders without the tail-padding promise (a row skips its blocks of
-    padding and walks on to K), which must give the same (t, face).  Each:
-    launches per call, CUDA-event ms per call (three runs of ``reps``
-    queued, one back to back), profiler device ms of K2 and of the output
-    fills."""
-    import torch
+    traverser-choice input).  Each: launches per call, CUDA-event ms per
+    call (three runs of ``reps`` queued, one back to back), profiler device
+    ms of K2 and of the output fills."""
     from lidar_brdf_tpu_torch.kernels import pulse as pp
     _, tr_, og, dg, data, cull_s = als_chunk(als_workload(DEVICE))
     tls = tls_pulse_chunk(tls_workload(DEVICE))
@@ -559,20 +554,9 @@ def k2_chunk(reps: int = 20) -> dict:
                buckets=[tuple(c.shape) for _, c in data],
                uncovered=getattr(data, "uncovered", None), cull_s=cull_s,
                tls_buckets=[tuple(c.shape) for _, c in tls[3]])
-    no_promise = lambda b: pp.PulseLadders(b, b.uncovered)
-    cases = (("main", (tr_, og, dg, data)),
-             ("main_skip", (tr_, og, dg, no_promise(data))),
-             ("fills", (tr_, og, dg, pp.PulseLadders(data,
-                                                     tail_padded=True))),
-             ("tls", tls[:4]),
-             ("tls_skip", (*tls[:3], no_promise(tls[3]))))
-    for a, b in ((0, 1), (3, 4)):
-        (t, o, d, x), y = cases[a][1], cases[b][1][3]
-        ra = pp.pulse_traverse(t.wald, o, d, x, t.t_max, t.kernel_rays)
-        rb = pp.pulse_traverse(t.wald, o, d, y, t.t_max, t.kernel_rays)
-        if not (torch.equal(ra[0], rb[0]) and torch.equal(ra[1], rb[1])):
-            fail(f"K2 {cases[a][0]} and {cases[b][0]} disagree")
-    for name, (t, o, d, b) in cases:
+    for name, (t, o, d, b) in (("main", (tr_, og, dg, data)),
+                               ("fills", (tr_, og, dg, pp.PulseLadders(data))),
+                               ("tls", tls[:4])):
         call = lambda: pp.pulse_traverse(t.wald, o, d, b, t.t_max,
                                          t.kernel_rays)
         out[name] = dict(
@@ -751,10 +735,9 @@ def k2_padding_cases():
     """K2's ladder contract: [(name, wald, origins, directions, buckets,
     kernel_rays)].  The planted tie's 64 real ids with whole blocks of 8
     of padding before real ones (one block in a row's first stage, two in
-    another's third) in a hand-built bucket, as a list (no promise of tail
-    padding: K2 must skip those blocks); and the tie's ladders of 128
-    (64 real, then padding) as `PulseLadders(tail_padded=True)`, where K2
-    stops at the padding.  16 groups of 8 rays."""
+    another's third) in a hand-built bucket, which K2 must skip; and the
+    tie's ladders of 128 (64 real, then padding) as a `PulseLadders`, as
+    the traverser uploads them.  16 groups of 8 rays."""
     import torch
     from lidar_brdf_tpu_torch.kernels import pulse as pp
     out = []
@@ -763,9 +746,8 @@ def k2_padding_cases():
                            for a in planted_tie(n_cand))
         pidx = torch.arange(16, dtype=torch.int32, device=DEVICE)
         if n_cand == 128:
-            out.append(("K2 tail-padded ladders, promised", wald, o, d,
-                        pp.PulseLadders([(pidx, ids.repeat(16, 1))],
-                                        tail_padded=True), 8))
+            out.append(("K2 tail-padded ladders", wald, o, d,
+                        pp.PulseLadders([(pidx, ids.repeat(16, 1))]), 8))
             continue
         gap = torch.full((8,), -1, dtype=torch.int32, device=DEVICE)
         rows = torch.stack([torch.cat([ids[:8], gap, ids[8:], gap, gap]),
@@ -852,7 +834,7 @@ def phase_k2_vs_plain(als):
     o2[-8:], d2[-8:] = 1e10, 0.0
     case("K2 padded chunk", boxes, o2, d2, 4, 4)
     # a tie across two blocks of 8 (and two stages at 128 candidates);
-    # padding inside ladders, and tail padding under the promise
+    # padding inside ladders, and padding at their tail
     for name, wald, ot, dt, data, R in k2_tie_cases() + k2_padding_cases():
         errs.append(compare_k2(name, wald, ot, dt, data, 100.0, R))
 
@@ -1508,8 +1490,7 @@ def phase_profiles(chunk, k1, k3, k2_chunk_data, k2):
     from lidar_brdf_tpu_torch.kernels import smoke
     from lidar_brdf_tpu_torch.kernels import traverse as tr
     t2, o2, d2, data2 = k2_chunk_data
-    for key, data in (("", data2), ("_with_fills", pp.PulseLadders(
-            data2, tail_padded=True))):
+    for key, data in (("", data2), ("_with_fills", pp.PulseLadders(data2))):
         split = k2_device_split(lambda: pp.pulse_traverse(
             t2.wald, o2, d2, data, t2.t_max, t2.kernel_rays), 20)
         k2["device_ms" + key] = split["k2_ms"]

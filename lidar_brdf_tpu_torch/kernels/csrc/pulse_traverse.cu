@@ -37,11 +37,9 @@
 //     with K;
 //   * a padding id (-1) is never tested, wherever it sits: its t_m is
 //     t_max, which can neither lower a block's min below t_max nor win a
-//     merge (strict < from t_max).  When the caller promises tail-padded
-//     ladders (`tail_padded`, as `build_pulse_ladders` makes them), a row
-//     stops at its ladder's first block of 8 that holds padding only, and
-//     the block at the stage where none of its rows is live; otherwise such
-//     a block is skipped and the row goes on to K;
+//     merge (strict < from t_max).  A block of 8 that holds padding only is
+//     skipped and the row goes on to K (a stop there would be exact only
+//     for rows padded at the tail);
 //   * 128 threads a block at most and at most 40 registers a thread, so 12
 //     blocks share an SM and hide each other's loads;
 //   * when the caller names the range of groups in no bucket (the
@@ -55,9 +53,6 @@
 //     candidates of a block: its min t_m (t_max when none is accepted below
 //     it), then the min face id among the candidates at that min; blocks
 //     merged by strict <.  Skipping padding is exact wherever it sits;
-//   * stopping at the first block of padding only is exact where padding
-//     sits at the tail of each ladder row, as `build_pulse_ladders` fills
-//     them, and is taken only when the caller says so (`tail_padded`);
 //   * dummy rows (pidx outside [0, n_pulses)) are tested and written
 //     nowhere, as `.at[].set(mode="drop")` drops them.
 
@@ -82,7 +77,7 @@ constexpr int FILL_PER_THREAD = 4;  // (BIG, -1) pairs a fill thread writes
 
 struct Bucket {
   const int32_t* pidx;   // (B,)
-  const int32_t* cand;   // (B, K), -1 padded at the tail of each row
+  const int32_t* cand;   // (B, K), -1 padded anywhere in a row
   int rows;              // B
   int n_cand;            // K
   int first_block;       // the bucket's first block in the grid's x
@@ -100,7 +95,6 @@ struct Params {
   int64_t fill_begin;    // first output element they write
   int64_t fill_count;
   float t_max;
-  int tail_padded;       // ladders hold their padding at the tail only
   Bucket bucket[MAX_BUCKETS];   // longest ladders first
 };
 
@@ -176,7 +170,7 @@ pulse_traverse_kernel(const __grid_constant__ Params p) {
     stage(ids, rows, ladder, p.wald, 0, w);
   }
   if (q >= p.n_pulses) q = -1;                  // dummy row: dropped
-  bool live = q >= 0;                           // the same for the row
+  const bool live = q >= 0;                     // the same for the row
   const bool ray_ok = live && r < p.kernel_rays;
   const int64_t g = (int64_t)q * p.kernel_rays + r;
   lbt::Ray ray = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
@@ -191,19 +185,15 @@ pulse_traverse_kernel(const __grid_constant__ Params p) {
     lbt::cp_async_commit();
     lbt::cp_async_wait<0>();
     __syncthreads();                  // stage s is in shared memory
-    if (live) {
+    if (ray_ok) {
       for (int b = 0; b < w; b += CAND_BLOCK) {
         const int4 lo = *reinterpret_cast<const int4*>(ids + b);
         const int4 hi = *reinterpret_cast<const int4*>(ids + b + 4);
         const int32_t c[CAND_BLOCK] = {lo.x, lo.y, lo.z, lo.w,
                                        hi.x, hi.y, hi.z, hi.w};
         if (max(max(max(c[0], c[1]), max(c[2], c[3])),
-                max(max(c[4], c[5]), max(c[6], c[7]))) < 0) {
-          if (!p.tail_padded) continue;   // padding only: nothing to test
-          live = false;               // padding only: the ladder has ended
-          break;
-        }
-        if (!ray_ok) continue;
+                max(max(c[4], c[5]), max(c[6], c[7]))) < 0)
+          continue;                   // padding only: nothing to test
         // the block's min t_m over its real candidates (t_max if none is
         // lower), then the min id at that min
         float t_c = t_max;
@@ -253,9 +243,7 @@ extern "C" {
 // order: pidx and cand pointers, rows B, K, first row block.  ``n_blocks``
 // row blocks cover the buckets; when ``fill_count`` > 0, more write (BIG,
 // -1) to the outputs' elements [fill_begin, fill_begin + fill_count).
-// ``tail_padded`` != 0 promises that every ladder row holds its real ids
-// first and its padding after: a row then stops at its first block of 8
-// that holds padding only.  Without it, padding may sit anywhere.
+// Padding (-1) may sit anywhere in a ladder row.
 // Returns the cudaError_t of the launch (0 on success); the kernel runs
 // asynchronously on `stream`.
 int lbt_pulse_traverse(const float* wald, const float* origin,
@@ -263,8 +251,7 @@ int lbt_pulse_traverse(const float* wald, const float* origin,
                        float t_max, float* out_t, int32_t* out_f,
                        int n_buckets, const int64_t* args, int n_blocks,
                        int rows_per_block, int slice_rays,
-                       int64_t fill_begin, int64_t fill_count,
-                       int tail_padded, void* stream) {
+                       int64_t fill_begin, int64_t fill_count, void* stream) {
   if (n_blocks < 0 || n_buckets < 0 || n_buckets > MAX_BUCKETS ||
       (n_blocks > 0) != (n_buckets > 0) || kernel_rays <= 0 ||
       rows_per_block < 1 || rows_per_block > MAX_ROWS || slice_rays < 1 ||
@@ -284,7 +271,6 @@ int lbt_pulse_traverse(const float* wald, const float* origin,
   p.kernel_rays = kernel_rays;
   p.n_buckets = n_buckets;
   p.t_max = t_max;
-  p.tail_padded = tail_padded != 0;
   int64_t next = 0;                 // the blocks must tile the grid exactly
   for (int i = 0; i < n_buckets; ++i) {
     const int64_t* a = args + ARGS_PER_BUCKET * i;

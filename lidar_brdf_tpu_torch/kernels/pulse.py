@@ -56,7 +56,7 @@ def _declare(lib):
                       ctypes.c_int64)
     lib.lbt_pulse_traverse.argtypes = [
         vp, vp, vp, ci, ci, cf, vp, vp, ci, ctypes.POINTER(cl), ci, ci, ci,
-        cl, cl, ci, vp]
+        cl, cl, vp]
     lib.lbt_pulse_traverse.restype = ci
 
 
@@ -107,14 +107,11 @@ class PulseLadders(tuple):
     """One chunk's device buckets, ``(pidx, cand)`` each, as a tuple, with
     ``uncovered``: the range ``(lo, hi)`` of groups in no bucket when every
     other group has exactly one real row (the bucket-contiguous layout of
-    `permute_pulse_ladders` + `renumber_pulse_ladders`), else None; and
-    ``tail_padded``: every ladder row holds its real ids first and its
-    padding (-1) after, as `build_pulse_ladders` fills them."""
+    `permute_pulse_ladders` + `renumber_pulse_ladders`), else None."""
 
-    def __new__(cls, buckets, uncovered=None, tail_padded=False):
+    def __new__(cls, buckets, uncovered=None):
         self = super().__new__(cls, buckets)
         self.uncovered = uncovered
-        self.tail_padded = bool(tail_padded)
         return self
 
 
@@ -242,11 +239,6 @@ def pulse_traverse(wald, origin, direction, buckets, t_max: float,
     padding (-1) may sit anywhere in a ladder row.  Returns (t (N,) f32,
     face (N,) i32); misses and groups in no bucket are (BIG, -1).
 
-    A `PulseLadders` with ``tail_padded`` promises that every row holds its
-    real ids first and its padding after (what `build_pulse_ladders`
-    makes): the kernel then stops a row at its first block of 8 that holds
-    padding only.  Without the promise it skips such a block and goes on.
-
     A `PulseLadders` with ``uncovered = (lo, hi)`` promises that the groups
     in ``range(lo, hi)`` are in no bucket and every other group has exactly
     one real row: the kernel then writes those groups' (BIG, -1) itself;
@@ -293,7 +285,6 @@ def pulse_traverse(wald, origin, direction, buckets, t_max: float,
         kernel_rays, float(t_max), out_t.data_ptr(), out_f.data_ptr(),
         len(sched.entries), args, sched.n_blocks, sched.rows_per_block,
         sched.slice_rays, lo * kernel_rays, (hi - lo) * kernel_rays,
-        int(getattr(buckets, "tail_padded", False)),
         raw_stream(origin.get_device()))
     KERNEL.check(rc, "pulse_traverse")
     KERNEL.launches += 1
@@ -385,13 +376,12 @@ class PulseLadderTraverser:
         return self.t_max
 
     def upload(self, buckets, uncovered=None) -> PulseLadders:
-        """Host buckets of `build_pulse_ladders` (tail-padded rows) ->
-        ((pidx, cand) per bucket) on the device, with the range of groups
-        in no bucket (`PulseLadders`)."""
+        """Host buckets -> ((pidx, cand) per bucket) on the device, with
+        the range of groups in no bucket (`PulseLadders`)."""
         put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(
             self.device, non_blocking=True)
         return PulseLadders(((put(p), put(c)) for p, c in buckets),
-                            uncovered, tail_padded=True)
+                            uncovered)
 
     def prepare(self, bvh: BVH, origin, direction,
                 t_max: float | None = None):

@@ -59,7 +59,7 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys):
     assert "faces equal" in out and "K2 als chunk" in out
     assert "K2 planted tie, 128 candidates, groups of 128" in out
     assert "K2 interior padding, hand-built bucket" in out
-    assert "K2 tail-padded ladders, promised" in out
+    assert "K2 tail-padded ladders" in out
     assert "[card-vs-cpu] TLS L=2" in out and "[card-vs-cpu] ALS L=2" in out
     assert "[card-vs-cpu] water L=3" in out
 

@@ -312,9 +312,9 @@ def test_simulator_pulse_path_card_matches_cpu(card):
 
 
 def test_pulse_kernel_padding_contract(card):
-    """Whole blocks of padding inside hand-built ladders (a list: no
-    promise) are skipped, not taken for the ladder's end; tail-padded
-    ladders under the promise stop there.  Both equal the plain version."""
+    """Whole blocks of padding inside hand-built ladders are skipped, not
+    taken for the ladder's end, as is the padding at the tail of the
+    traverser's ladders.  Both equal the plain version."""
     for name, wald, o, d, data, R in chip_smoke.k2_padding_cases():
         f = _k2_call_vs_plain(wald, o, d, data, 100.0, R)
         assert int((f == 40).sum()) > 10 and not bool((f == 12).any()), name

@@ -4,14 +4,13 @@ the CPU.
 The pulse-ladder kernel (`kernels/csrc/pulse_traverse.cu`) runs every
 bucket of a call in one launch over the blocks `pulse_schedule` lays out,
 a block taking whole groups of rays, one thread per ray.  It tests no
-padding id (-1), stops a ladder row at its first block of 8 that holds
-padding only when the caller promises tail-padded ladders (and skips such
-a block otherwise), and stages ladders 16 candidates at a time.  The kernel runs
-only on the card (`tests/test_torch_cuda.py` holds it against the plain
-version there); here the schedule is decoded block by block and thread by
-thread as the kernel decodes it, `build_pulse_ladders` is shown to keep the
-real ids of every row as its prefix (what the stop needs), and the
-kernel's walk, written out in Python, is held bit for bit against
+padding id (-1), skips a block of 8 that holds padding only wherever it
+sits in a ladder row, and stages ladders 16 candidates at a time.  The
+kernel runs only on the card (`tests/test_torch_cuda.py` holds it against
+the plain version there); here the schedule is decoded block by block and
+thread by thread as the kernel decodes it, `build_pulse_ladders` is shown
+to keep the real ids of every row as its prefix, and the kernel's walk,
+written out in Python, is held bit for bit against
 `pulse_traverse_plain`, which tests every candidate.
 """
 
@@ -196,13 +195,12 @@ def test_ladders_keep_real_ids_as_a_prefix(case):
     assert (rows[:lo] == 1).all() and (rows[lo:] == 0).all()
 
 
-def _kernel_walk(wald, o, d, ladder, tm, tail_padded=True):
+def _kernel_walk(wald, o, d, ladder, tm):
     """One ladder row's rays (R, 3) as `pulse_traverse_kernel` walks them:
     stages of `pp.STAGE` candidates; per block of 8, no test on a padding
     id, the real candidates' min t_m (tm when none is lower) and the min
-    id at it, merged by strict <; at the first block of padding only, a
-    stop with ``tail_padded`` and a skip without.  Returns (t, face,
-    candidates tested per ray)."""
+    id at it, merged by strict <; a block of padding only is skipped.
+    Returns (t, face, candidates tested per ray)."""
     R, K = o.shape[0], ladder.shape[0]
     t_m = tr.wald_t_m_plain(wald, o[None, :, None], d[None, :, None],
                             ladder[None], tm)[0]                 # (R, K)
@@ -210,15 +208,10 @@ def _kernel_walk(wald, o, d, ladder, tm, tail_padded=True):
     f_best = torch.full((R,), -1, dtype=torch.int32)
     tested = 0
     for s in range(0, K, pp.STAGE):
-        blocks = range(s, min(s + pp.STAGE, K), tr.CAND_BLOCK)
-        done = False
-        for b in blocks:
+        for b in range(s, min(s + pp.STAGE, K), tr.CAND_BLOCK):
             ids = [int(x) for x in ladder[b:b + tr.CAND_BLOCK]]
             if max(ids) < 0:
-                if not tail_padded:
-                    continue
-                done = True
-                break
+                continue
             t_c = tm.expand(R).clone()
             f_c = torch.full((R,), tr.INT_MISS, dtype=torch.int32)
             for m, cid in enumerate(ids):
@@ -232,13 +225,11 @@ def _kernel_walk(wald, o, d, ladder, tm, tail_padded=True):
             better = t_c < t_best
             t_best = torch.where(better, t_c, t_best)
             f_best = torch.where(better, f_c, f_best)
-        if done:
-            break
     return torch.where(f_best < 0, torch.full_like(t_best, BIG), t_best), \
         f_best, tested
 
 
-def _walk_vs_plain(wald, o, d, ladders, R, t_max, tail_padded=True):
+def _walk_vs_plain(wald, o, d, ladders, R, t_max):
     """Every ladder row through `_kernel_walk` and `pulse_traverse_plain`
     (row g holds group g): equal bit for bit.  Returns (t, face, tested)."""
     P = len(ladders)
@@ -250,7 +241,7 @@ def _walk_vs_plain(wald, o, d, ladders, R, t_max, tail_padded=True):
         wald, o, d, [(torch.arange(P, dtype=torch.int32), cand)], t_max, R)
     tm = torch.tensor(t_max, dtype=torch.float32)
     walks = [_kernel_walk(wald, o[g * R:(g + 1) * R], d[g * R:(g + 1) * R],
-                          cand[g], tm, tail_padded) for g in range(P)]
+                          cand[g], tm) for g in range(P)]
     t_k = torch.cat([w[0] for w in walks])
     f_k = torch.cat([w[1] for w in walks])
     assert torch.equal(f_k, f_p)
@@ -301,36 +292,31 @@ def _interior_padding():
 @pytest.mark.parametrize("tail_padded", [False, True])
 def test_staged_walk_interior_padding_both_modes(tail_padded):
     """Ladders with an all-padding block of 8 before real ids (a bucket a
-    caller builds by hand): without the tail-padding promise the kernel's
-    walk skips the block and equals the plain version, which tests every
-    candidate; with it, the walk stops there (exact only for tail-padded
-    rows, which `build_pulse_ladders` makes and `PulseLadderTraverser`
-    promises)."""
+    caller builds by hand) and the same ladders with their padding moved
+    to the tail (as `build_pulse_ladders` makes them): the kernel's walk
+    skips every block of padding, tests each real id once and equals the
+    plain version, which tests every candidate, in both layouts."""
     wald, o, d, ladders = _interior_padding()
-    R = 8
-    if not tail_padded:
-        _, f, tested = _walk_vs_plain(wald, o[:24], d[:24], ladders, R,
-                                      100.0, tail_padded=False)
-        assert tested == [64, 64, 64] and int((f == 40).sum()) > 0
-        return
-    tm = torch.tensor(100.0)
-    t, f, tested = _kernel_walk(wald, o[:R], d[:R], ladders[1], tm)
-    assert tested == 0 and bool((f == -1).all())       # stopped at block 0
-    _, f, tested = _kernel_walk(wald, o[:R], d[:R], ladders[0], tm)
-    assert tested == 8
+    if tail_padded:
+        ladders = [torch.cat([x[x >= 0], x[x < 0]]) for x in ladders]
+        assert all(bool((x[64:] == -1).all()) for x in ladders)
+    _, f, tested = _walk_vs_plain(wald, o[:24], d[:24], ladders, 8, 100.0)
+    assert tested == [64, 64, 64] and int((f == 40).sum()) > 0
 
 
 def test_ladders_carry_the_tail_padding_promise():
-    """A `PulseLadders` promises tail padding only when told to; the
-    traverser's upload (what the Simulator and the bench hand K2) says
-    so; a plain tuple or a hand-built `PulseLadders` does not."""
+    """The traverser's upload (what the Simulator and the bench hand K2) is
+    a `PulseLadders` whose rows hold their real ids first and their padding
+    after; K2 gives it the same faces as the same buckets as a plain
+    tuple, and a hand-built `PulseLadders` names no uncovered groups."""
     scene, o, d, R = _ladder_inputs("fan")
     tt = pp.PulseLadderTraverser(scene, rays_per_pulse=R, device="cpu")
     data = tt.prepare(api.build_scene_bvh(scene), o, d, t_max=500.0)
-    assert isinstance(data, pp.PulseLadders) and data.tail_padded
-    assert not pp.PulseLadders(list(data)).tail_padded
-    assert not getattr(tuple(data), "tail_padded", False)
-    # the CPU path gives the same faces in both modes
+    assert isinstance(data, pp.PulseLadders)
+    assert pp.PulseLadders(list(data)).uncovered is None
+    for _, cand in data:
+        pad = cand < 0
+        assert bool((pad[:, 1:] >= pad[:, :-1]).all())    # no id after -1
     og, dg = torch.from_numpy(o), torch.from_numpy(d)
     f1 = pp.pulse_traverse(tt.wald, og, dg, data, tt.t_max, R)[1]
     f2 = pp.pulse_traverse(tt.wald, og, dg, tuple(data), tt.t_max, R)[1]
