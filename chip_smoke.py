@@ -46,8 +46,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    rays in scan order and the water chunk's level-1 rays, the last two
    timed with CUDA events.
 5. Card vs CPU at a small size (L = 1 and 2): same seed, same rays, for
-   the TLS tile path and the ALS pulse path; and `tests/test_water.py`'s
-   bathymetric scan (L = 3, K1 and K4).
+   the TLS tile path and the ALS pulse path; `tests/test_water.py`'s
+   bathymetric scan (L = 3, K1 and K4); an ANALYTIC scan whose materials
+   take all eight model ids; and a water scene loaded from OBJ files,
+   bathymetric at 532 nm (L = 3, K4 for the bounces).  The card reads
+   back compacted, so clouds are compared after `compact_host`.
 6. The fwd+bwd training step through the port's bench
    (`lidar_brdf_tpu_torch/bench.py`): its pre-flight K3, then the `tls`
    step at full width (131,072 pulses x 10 rays over the ~40k-face city,
@@ -61,6 +64,20 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 7. Card vs CPU gradients at the sizes of phase 5: loss to rtol 1e-5, each
    gradient within atol 1e-4 * max|g| (scatter-add order on the card is not
    fixed, so gradients are not bitwise reproducible).
+9. Scenes from files at full width: the `tls` city written as a scene
+   directory (OBJ/MTL, PNG textures, `.LiDARMaterial` / `.semanticASPRS`
+   sidecars) and a measured-BRDF directory of `.bsdf` files, scanned by
+   `python -m lidar_brdf_tpu_torch.cli simulate` (in process, through
+   `cli.main`) at 1064 and 1065 nm: K1 once per chunk per wavelength, K2
+   and K4 never.  Then the parse, the `.lidar_cache.npz` write and reload
+   (no parse, same arrays), the BVH, the measured tables' build, one
+   `api.simulate` a wavelength (points, positions and intensities equal
+   to the CLI's PLY; the PLY written again has the same bytes; the
+   `stats=` split), the scan read back dense and compacted (bytes and
+   seconds; equal clouds), the device time of `pack_compact` and of the
+   analytic factor at the scan's size, a full-width ANALYTIC scan (as
+   many points, finite non-negative intensities) and the `render-ortho`
+   and `render-overlays` commands.  Runs before phase 8.
 8. Profiles, last so that they disturb no timed phase: K1's device time on
    the `tls` chunk, K2's on the `als` chunk (as the Simulator calls it, and
    with the wrapper's two output fills instead), and K3's and
@@ -83,6 +100,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -1008,21 +1026,50 @@ def phase_forward(name, workload, warm_pulses, per_chunk, **sim_kw):
         rays_per_s=n_rays / wall, launches=launches, **stats)
 
 
-def compare_clouds(what, g, c, bathymetric=False):
-    """Card cloud ``g`` vs CPU cloud ``c``, slot by slot.  On a
+def compare_clouds(what, g, c, bathymetric=False, analytic=False):
+    """Card cloud ``g`` vs CPU cloud ``c``, point by point: the card reads
+    back compacted (the valid slots in slot order), so both are compared
+    after `compact_host`.  On a
     bathymetric scan the bottom returns' intensities are held to rtol 1e-2
     (atol 1e-20): the decay's exponent divides by the sine of the in-water
     angle, which the card's and the CPU's arccos and sine give within a
-    few ulp of an ill-conditioned point for near-vertical rays."""
+    few ulp of an ill-conditioned point for near-vertical rays.  With
+    ``analytic``, the scan angles must agree to 4 ulp of 90; the analytic
+    models take cos() of the angle in degrees (the reference's quirk), so
+    where the two angles differ the intensity's tolerance gains the
+    first-order term 2 |tan(a)| |da| (as `tests/test_torch_analytic.py`
+    holds the port to JAX)."""
+    import numpy as np
     import torch
+    g, c = g.compact_host(), c.compact_host()
+    if g.capacity != c.capacity:
+        fail(f"card vs CPU ({what}): {g.capacity} points against "
+             f"{c.capacity}")
     for k in ("mask", "comp_id", "return_number"):
         if not torch.equal(getattr(g, k), getattr(c, k)):
             fail(f"card vs CPU ({what}): {k} differs")
     if not torch.allclose(g.position, c.position, rtol=0, atol=1e-4):
         fail(f"card vs CPU ({what}): positions differ beyond 1e-4")
+    if analytic:
+        a = c.scan_angle_rank.double()
+        da = (g.scan_angle_rank.double() - a).abs()
+        if float(da.max()) > 4 * float(np.spacing(np.float32(90.0))):
+            fail(f"card vs CPU ({what}): scan angles differ by "
+                 f"{float(da.max()):.3e}")
+        ic, ig = c.intensity.double(), g.intensity.double()
+        err = (ig - ic).abs()
+        tol = ic.abs() * (1e-4 + 2.0 * torch.tan(a).abs() * da)
+        if not bool((err <= tol).all()):
+            rel = (err / ic.abs().clamp(min=1e-30))[da == 0]
+            fail(f"card vs CPU ({what}): {int((err > tol).sum())} "
+                 f"intensities beyond the tolerance; max rel err where "
+                 f"the angles agree "
+                 f"{float(rel.max()) if rel.numel() else 0.0:.3e}, "
+                 f"{int((da > 0).sum())} angles differ")
     bottom = ((c.asprs == 2) & (c.return_number >= 1) if bathymetric
               else torch.zeros_like(c.mask))
-    if not (torch.allclose(g.intensity[~bottom], c.intensity[~bottom],
+    if not analytic and not (
+            torch.allclose(g.intensity[~bottom], c.intensity[~bottom],
                            rtol=1e-4, atol=0)
             and torch.allclose(g.intensity[bottom], c.intensity[bottom],
                                rtol=1e-2, atol=1e-20)):
@@ -1301,8 +1348,154 @@ def water_over_ground():
     return scene, cfg
 
 
+# ---------------------------------------------------------------------------
+# scenes on disk: an OBJ text writer for this script and the tests (the
+# packages have none), the `tls` city and a water scene as OBJ/MTL/PNG
+# directories with sidecars, and a measured-BRDF directory of `.bsdf` files
+# ---------------------------------------------------------------------------
+
+def write_obj(path, groups, mtllib=None):
+    """One `.obj` of ``groups``: (name, usemtl or None, vertices (V, 3),
+    faces (F, 3 or 4) into them, uvs (V, 2) or None), 1-based indices.
+    Coordinates are written with 9 significant digits, so float32 values
+    read back exactly."""
+    import numpy as np
+    lines = [f"mtllib {mtllib}"] if mtllib else []
+    base = 0
+    for name, mtl, verts, faces, uvs in groups:
+        lines.append(f"o {name}")
+        if mtl:
+            lines.append(f"usemtl {mtl}")
+        lines += [f"v {x:.9g} {y:.9g} {z:.9g}"
+                  for x, y, z in np.asarray(verts, np.float32).tolist()]
+        if uvs is not None:
+            lines += [f"vt {u:.9g} {v:.9g}"
+                      for u, v in np.asarray(uvs, np.float32).tolist()]
+        for face in (np.asarray(faces) + base + 1).tolist():
+            lines.append("f " + " ".join(
+                f"{i}/{i}" if uvs is not None else f"{i}" for i in face))
+        base += len(verts)
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+
+
+def _component(scene_np, comp):
+    """A component's vertices (local), faces into them."""
+    import numpy as np
+    faces = scene_np["faces"][scene_np["face_comp"] == comp]
+    used, local = np.unique(faces, return_inverse=True)
+    return scene_np["vertices"][used], local.reshape(faces.shape)
+
+
+def city_scene_dir(scene, root, seed: int = 0):
+    """The `tls` city (`synthetic.city_scene`: ground component 0, one box
+    of 12 faces per building) as a scene directory.  `ground.obj`: the
+    ground as triangles, textured (`map_Kd`); `buildings.obj`: one object
+    per building, each box face a quad, in three kinds named for the
+    material and ASPRS hints (`building_wall_*` STONE / BUILDING,
+    `building_metal_roof_*` IRON / BUILDING, `tower_glass_*`
+    CRYSTAL_GLASS / no hint) under three `.mtl` materials, two of them
+    textured, and sidecars: `buildings.LiDARMaterial` maps "metal" to
+    ALUMINIUM, `buildings.semanticASPRS` "tower" to BUILDING.  Returns the
+    directory."""
+    import numpy as np
+    from lidar_brdf_tpu_torch.io.png import write_png
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    s = scene.numpy()
+    for name in ("asphalt", "brick", "glass"):
+        write_png(os.path.join(root, f"{name}.png"),
+                  rng.random((32, 32, 3)).astype(np.float32))
+    with open(os.path.join(root, "city.mtl"), "w") as fh:
+        fh.write("newmtl asphalt\nKd 0.3 0.3 0.3\nmap_Kd asphalt.png\n"
+                 "newmtl brick\nKd 0.6 0.4 0.3\nKs 0.1 0.1 0.1\nNs 10\n"
+                 "map_Kd brick.png\n"
+                 "newmtl metal\nKd 0.5 0.5 0.55\nKs 0.6 0.6 0.6\nNs 40\n"
+                 "newmtl glass\nKd 0.2 0.3 0.4\nKs 0.9 0.9 0.9\nNs 80\n"
+                 "map_Kd glass.png\n")
+    v, f = _component(s, 0)
+    write_obj(os.path.join(root, "ground.obj"),
+              [("ground_terrain", "asphalt", v, f, v[:, [0, 2]] / 16.0)],
+              mtllib="city.mtl")
+    kinds = (("building_wall_{}", "brick"), ("building_metal_roof_{}",
+                                               "metal"),
+             ("tower_glass_{}", "glass"))
+    groups = []
+    for comp in range(1, int(s["face_comp"].max()) + 1):
+        v, f = _component(s, comp)
+        quads = np.concatenate([f[0::2], f[1::2, 2:]], axis=1)
+        name, mtl = kinds[comp % 3]
+        uv = np.stack([(v[:, 0] + v[:, 2]) / 6.0, v[:, 1] / 6.0], axis=1)
+        groups.append((name.format(comp), mtl, v, quads, uv))
+    write_obj(os.path.join(root, "buildings.obj"), groups,
+              mtllib="city.mtl")
+    with open(os.path.join(root, "buildings.LiDARMaterial"), "w") as fh:
+        fh.write("# keyword -> LiDAR material\nmetal ALUMINIUM\n")
+    with open(os.path.join(root, "buildings.semanticASPRS"), "w") as fh:
+        fh.write("tower BUILDING\n")
+    return root
+
+
+def water_scene_dir(root):
+    """`water_over_ground`'s scene as files: `ground.obj` (ground at y = 0,
+    30 m square, "ground_terrain"), `water.obj` (water at y = 2, "water_
+    surface", so WATER / ASPRS WATER and the water flag) and two boxes in
+    `boxes.obj` that stand out of the water ("building_wall_*").  Returns
+    the directory."""
+    import numpy as np
+    from lidar_brdf_tpu_torch.io import synthetic
+    os.makedirs(root, exist_ok=True)
+    gv, gf = synthetic.ground_plane(half=30.0, y=0.0, cells=2)
+    wv, wf = synthetic.ground_plane(half=30.0, y=2.0)
+    write_obj(os.path.join(root, "ground.obj"),
+              [("ground_terrain", None, gv, gf, None)])
+    write_obj(os.path.join(root, "water.obj"),
+              [("water_surface", None, wv, wf, None)])
+    boxes = [synthetic.box((x, 2.5, 5.0), (2.0, 2.5, 2.0))
+             for x in (-10.0, 10.0)]
+    write_obj(os.path.join(root, "boxes.obj"),
+              [(f"building_wall_{i}", None, v, f, None)
+               for i, (v, f) in enumerate(boxes)])
+    return root
+
+
+def brdf_dir(root):
+    """A measured-BRDF directory: one `synthetic_tensor_file` per
+    measured material that `REFLECTIVITY_MEASURED_MAP` names, under its
+    "_spec" name, each with its own seed.  Returns the directory."""
+    from lidar_brdf_tpu_torch.io.materials import REFLECTIVITY_MEASURED_MAP
+    from lidar_brdf_tpu_torch.io.rgl_bsdf import synthetic_tensor_file
+    os.makedirs(root, exist_ok=True)
+    for i, name in enumerate(sorted(set(REFLECTIVITY_MEASURED_MAP.values()))):
+        synthetic_tensor_file(os.path.join(root, f"{name}_spec.bsdf"),
+                              diffuse=0.2 + 0.04 * i, seed=i)
+    return root
+
+
+def all_models_case(library):
+    """A ground of 16 x 16 cells of 5 m whose cells take eight components
+    in a checker pattern (component i on material i), and ``library`` with
+    material i on analytic model i (i < 8: ideal specular ... Oren-Nayar,
+    and ZOHDI, which gives 0), so that an ANALYTIC scan from 9 m up picks
+    every model id."""
+    import dataclasses
+    import numpy as np
+    from lidar_brdf_tpu_torch.io import synthetic
+    gv, gf = synthetic.ground_plane(half=40.0, y=0.0, cells=16)
+    cell = np.arange(len(gf)) % (16 * 16)
+    comp = ((cell // 16) + 3 * (cell % 16)) % 8
+    scene = synthetic.scene_from_arrays(
+        gv, gf, comp_of_face=comp, num_components=8,
+        comp_material=np.arange(8), comp_asprs=np.full(8, 2))
+    model = library.brdf_model.copy()
+    model[:8] = np.arange(8, dtype=np.int32)
+    return scene, dataclasses.replace(library, brdf_model=model)
+
+
 def phase_card_vs_cpu():
     import numpy as np
+    import torch
+    from lidar_brdf_tpu_torch.io import obj as obj_mod
     from lidar_brdf_tpu_torch import api
     from lidar_brdf_tpu_torch.core.config import (LiDARType, SensorConfig,
                                                   ShadingMode)
@@ -1366,6 +1559,46 @@ def phase_card_vs_cpu():
     if DEVICE == "cuda" and kpk.KERNEL.launches <= before:
         fail("the water card-vs-CPU run launched K4 no time")
     compare_clouds("water L=3", *clouds, bathymetric=True)
+
+    # ANALYTIC shading with every model id in play (tile path, L = 2)
+    scene, lib = all_models_case(MaterialLibrary.default())
+    bvh = api.build_scene_bvh(scene)
+    cfg = SensorConfig(
+        lidar_type=LiDARType.TERRESTRIAL_SPHERICAL,
+        tls_position=(0.0, 9.0, 0.0), tls_fov_horizontal=90.0,
+        tls_fov_vertical=40.0, tls_middle_angle_vertical=-45.0,
+        tls_resolution_horizontal=32, tls_resolution_vertical=16,
+        rays_per_pulse=2, pulse_radius=0.1, max_returns=2,
+        chunk_pulses=512, shading_mode=ShadingMode.ANALYTIC)
+    rays = api.build_rays(cfg, scene, device="cpu")
+    mats = lib.table_at(1064)
+    clouds = [Simulator(scene=scene, bvh=bvh, materials=mats, cfg=cfg,
+                        device=dev).run(rays.to(dev))
+              for dev in (DEVICE, "cpu")]
+    picked = torch.unique(mats.brdf_model[
+        scene.comp_material[clouds[1].comp_id[clouds[1].mask].long()]
+        .long()])
+    if picked.numel() < 8:
+        fail(f"the ANALYTIC card-vs-CPU scan hit model ids "
+             f"{picked.tolist()} only")
+    compare_clouds("ANALYTIC L=2, model ids 0-7", *clouds, analytic=True)
+
+    # a water scene loaded from OBJ files, bathymetric at 532 nm, L = 3
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_water_obj")
+    scene = obj_mod.load_scene_dir(water_scene_dir(root))
+    shutil.rmtree(root)
+    _, cfg = water_over_ground()
+    bvh = api.build_scene_bvh(scene)
+    mats = MaterialLibrary.default().table_at(532)
+    rays = api.build_rays(cfg, scene, device="cpu")
+    before = kpk.KERNEL.launches
+    clouds = [Simulator(scene=scene, bvh=bvh, materials=mats, cfg=cfg,
+                        device=dev).run(rays.to(dev))
+              for dev in (DEVICE, "cpu")]
+    if DEVICE == "cuda" and kpk.KERNEL.launches <= before:
+        fail("the OBJ water card-vs-CPU run launched K4 no time")
+    compare_clouds("OBJ water L=3", *clouds, bathymetric=True)
 
 
 def k3_host_steps(x, reps: int = 10_000) -> dict:
@@ -1715,6 +1948,235 @@ def phase_card_vs_cpu_grads():
             compare_grads(*case, kind)
 
 
+FILES_WAVELENGTHS = (1064, 1065)    # phase 9's sweep: tables re-bound
+
+
+def phase_files(tls):
+    """Phase 9: the `tls` cell's city as a scene on disk, through the
+    port's CLI on the card, to PLY files.  Writes the city as OBJ/MTL/PNG
+    with sidecars (`city_scene_dir`), a measured-BRDF directory of `.bsdf`
+    files (`brdf_dir`) and the `tls` config swept over FILES_WAVELENGTHS;
+    runs `cli.main(["simulate", ...])` with the launch counts set to 0 just
+    before (K1 once per chunk per wavelength, K2 and K4 never); then, in
+    process: the parse, the `.lidar_cache.npz` write and reload of each
+    file (the reload must not parse and must give the same arrays), the
+    BVH, one `api.simulate` per wavelength on the same scene and table
+    (each file's points equal to it: positions and intensities; the PLY
+    written again from it has the same bytes), the scan read back dense
+    and compacted (equal after `compact_host`), a full-width ANALYTIC scan
+    (finite, non-negative intensities, as many points) and the
+    `render-ortho` and `render-overlays` commands.  Returns the numbers."""
+    import numpy as np
+    import torch
+    from lidar_brdf_tpu_torch import api, cli
+    from lidar_brdf_tpu_torch.core.config import ShadingMode
+    from lidar_brdf_tpu_torch.core.types import pack_compact
+    from lidar_brdf_tpu_torch.io import obj as obj_mod
+    from lidar_brdf_tpu_torch.io import rgl_bsdf
+    from lidar_brdf_tpu_torch.physics.brdf import analytic_brdf_factor
+    from lidar_brdf_tpu_torch.io.materials import MaterialLibrary
+    from lidar_brdf_tpu_torch.io.ply import read_ply, write_ply
+    from lidar_brdf_tpu_torch.io.png import read_png
+    from lidar_brdf_tpu_torch.runtime.simulate import Simulator
+    city, _, cfg, _, rays = tls
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_files")
+    shutil.rmtree(root, ignore_errors=True)
+    res = {}
+    t0 = time.perf_counter()
+    sdir = city_scene_dir(city, os.path.join(root, "city"))
+    bdir = brdf_dir(os.path.join(root, "brdf"))
+    cfg = cfg.with_(wavelength_nm=FILES_WAVELENGTHS)
+    cfg_path = os.path.join(root, "tls.json")
+    with open(cfg_path, "w") as fh:
+        fh.write(cfg.to_json())
+    res["write_files_s"] = time.perf_counter() - t0
+    out = os.path.join(root, "cloud.ply")
+    dev = ["--device", DEVICE]
+    libs = traversal_libs()
+    for lib in libs.values():                   # main path starts here
+        lib.launches = 0
+    t0 = time.perf_counter()
+    rc = cli.main(["simulate", "--scene", sdir, "--config", cfg_path,
+                   "--brdf-dir", bdir, "--out", out] + dev)
+    res["cli_s"] = time.perf_counter() - t0
+    launches = {k: lib.launches for k, lib in libs.items()}
+    if rc != 0:
+        fail(f"the CLI simulate exited with {rc}")
+    chunks = -(-rays.num_pulses // cfg.chunk_pulses)
+    want = {"K1": chunks * len(FILES_WAVELENGTHS), "K2": 0, "K4": 0}
+    if DEVICE == "cuda" and launches != want:
+        fail(f"the CLI scan launched {launches}: expected {want}")
+    res["launches"] = launches
+
+    # in process: parse, cache, BVH
+    t0 = time.perf_counter()
+    scene = obj_mod.load_scene_dir(sdir)
+    res["parse_s"] = time.perf_counter() - t0
+    if scene.num_faces != city.num_faces \
+            or scene.num_components != city.num_components:
+        fail(f"the loaded city has {scene.num_faces} faces and "
+             f"{scene.num_components} components, not {city.num_faces} "
+             f"and {city.num_components}")
+    parses = []
+    parse_obj = obj_mod.parse_obj
+    obj_mod.parse_obj = lambda *a, **k: parses.append(a) or parse_obj(*a,
+                                                                      **k)
+    try:
+        res["cache_write_s"] = res["cache_reload_s"] = 0.0
+        for name in ("ground.obj", "buildings.obj"):
+            path = os.path.join(sdir, name)
+            t0 = time.perf_counter()
+            first = obj_mod.load_obj_scene(path)
+            t1 = time.perf_counter()
+            n_parsed = len(parses)
+            again = obj_mod.load_obj_scene(path)
+            t2 = time.perf_counter()
+            res["cache_write_s"] += t1 - t0
+            res["cache_reload_s"] += t2 - t1
+            if len(parses) != n_parsed or not os.path.exists(
+                    path + obj_mod.CACHE_SUFFIX):
+                fail(f"the second load of {name} did not come from its "
+                     f"cache")
+            a, b = first.numpy(), again.numpy()
+            if a.keys() != b.keys() or not all(
+                    np.array_equal(a[k], b[k]) for k in a):
+                fail(f"{name}: the cached scene differs from the parsed one")
+    finally:
+        obj_mod.parse_obj = parse_obj
+    t0 = time.perf_counter()
+    bvh = api.build_scene_bvh(scene)
+    res["bvh_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for name in sorted(os.listdir(bdir)):
+        if name.endswith(".bsdf"):
+            rgl_bsdf.RGLBrdf(os.path.join(bdir, name)).retro_table()
+    res["brdf_build_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    library = MaterialLibrary.default().with_measured(bdir)
+    res["brdf_cache_s"] = time.perf_counter() - t0
+
+    # each wavelength in process against its file
+    rays = api.build_rays(cfg, scene, device=DEVICE)
+    res["scans"] = {}
+    clouds = {}
+    for wl in FILES_WAVELENGTHS:
+        stats = {}
+        t0 = time.perf_counter()
+        cloud = api.simulate(scene, cfg, materials=library.table_at(wl),
+                             bvh=bvh, rays=rays, device=DEVICE, stats=stats)
+        stats["wall_s"] = time.perf_counter() - t0
+        clouds[wl] = cloud.compact_host()
+        base, ext = os.path.splitext(out)
+        path = f"{base}_{wl}{ext}"
+        back = read_ply(path)
+        pos = clouds[wl].position.numpy()
+        if not (len(back["x"]) == clouds[wl].capacity > 0
+                and np.array_equal(np.stack([back["x"], back["y"],
+                                             back["z"]], 1), pos)
+                and np.array_equal(back["intensity"],
+                                   clouds[wl].intensity.numpy())):
+            fail(f"{path}: {len(back['x'])} points, not equal to the "
+                 f"in-process scan's {clouds[wl].capacity}")
+        again = os.path.join(root, f"again_{wl}.ply")
+        t0 = time.perf_counter()
+        write_ply(again, cloud)
+        stats["ply_s"] = time.perf_counter() - t0
+        with open(path, "rb") as fa, open(again, "rb") as fb:
+            if fa.read() != fb.read():
+                fail(f"{path}: the PLY written in process differs")
+        stats["points"] = clouds[wl].capacity
+        res["scans"][wl] = stats
+        log(f"[files] {wl} nm: {stats['points']} points = the CLI's "
+            f"{os.path.basename(path)}; order {stats['order_s']:.3f} s, "
+            f"cull {stats['cull_s']:.3f} s, device {stats['device_s']:.3f} "
+            f"s, readback {stats['readback_s']:.4f} s "
+            f"({stats['readback_bytes']} B), PLY {stats['ply_s']:.3f} s")
+
+    # the same scan read back dense and compacted
+    mats = library.table_at(FILES_WAVELENGTHS[0])
+    res["readback"] = {}
+    got = {}
+    for compact in (False, True):
+        stats = {}
+        cloud = Simulator(
+            scene=scene, bvh=bvh, materials=mats, cfg=cfg, device=DEVICE,
+            compact_readback=compact).run(rays, stats=stats)
+        if not compact:
+            dense = cloud.to(DEVICE)
+        got[compact] = cloud.compact_host()
+        res["readback"]["compact" if compact else "dense"] = dict(
+            bytes=stats["readback_bytes"], s=stats["readback_s"],
+            device_s=stats["device_s"])
+    for f_ in ("position", "normal", "uv", "intensity", "distance",
+               "return_number", "num_returns", "scan_angle_rank",
+               "scan_direction", "gps_time", "comp_id", "semantic", "asprs"):
+        if not torch.equal(getattr(got[False], f_), getattr(got[True], f_)):
+            fail(f"compacted and dense readback differ in {f_}")
+    r = res["readback"]
+    log(f"[files] readback dense {r['dense']['bytes']} B in "
+        f"{r['dense']['s']:.4f} s, compacted {r['compact']['bytes']} B in "
+        f"{r['compact']['s']:.4f} s (device {r['dense']['device_s']:.3f} "
+        f"vs {r['compact']['device_s']:.3f} s); clouds equal")
+
+    # device time of the two element-wise passes at the scan's size: the
+    # pack before a compacted readback, the analytic factor over its slots
+    dm = scene.to(DEVICE), mats.to(DEVICE)
+    mat = dm[0].comp_material[torch.clamp(dense.comp_id, min=0).long()]
+    passes = {
+        "pack_compact": lambda: pack_compact(dense),
+        "analytic_brdf_factor": lambda: analytic_brdf_factor(
+            dm[1], mat, dense.normal, prev_dir=dense.scan_direction,
+            angle_deg=dense.scan_angle_rank, tangent=dense.scan_direction)}
+    res["passes_device_ms"] = {}
+    for name, fn in passes.items():
+        by = device_ms_by_kernel(fn, 10)
+        res["passes_device_ms"][name] = dict(
+            ms=device_ms(by), launches=sum(v["launches"] for v in
+                                           by.values()))
+    log(f"[files] device time at {dense.capacity} slots: "
+        + ", ".join(f"{k} {fmt_ms(v['ms'])} ms ({v['launches']:g} launches)"
+                    for k, v in res["passes_device_ms"].items()))
+
+    # ANALYTIC at full width
+    stats = {}
+    t0 = time.perf_counter()
+    ana = api.simulate(scene, cfg.with_(shading_mode=ShadingMode.ANALYTIC),
+                       materials=mats, bvh=bvh, rays=rays, device=DEVICE,
+                       stats=stats).compact_host()
+    stats["wall_s"] = time.perf_counter() - t0
+    inten = ana.intensity
+    if not (ana.capacity == got[True].capacity
+            and bool(torch.isfinite(inten).all())
+            and bool((inten >= 0).all()) and bool((inten > 0).any())):
+        fail(f"the ANALYTIC scan gave {ana.capacity} points (measured "
+             f"{got[True].capacity}) or intensities not finite and >= 0")
+    stats["points"] = ana.capacity
+    res["analytic"] = stats
+    log(f"[files] ANALYTIC: {ana.capacity} points, intensity "
+        f"{float(inten.min()):.3e}..{float(inten.max()):.3e}, device "
+        f"{stats['device_s']:.3f} s, wall {stats['wall_s']:.3f} s")
+
+    # the render commands on the loaded scene
+    for cmd, extra in (("render-ortho", []),
+                       ("render-overlays", ["--config", cfg_path] + dev)):
+        png = os.path.join(root, f"{cmd}.png")
+        t0 = time.perf_counter()
+        rc = cli.main([cmd, "--scene", sdir, "--out", png] + extra)
+        res[f"{cmd}_s"] = time.perf_counter() - t0
+        if rc != 0 or read_png(png).size == 0:
+            fail(f"{cmd} exited with {rc} or wrote no image")
+    shutil.rmtree(root)
+    log(f"[files] CLI {res['cli_s']:.2f} s (K launches {launches}); parse "
+        f"{res['parse_s']:.2f} s, cache write {res['cache_write_s']:.2f} s, "
+        f"reload {res['cache_reload_s']:.3f} s, BVH {res['bvh_s']:.2f} s, "
+        f"measured tables {res['brdf_build_s']:.2f} s (cache "
+        f"{res['brdf_cache_s']:.3f} s), render-ortho "
+        f"{res['render-ortho_s']:.2f} s, render-overlays "
+        f"{res['render-overlays_s']:.2f} s")
+    return res
+
+
 def main() -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
@@ -1770,8 +2232,10 @@ def main() -> int:
     (k3["launches"], k1["launches_fwd_bwd"], k2["launches_fwd_bwd"],
      training) = phase_training(als)
     phase_card_vs_cpu_grads()
+    files = phase_files(tls)
     phase_profiles(k1_chunk_data, k1, k3, k2_chunk_data, k2)
     log(json.dumps({"card": card, "tls_forward": tls_fwd,
+                    "files": files,
                     "als_forward": als_fwd, "water_forward": water_fwd,
                     "tls_packet_walk_forward": tls_walk,
                     "traverser_choice": choice, "fwd_bwd": training,

@@ -8,6 +8,7 @@ a card the default raises instead of quietly using the CPU.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -78,7 +79,8 @@ def simulate(scene: TriangleScene, cfg: SensorConfig,
              stats: dict | None = None,
              noise_buf: torch.Tensor | None = None) -> PointCloud:
     """One-call simulation: rays -> traversal -> returns -> intensity, at
-    the configured wavelength.  Returns a host PointCloud.  ``stats`` as in
+    the configured wavelength.  Returns a host PointCloud (on the card,
+    compacted: see `Simulator`).  ``stats`` as in
     `Simulator.run`; ``noise_buf`` overrides the sim-noise buffer."""
     dev = resolve_device(device)
     if materials is None:
@@ -125,3 +127,85 @@ def simulate_spectral(scene: TriangleScene, cfg: SensorConfig,
                                     device=dev, noise_buf=noise_buf)
         out[wl] = sims[bathy].run(rays, materials=materials)
     return out
+
+
+def tls_path_from_canvas(points_2d, canvas_size, scene: TriangleScene,
+                         height: float,
+                         douglas_peucker_epsilon: float = 3.0) -> np.ndarray:
+    """User-drawn 2-D canvas path -> world-space TLS scan positions (host
+    numpy; the scene's bounding box is read from its tensors).
+
+    Reference `LiDARSimulation::getTLSPath` (LiDARSimulation.cpp:161-187):
+    redundant-point removal + Douglas-Peucker, then canvas -> scene XZ
+    mapping with constant height.
+    """
+    from .sensors.paths import douglas_peucker, remove_redundant_points
+    lo, hi = (as_numpy(a) for a in scene.aabb())
+    pts = remove_redundant_points(np.asarray(points_2d, np.float32))
+    pts = douglas_peucker(pts, douglas_peucker_epsilon)
+    scene_size = np.array([hi[0] - lo[0], hi[2] - lo[2]])
+    scene_min = np.array([lo[0], lo[2]])
+    world = pts * scene_size / np.asarray(canvas_size, np.float64) + scene_min
+    return np.stack([world[:, 0], np.full(len(world), height),
+                     world[:, 1]], axis=1).astype(np.float32)
+
+
+def loss_curve(cfg: SensorConfig, num_samples: int = 256) -> tuple:
+    """Per-return loss probability as a function of shininess (the GUI's
+    ImPlot preview, `GUI.cpp:33-71,736-760`; host numpy): threshold below
+    ``loss_threshold``, else mult*(s+add)^power clamped to [0,1]."""
+    s = np.linspace(0.0, 1.0, num_samples)
+    loss = np.where(
+        s < cfg.loss_threshold, 0.0,
+        cfg.loss_mult_coefficient
+        * np.power(np.maximum(s + cfg.loss_add_coefficient, 0.0),
+                   cfg.loss_power))
+    return s, np.clip(loss, 0.0, 1.0)
+
+
+def simulate_tls_path(scene: TriangleScene, cfg: SensorConfig,
+                      positions: np.ndarray,
+                      materials: MaterialTable | None = None,
+                      bvh: BVH | None = None, out_dir: str | None = None,
+                      device="cuda") -> list[PointCloud]:
+    """TLS multi-position simulation along a path of scan positions.
+
+    Reference `LiDARSimulation::launchMultipleSimulations`
+    (LiDARSimulation.cpp:211-286): per waypoint, scan with position =
+    waypoint and direction toward the next waypoint; one host cloud per
+    position.  With ``out_dir``, each cloud is written to
+    ``<out_dir>/<i>.ply`` on a background writer thread while the next
+    waypoint simulates — the reference's detached-thread save
+    (`Results/Paths/TLS/<i>.ply`, LiDARPointCloud.cpp:56-61).
+    """
+    dev = resolve_device(device)
+    positions = np.asarray(positions, np.float32)
+    if materials is None:
+        materials = MaterialLibrary.default().table_at(cfg.wavelength_nm[0])
+    bvh = bvh if bvh is not None else build_scene_bvh(scene)
+    writer = None
+    if out_dir is not None:
+        from .io.ply import AsyncPlyWriter
+        os.makedirs(out_dir, exist_ok=True)
+        writer = AsyncPlyWriter()
+    clouds = []
+    try:
+        for i, pos in enumerate(positions):
+            if i + 1 < len(positions):
+                direction = positions[i + 1] - pos
+            else:
+                direction = np.zeros(3, np.float32)
+            pos_cfg = cfg.with_(
+                tls_position=tuple(float(x) for x in pos),
+                tls_direction=tuple(float(x) for x in direction))
+            rays = build_rays(pos_cfg, scene, device=dev)
+            sim = Simulator(scene=scene, bvh=bvh, materials=materials,
+                            cfg=pos_cfg, device=dev)
+            cloud = sim.run(rays)
+            clouds.append(cloud)
+            if writer is not None:
+                writer.submit(os.path.join(out_dir, f"{i}.ply"), cloud)
+    finally:
+        if writer is not None:
+            writer.close()
+    return clouds

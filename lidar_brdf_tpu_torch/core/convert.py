@@ -7,6 +7,10 @@ system: with them both packages compute on identical inputs.  The port
 never imports the JAX package; callers do the `np.asarray`.  The
 inverse is `.numpy()` on any of the port's dataclasses, and on a gradient
 (`tensor.grad.numpy()`).
+
+A `MaterialLibrary` needs no converter: both packages keep it as a host
+dataclass of numpy arrays with the same fields (spectral tables included),
+so ``MaterialLibrary(**vars(jax_library))`` is the port's.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .types import BVH, MaterialTable, RayBundle, TriangleScene
+from .types import BVH, MaterialTable, PointCloud, RayBundle, TriangleScene
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -50,6 +54,12 @@ def materials_from_numpy(arrays: dict, device="cpu") -> MaterialTable:
 
 def rays_from_numpy(arrays: dict, device="cpu") -> RayBundle:
     return _from_dict(RayBundle, arrays, device)
+
+
+def pointcloud_from_numpy(arrays: dict, device="cpu") -> PointCloud:
+    """A JAX `PointCloud` (dense or compacted) as the port's, e.g. to write
+    it with the port's `write_ply`."""
+    return _from_dict(PointCloud, arrays, device)
 
 
 def noise_from_numpy(buffer, device="cpu") -> torch.Tensor:

@@ -1,7 +1,9 @@
 """Core dataclasses of the PyTorch port: plain dataclasses of tensors.
 
 Counterpart of `lidar_brdf_tpu/core/types.py`.  Every field is a separate
-dense tensor (structure of arrays); validity is a mask, never a compaction.
+dense tensor (structure of arrays); validity is a mask.  A cloud is
+compacted only on its way off the device (`pack_compact`) or to a file
+(`PointCloud.compact_host`).
 Host-built structures (scenes, BVHs, material tables) start on the CPU and
 move to the compute device with `.to(device)`.
 """
@@ -167,6 +169,19 @@ class PointCloud(_TensorFields):
     def capacity(self) -> int:
         return self.intensity.shape[0]
 
+    def num_points(self) -> torch.Tensor:
+        return self.mask.sum(dtype=torch.int32)
+
+    def compact_host(self) -> "PointCloud":
+        """Host-side compaction: the valid slots, in slot order, as CPU
+        tensors (mask all True)."""
+        mask = self.mask.detach().cpu()
+        take = lambda a: a.detach().cpu()[mask]
+        return PointCloud(**{f.name: take(getattr(self, f.name))
+                             for f in dataclasses.fields(self)
+                             if f.name != "mask"},
+                          mask=torch.ones(int(mask.sum()), dtype=torch.bool))
+
 
 def concat_pointclouds(clouds: list[PointCloud]) -> PointCloud:
     """Concatenate chunk results along the slot axis (on the clouds'
@@ -181,3 +196,52 @@ def as_numpy(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+# ---------------------------------------------------------------------------
+# Device-side compaction (`lidar_brdf_tpu/core/types.py:240-274`).
+#
+# The reference reads back a compacted collision buffer (atomic compaction in
+# `reduceCollisions-comp.glsl:147`, bulk readback `LiDARSimulation.cpp:
+# 603-614`).  `pack_compact` packs every field of a chunk's cloud into ONE
+# (K, 20) f32 matrix with the valid rows first (a stable partition, in slot
+# order), so the host fetches the count and then one contiguous prefix of
+# `count` rows instead of every dense slot of 14 fields.
+# ---------------------------------------------------------------------------
+
+# column layout of the packed matrix (all exact in f32: the int fields are
+# ids below 2^24)
+COMPACT_COLS = 20
+
+
+def pack_compact(cloud: PointCloud) -> tuple[torch.Tensor, torch.Tensor]:
+    """(matrix (K, 20) f32 with the valid rows first, count i32), on the
+    cloud's device; no host sync."""
+    order = torch.argsort((~cloud.mask).to(torch.uint8), stable=True)
+    f = lambda a: a.to(torch.float32)[:, None]
+    cols = torch.cat([
+        cloud.position, cloud.normal, cloud.uv,
+        f(cloud.intensity), f(cloud.distance),
+        f(cloud.return_number), f(cloud.num_returns),
+        f(cloud.scan_angle_rank), cloud.scan_direction,
+        f(cloud.gps_time), f(cloud.comp_id),
+        f(cloud.semantic), f(cloud.asprs),
+    ], dim=1)
+    return cols[order], cloud.num_points()
+
+
+def unpack_compact(rows) -> PointCloud:
+    """Inverse of `pack_compact` for the fetched prefix (a tensor or an
+    array of rows); a PointCloud on the rows' device, mask all True."""
+    rows = torch.as_tensor(rows)
+    i32 = lambda c: rows[:, c].to(torch.int32)
+    return PointCloud(
+        position=rows[:, 0:3], normal=rows[:, 3:6], uv=rows[:, 6:8],
+        intensity=rows[:, 8], distance=rows[:, 9],
+        return_number=i32(10), num_returns=i32(11),
+        scan_angle_rank=rows[:, 12], scan_direction=rows[:, 13:16],
+        gps_time=rows[:, 16], comp_id=i32(17),
+        semantic=i32(18), asprs=i32(19),
+        mask=torch.ones(rows.shape[0], dtype=torch.bool,
+                        device=rows.device),
+    )

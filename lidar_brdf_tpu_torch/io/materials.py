@@ -15,7 +15,8 @@ table comes back as CPU tensors): equivalent of `MaterialDatabase` (MaterialData
   the reference repo either (`BRDFDatabase.cpp:7`); like the reference falls
   back to a binary cache, we fall back to *synthetic* tables generated from
   the analytic models so the measured-table code path is fully exercised.
-  (Loading real RGL/EPFL tables is not ported yet.)
+  Real tables can be supplied via `with_measured` (a folder of RGL
+  `*.bsdf` files, `io/rgl_bsdf.py`) or `load_brdf_tables_npz`.
 
 Wavelength handling mirrors the reference: n(lambda) interpolated from the
 spectrum; tables sliced at the nearest sampled wavelength
@@ -24,6 +25,7 @@ spectrum; tables sliced at the nearest sampled wavelength
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from dataclasses import dataclass
 
@@ -62,6 +64,36 @@ ANALYTIC_MODEL = {
     "PLASTIC": BRDFModel.COOK_TORRANCE, "SILVER": BRDFModel.COOK_TORRANCE,
     "STONE": BRDFModel.MINNAERT, "WATER": BRDFModel.IDEAL_DIFFUSE,
     "WOOD": BRDFModel.WARD_ANISOTROPIC,
+}
+
+# Default measured-BRDF pairing: LiDAR material -> RGL/EPFL measured
+# material, the reference's `Assets/LiDAR/Reflectivity/Reflectivity.txt`
+# mapping applied by `MaterialDatabase::loadReflectivityMap`
+# (MaterialDatabase.cpp:69-99).  The reference appends "_spec" at lookup
+# (`_brdfDatabase.lookUpMaterial(materialName + "_spec")`); `with_measured`
+# tries the suffixed name first, then the bare one.
+REFLECTIVITY_MEASURED_MAP: dict[str, str] = {
+    "AIR": "colodur_azure_4e",
+    "ALUMINIUM": "aniso_brushed_aluminium_1",
+    "COPPER": "aniso_metallic_paper_copper",
+    "CRYSTAL_GLASS": "acrylic_felt_white",
+    "DIAMOND": "vch_ultra_pink",
+    "FABRIC": "aniso_morpho_melenaus",
+    "GEMS": "vch_ultra_pink",
+    "GOLD": "vch_golden_yellow",
+    "IRON": "weta_brushed_steel_satin_pink",
+    "LEAF": "leaf_maple",
+    "MATTE": "colodur_napoli_4f",
+    "PAINT": "acrylic_felt_white",
+    "PLASTIC": "aniso_green_pvc",
+    "SILVER": "cc_ibiza_sunset",
+    "STONE": "cm_white",
+    "WATER": "irid_flake_paint1",
+    "DARK_STONE": "colodur_napoli_4f",
+    "WOOD": "cardboard",
+    "DARK_WOOD": "leaf_maple",
+    "DARK_IRON": "chm_light_blue",
+    "DARK_PLASTIC": "ilm_aniso_darth_vader_pants",
 }
 
 # Bundled full-resolution refractive-index dataset (public optical-constant
@@ -200,6 +232,8 @@ class MaterialLibrary:
     brdf_model: np.ndarray                # (M,) int32
     reflectivity_f0: np.ndarray           # (M, 3)
     tables: np.ndarray                    # (M, 360, 91) float32
+    table_wavelengths: np.ndarray | None = None   # (W,) when spectral tables
+    spectral_tables: np.ndarray | None = None     # (W, M, 360, 91)
 
     @staticmethod
     def default(refractive_index_dir: str | None = None) -> "MaterialLibrary":
@@ -226,16 +260,72 @@ class MaterialLibrary:
             tables=np.stack([synthetic_brdf_table(n) for n in MATERIAL_NAMES]),
         )
 
+    def with_measured(self, folder: str,
+                      reflectivity_map: dict[str, str] | None = None
+                      ) -> "MaterialLibrary":
+        """Replace synthetic tables with real RGL/EPFL measured BRDFs.
+
+        ``folder`` holds `*.bsdf` tensor files (or a prebuilt
+        `database.npz` cache); ``reflectivity_map`` maps our material names
+        to measured-material names and defaults to the reference's
+        `Reflectivity.txt` pairing (REFLECTIVITY_MEASURED_MAP, e.g.
+        LEAF -> leaf_maple, `MaterialDatabase.cpp:69-99`).  Like the
+        reference's `lookUpMaterial(name + "_spec")`, the "_spec"-suffixed
+        database entry is preferred.  Unmapped materials keep their
+        synthetic tables.
+        """
+        from .rgl_bsdf import BRDFDatabase
+        db = BRDFDatabase(folder)
+        if reflectivity_map is None:
+            reflectivity_map = REFLECTIVITY_MEASURED_MAP
+        W = len(db.wavelengths)
+        spectral = np.empty((W, len(self.names), 360, 91), np.float32)
+        spectral[:] = self.tables[None]
+        for i, name in enumerate(self.names):
+            measured = reflectivity_map.get(name, name)
+            for candidate in (measured + "_spec", measured):
+                if candidate in db.names:
+                    spectral[:, i] = db.tables[db.material_id(candidate)]
+                    break
+        return dataclasses.replace(
+            self, table_wavelengths=np.asarray(db.wavelengths),
+            spectral_tables=spectral)
+
     def table_at(self, wavelength_nm: float) -> MaterialTable:
-        """Materialize the table for one wavelength (n(lambda)
-        interpolation), as CPU tensors."""
+        """Materialize the table for one wavelength, as CPU tensors:
+        n(lambda) interpolation + nearest-wavelength table slice."""
         n = np.array([refractive_index_at(s, wavelength_nm)
                       for s in self.spectra], np.float32)
+        tables = self.tables
+        if self.spectral_tables is not None:
+            idx = int(np.argmin(np.abs(self.table_wavelengths
+                                       - wavelength_nm)))
+            tables = self.spectral_tables[idx]
         t = lambda a: torch.from_numpy(np.array(a))
         return MaterialTable(
             refractive_index=t(n),
             roughness=t(self.roughness),
-            brdf_table=t(self.tables),
+            brdf_table=t(tables),
             brdf_model=t(self.brdf_model),
             reflectivity_f0=t(self.reflectivity_f0),
         )
+
+
+def load_brdf_tables_npz(path: str) -> tuple[np.ndarray, np.ndarray]:
+    """Load real measured tables from an .npz with arrays
+    ``wavelengths`` (W,) and ``tables`` (W, M, 360, 91) — our binary-cache
+    equivalent of the reference's `database.bin`."""
+    data = np.load(path)
+    return data["wavelengths"], data["tables"]
+
+
+# Keyword -> material mapping used by sidecar files
+# (`CADModel::readClassFile` longest-substring matching, cpp:466-540).
+def match_keyword(name: str, keyword_map: dict[str, str]) -> str | None:
+    """Longest-substring match of mesh/component name against keywords."""
+    best, best_len = None, 0
+    lname = name.lower()
+    for keyword, value in keyword_map.items():
+        if keyword.lower() in lname and len(keyword) > best_len:
+            best, best_len = value, len(keyword)
+    return best

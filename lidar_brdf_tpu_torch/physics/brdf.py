@@ -10,7 +10,10 @@ the neighbourhood reads through custom VJPs (`_bilinear_windows`,
 scatter-adds each element cotangent into the table.  Here the reads are
 plain indexing, and autograd's index backward (an accumulating
 `index_put_`) scatters the same cotangents into the same elements.
-The analytic BRDF models are not ported yet.
+
+The analytic models of `reflectIrradiance-comp.glsl` (`analytic_brdf_factor`)
+are plain element-wise PyTorch, as the JAX package computes them outside any
+Pallas kernel.
 """
 
 from __future__ import annotations
@@ -20,7 +23,8 @@ import torch
 
 from ..core.config import BRDFInterpolation
 from ..core.types import MaterialTable
-from ..utils.safemath import abs_, clip, dot3, safe_arctan2
+from ..utils.safemath import (abs_, clip, cross3, dot3, maximum, minimum,
+                              safe_arccos, safe_arctan2)
 
 PHI_BUCKETS = 360
 THETA_BUCKETS = 91
@@ -136,3 +140,156 @@ def measured_brdf_factor(materials: MaterialTable, mat_id, L, N,
         val = lookup_hermite(tables, mat_id, x, y,
                              hermite_matrix(hermite_t).tolist())
     return clip(val, 0.0, 1.0)
+
+
+# ---------------------------------------------------------------------------
+# Analytic BRDF library (`reflectIrradiance-comp.glsl`), as in
+# `lidar_brdf_tpu/physics/brdf.py:260-406`.  Shared conventions:
+#   normal        N  = hit normal
+#   prev_dir      I  = incoming ray direction (unit, pointing at surface)
+#   reflect_dir   V  = normalize(-I)  (back toward sensor; retro-geometry)
+#   angle         a  = collision scan angle in *degrees mapped to [0,90]*;
+#                      the kernel calls cos(angle) on that value, quirky but
+#                      reproduced for parity via the caller-provided `cos_a`.
+# Every model is evaluated on every slot and one is picked per material, as
+# the JAX package does, so both see the same values (and the same 0 * inf
+# in a backward through a model that is not picked).
+# ---------------------------------------------------------------------------
+
+BLINN_PHONG_ROUGHNESS_MULTIPLIER = 100.0
+MINNAERT_K = 1.5
+WARD_ALPHA = (0.15, 0.75)
+EPS = 1e-8
+_PI = float(PI)
+
+
+def _norm(v):
+    """`jnp.linalg.norm(v, axis=-1, keepdims=True)`."""
+    return torch.sqrt(dot3(v, v))[..., None]
+
+
+def _half_vector(v, l):
+    h = v + l
+    return h / maximum(_norm(h), EPS)
+
+
+def _nonzero(x):
+    """x where |x| >= EPS, else EPS (the kernel's guarded divisors)."""
+    return torch.where(torch.abs(x) < EPS, x.new_full((), EPS), x)
+
+
+def ideal_specular(kd, ks, N, I, V, rough, f0, cos_a, tangent):
+    # `idealSpecular`: note the kernel reflects (normal, prev_dir) in that
+    # argument order, i.e. reflect(N, I) = N - 2*dot(I,N)*I.
+    perfect = N - 2.0 * dot3(I, N)[..., None] * I
+    perfect = perfect / maximum(_norm(perfect), EPS)
+    d = torch.abs(dot3(perfect, V))
+    return torch.where(d < EPS, ks, torch.zeros_like(ks))
+
+
+def ideal_diffuse(kd, ks, N, I, V, rough, f0, cos_a, tangent):
+    return kd * cos_a
+
+
+def minnaert(kd, ks, N, I, V, rough, f0, cos_a, tangent):
+    d = dot3(N, V)
+    return kd * torch.pow(maximum(cos_a * d, EPS), MINNAERT_K - 1.0)
+
+
+def blinn_phong(kd, ks, N, I, V, rough, f0, cos_a, tangent):
+    h = _half_vector(V, -I)
+    return (kd * cos_a
+            + ks * torch.pow(maximum(dot3(N, h), EPS),
+                             rough * BLINN_PHONG_ROUGHNESS_MULTIPLIER))
+
+
+def cook_torrance(kd, ks, N, I, V, rough, f0, cos_a, tangent):
+    """`cookTorrance` (:96-112): Beckmann-style NDF, min-Smith geometry with
+    roughness flip, Schlick Fresnel on max(F0) channel."""
+    h = _half_vector(V, -I)
+    dot_nh = dot3(h, N)
+    nd_rough = maximum(rough, 1e-3)
+    # normal distribution (uses material roughness)
+    nh2 = maximum(dot_nh * dot_nh, 1e-6)
+    r2 = nd_rough * nd_rough
+    normal_dist = (1.0 / (r2 * nh2 * nh2)) * torch.exp((nh2 - 1.0)
+                                                       / (r2 * nh2))
+    # geometry term (uses 1 - roughness, per the kernel)
+    dot_nl = dot3(N, -I)
+    dot_nv = dot3(N, V)
+    dot_hv = dot3(h, V)
+    g1 = (2.0 * dot_nh * dot_nv) / _nonzero(dot_hv)
+    g2 = (2.0 * dot_nh * dot_nl) / _nonzero(dot_hv)
+    geom = minimum(torch.minimum(g1, g2), 1.0)
+    # fresnel (jnp.max shares the gradient among equal channels, as amax)
+    f = f0 + (1.0 - f0) * torch.pow(clip(1.0 - dot_nh, 0.0, 1.0),
+                                    5.0)[..., None]
+    fres = torch.amax(f, dim=-1)
+    denom = _PI * _nonzero(cos_a) * _nonzero(dot_nv)
+    return (kd * cos_a + ks / _PI
+            + ks * (fres * geom * normal_dist) / denom)
+
+
+def ward_anisotropic(kd, ks, N, I, V, rough, f0, cos_a, tangent):
+    h = _half_vector(V, -I)
+    binormal = cross3(tangent, N)
+    binormal = binormal / maximum(_norm(binormal), EPS)
+    dot_ln = clip(dot3(-I, N), 0.0, 1.0)
+    dot_nv = clip(dot3(N, V), 0.0, 1.0)
+    dot_hx = dot3(h, tangent)
+    dot_hy = dot3(h, binormal)
+    dot_hn = dot3(h, N)
+    ax, ay = WARD_ALPHA
+    a_term = (dot_hx / ax) ** 2 + (dot_hy / ay) ** 2
+    exp_factor = -2.0 * a_term / maximum(1.0 + dot_hn, EPS)
+    spec = (1.0 / (4.0 * _PI * ax * ay
+                   * torch.sqrt(maximum(dot_ln * dot_nv, 0.1))))
+    return kd * cos_a + ks * spec * torch.exp(exp_factor)
+
+
+def oren_nayar(kd, ks, N, I, V, rough, f0, cos_a, tangent):
+    dot_ln = clip(dot3(-I, N), 0.0, 1.0)
+    dot_nv = clip(dot3(N, V), 0.0, 1.0)
+    beta = safe_arccos(dot_ln)
+    alpha = safe_arccos(dot_nv)
+    r2 = rough * rough
+    A = 1.0 - 0.5 * (r2 / (r2 + 0.33))
+    B = 0.45 * (r2 / (r2 + 0.09))
+    return kd * (A + B * maximum(dot_nv - dot_ln, 0.0)
+                 * torch.sin(torch.maximum(alpha, beta))
+                 * torch.cos(torch.minimum(alpha, beta)))
+
+
+_MODELS = [ideal_specular, ideal_diffuse, minnaert, blinn_phong,
+           cook_torrance, ward_anisotropic, oren_nayar]
+
+
+def analytic_brdf_factor(materials: MaterialTable, mat_id, N, prev_dir,
+                         angle_deg, tangent, kd=1.0, ks=1.0):
+    """Vectorized `reflectIrradiance`: evaluate all models, select by the
+    per-material model id, clamp to [0, 1].
+
+    ``angle_deg`` is the collision scan angle in the reference's [0, 90]
+    convention; the kernel takes cos() of it directly (radians-of-degrees
+    quirk preserved).  ZOHDI has no kernel implementation (switch falls
+    through to 0), reproduced here by mapping it to zero.
+    """
+    I = prev_dir  # noqa: E741  (match GLSL naming)
+    V = -I / maximum(_norm(I), EPS)
+    mat_id = mat_id.long()
+    rough = materials.roughness[mat_id]
+    f0 = materials.reflectivity_f0[mat_id]
+    model = materials.brdf_model[mat_id]
+    cos_a = torch.cos(angle_deg)
+    kd = torch.broadcast_to(torch.as_tensor(kd, dtype=torch.float32,
+                                            device=cos_a.device), cos_a.shape)
+    ks = torch.broadcast_to(torch.as_tensor(ks, dtype=torch.float32,
+                                            device=cos_a.device), cos_a.shape)
+    vals = torch.stack([fn(kd, ks, N, I, V, rough, f0, cos_a, tangent)
+                        for fn in _MODELS], dim=-1)
+    n = len(_MODELS)
+    sel = torch.clamp(model, 0, n)          # ZOHDI (7) -> out of range
+    picked = torch.gather(vals, -1, torch.clamp(sel, max=n - 1)
+                          .long()[..., None])[..., 0]
+    picked = torch.where(sel >= n, torch.zeros_like(cos_a), picked)
+    return clip(picked, 0.0, 1.0)

@@ -1,9 +1,8 @@
 """Reflectance + radar equation over recorded returns (counterpart of
 `lidar_brdf_tpu/physics/shading.py`; `computeColor-comp.glsl:84-100`).
 
-MEASURED (table lookup) and LAMBERTIAN shading are ported, with the
-bathymetric intensity branch; ANALYTIC raises `NotImplementedError` until it
-is.
+Measured-table, analytic (`reflectIrradiance`) or Lambertian reflectance,
+then the radar equation, with the bathymetric intensity branch.
 """
 
 from __future__ import annotations
@@ -13,7 +12,7 @@ import torch
 from ..core.config import SensorConfig, ShadingMode
 from ..core.types import MaterialTable, TriangleScene
 from ..utils.safemath import abs_, dot3, safe_unit
-from .brdf import measured_brdf_factor
+from .brdf import analytic_brdf_factor, measured_brdf_factor
 from .intensity import bathymetric_intensity, radar_intensity
 from .returns import SimScalars
 from .types import ReturnRecord
@@ -42,10 +41,14 @@ def shade_records(scene: TriangleScene, materials: MaterialTable,
         brdf = measured_brdf_factor(materials, mat, L, N,
                                     hermite_t=cfg.hermite_t,
                                     mode=cfg.brdf_interpolation)
-    elif cfg.shading_mode == ShadingMode.LAMBERTIAN:
+    elif cfg.shading_mode == ShadingMode.ANALYTIC:
+        # the reference passes the ray direction as the tangent too
+        direction = fl(records.direction)
+        brdf = analytic_brdf_factor(materials, mat, N, prev_dir=direction,
+                                    angle_deg=fl(records.angle),
+                                    tangent=direction)
+    else:  # LAMBERTIAN
         brdf = abs_(dot3(L, N))
-    else:
-        raise NotImplementedError("analytic BRDF shading is not ported yet")
 
     ray_power = scalars.peak_power / float(num_rays_pulse)
     intensity = radar_intensity(

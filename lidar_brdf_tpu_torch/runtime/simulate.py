@@ -2,9 +2,10 @@
 
 `simulate_chunk` maps one chunk of pulses to a dense PointCloud on the
 compute device; `Simulator.run` streams power-of-two chunks, culls chunk
-i+1 on a worker thread while chunk i runs on the device, and concatenates
-the clouds on the host (the reference's `arePendingRays` batching,
-RayBuilder.cpp:248-262).
+i+1 on a worker thread while chunk i runs on the device, reads each chunk
+back (compacted on the card: the count, then the valid rows) and
+concatenates the clouds on the host (the reference's `arePendingRays`
+batching, RayBuilder.cpp:248-262).
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ import torch
 from ..core.config import SensorConfig
 from ..core.types import (BVH, MaterialTable, PointCloud, RayBundle,
                           SURFACE_WATER, TriangleScene, as_numpy,
-                          concat_pointclouds, resolve_device)
+                          concat_pointclouds, pack_compact, resolve_device,
+                          unpack_compact)
 from ..geom.packet import make_packet_traverser
 from ..kernels.pulse import (PulseLadderTraverser, build_pulse_ladders,
                              permute_pulse_ladders, renumber_pulse_ladders,
@@ -186,6 +188,13 @@ class Simulator:
     packed for it once, at its first use.  ``reorder`` (None = auto: on the
     culled tile path) BSP-orders the pulses; ``noise_buf`` overrides the
     sim-noise buffer (tests pass the JAX one).
+
+    ``compact_readback`` (None = auto: on for ``cuda``, as the JAX package
+    turns it on for its accelerator) packs each chunk's valid points on the
+    device (`pack_compact`) and reads back the count, then only those rows;
+    the cloud then holds the valid points of each chunk in slot order, mask
+    all True, as ``dense.compact_host()`` would.  False reads every dense
+    slot back.
     """
 
     scene: TriangleScene
@@ -198,10 +207,14 @@ class Simulator:
     pulse_group: int | None = None    # pulses per shared ladder (None = 1)
     use_culled: bool | None = None    # False: the packet walk for every chunk
     reorder: bool | None = None       # None = auto (the culled tile path)
+    compact_readback: bool | None = None  # None = auto (on for cuda)
 
     def __post_init__(self):
         from ..api import attach_face_neighbors
         self.device = resolve_device(self.device)
+        self.compact_readback = bool(
+            self.device.type == "cuda" if self.compact_readback is None
+            else self.compact_readback)
         scene = attach_face_neighbors(self.scene)
         self.scene_has_water = bool(
             (as_numpy(scene.comp_surface) & SURFACE_WATER).any())
@@ -319,7 +332,8 @@ class Simulator:
         ``reorder``); returns a host (CPU) PointCloud.  ``stats``, when given,
         accumulates seconds of host gather and BSP reorder (``order_s``),
         host cull (``cull_s``), device work (``device_s``, host clock to a
-        synchronize) and readback (``readback_s``)."""
+        synchronize; with ``compact_readback`` the packing too), readback
+        (``readback_s``) and the bytes read back (``readback_bytes``)."""
         if materials is not None:
             materials = materials.to(self.device)
         t0 = time.perf_counter()
@@ -336,7 +350,7 @@ class Simulator:
             chunk = max(chunk, self.pulse_group)
         spans = [(lo, min(lo + chunk, P)) for lo in range(0, P, chunk)]
         timing = dict(order_s=order_s, cull_s=0.0, device_s=0.0,
-                      readback_s=0.0)
+                      readback_s=0.0, readback_bytes=0)
         clouds = []
         sync = (torch.cuda.synchronize if self.device.type == "cuda"
                 else (lambda: None))
@@ -349,12 +363,22 @@ class Simulator:
                     fut = pool.submit(self._prep, host, *spans[k + 1], chunk)
                 t0 = time.perf_counter()
                 cloud = self.run_chunk(sl, lo * R, data, materials)
+                if self.compact_readback:
+                    rows, count = pack_compact(cloud)
                 sync()
                 t1 = time.perf_counter()
-                clouds.append(cloud.to("cpu"))
+                if self.compact_readback:
+                    n = int(count)           # the count first, then rows
+                    cloud = unpack_compact(rows[:n].cpu())
+                    nbytes = count.element_size() + n * rows.shape[1] * 4
+                else:
+                    cloud = cloud.to("cpu")
+                    nbytes = sum(v.nbytes for v in vars(cloud).values())
+                clouds.append(cloud)
                 timing["device_s"] += t1 - t0
                 timing["readback_s"] += time.perf_counter() - t1
+                timing["readback_bytes"] += nbytes
         if stats is not None:
             for key, val in timing.items():
-                stats[key] = stats.get(key, 0.0) + val
+                stats[key] = stats.get(key, 0) + val
         return concat_pointclouds(clouds)

@@ -40,6 +40,11 @@ def maximum(x, lo: float):
     return torch.maximum(x, x.new_full((), lo))
 
 
+def minimum(x, hi: float):
+    """`jnp.minimum(x, hi)`: half the gradient where x == hi."""
+    return torch.minimum(x, x.new_full((), hi))
+
+
 def clip(x, lo: float, hi: float):
     """`jnp.clip(x, lo, hi)`: half the gradient where x sits on a bound."""
     return torch.minimum(torch.maximum(x, x.new_full((), lo)),

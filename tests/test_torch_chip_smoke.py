@@ -6,6 +6,7 @@ shapes and bookkeeping without a card.  The script itself refuses to run
 without one.
 """
 
+import os
 import subprocess
 import sys
 
@@ -62,6 +63,33 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys):
     assert "K2 tail-padded ladders" in out
     assert "[card-vs-cpu] TLS L=2" in out and "[card-vs-cpu] ALS L=2" in out
     assert "[card-vs-cpu] water L=3" in out
+    assert "[card-vs-cpu] ANALYTIC L=2, model ids 0-7" in out
+    assert "[card-vs-cpu] OBJ water L=3" in out
+
+
+def test_chip_smoke_files_phase_on_cpu(monkeypatch, capsys):
+    """Phase 9 at a small size: the city written as OBJ/MTL/PNG with
+    sidecars and `.bsdf` tables, the CLI's two-wavelength scan, the
+    in-process scans against its files, the cache, dense vs compacted
+    readback, ANALYTIC and both render commands."""
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "TLS_PULSES", 4096)
+    monkeypatch.setattr(chip_smoke, "TLS_TRIS", 2000)
+    tls = chip_smoke.tls_workload("cpu")
+    res = chip_smoke.phase_files(tls)
+    assert set(res["scans"]) == set(chip_smoke.FILES_WAVELENGTHS)
+    for stats in res["scans"].values():
+        assert stats["points"] > 1000
+        assert {"order_s", "cull_s", "device_s", "readback_s",
+                "readback_bytes", "ply_s"} <= set(stats)
+    rb = res["readback"]
+    assert 0 < rb["compact"]["bytes"] < rb["dense"]["bytes"]
+    assert res["analytic"]["points"] == res["scans"][1064]["points"]
+    assert res["cache_reload_s"] > 0 and res["parse_s"] > 0
+    out = capsys.readouterr().out
+    assert "[files] readback dense" in out and "clouds equal" in out
+    assert not os.path.exists(os.path.join(
+        os.path.dirname(chip_smoke.__file__), "build", "chip_smoke_files"))
 
 
 def test_chip_smoke_water_and_packet_walk_on_cpu(monkeypatch, capsys):

@@ -1,7 +1,9 @@
 """The CUDA kernels (K1 tiles, K2 pulse ladders, K3 the bench's pre-flight,
 K4 the packet walk) on the card vs their plain PyTorch versions, the
-water and packet-walk scans and the fwd+bwd step's gradients on the card
-vs the CPU.
+water and packet-walk scans, the compacted readback, the CLI on an OBJ
+directory and the fwd+bwd step's gradients on the card vs the CPU (the
+card's clouds are compacted, so clouds are compared after
+`compact_host`).
 
 Every test here needs an NVIDIA Hopper card and nvcc; without one each
 skips.  The file imports nothing of JAX, so on a card host without JAX it
@@ -159,11 +161,9 @@ def test_simulator_card_matches_cpu(card):
     assert tr.KERNEL.launches > before
     c = Simulator(scene=scene, bvh=bvh, materials=mats, cfg=cfg,
                   device="cpu").run(rays)
-    for k in ("mask", "comp_id", "return_number"):
-        assert torch.equal(getattr(g, k), getattr(c, k)), k
+    # the card reads back compacted: compared after `compact_host`
+    chip_smoke.compare_clouds("tls L=2", g, c)
     assert int((c.return_number[c.mask] == 1).sum()) > 5
-    torch.testing.assert_close(g.position, c.position, rtol=0, atol=1e-4)
-    torch.testing.assert_close(g.intensity, c.intensity, rtol=1e-4, atol=0)
 
 
 def _k2_vs_plain(scene, o, d, R, group=1):
@@ -304,11 +304,8 @@ def test_simulator_pulse_path_card_matches_cpu(card):
     assert pp.KERNEL.launches > before
     c = Simulator(scene=scene, bvh=bvh, materials=mats, cfg=cfg,
                   device="cpu", use_pulse=True).run(rays)
-    for k in ("mask", "comp_id", "return_number"):
-        assert torch.equal(getattr(g, k), getattr(c, k)), k
+    chip_smoke.compare_clouds("als L=2", g, c)
     assert int(c.mask.sum()) > 1500
-    torch.testing.assert_close(g.position, c.position, rtol=0, atol=1e-4)
-    torch.testing.assert_close(g.intensity, c.intensity, rtol=1e-4, atol=0)
 
 
 def test_pulse_kernel_padding_contract(card):
@@ -390,6 +387,76 @@ def test_packet_walk_simulator_card_matches_cpu(card):
     c = Simulator(scene=scene, bvh=bvh, materials=mats, cfg=cfg,
                   device="cpu", use_culled=False).run(rays)
     chip_smoke.compare_clouds("tls packet walk", g, c)
+
+
+def test_compact_readback_card_matches_dense(card):
+    """On the card the Simulator compacts by default; the compacted cloud
+    is the dense readback's `compact_host()`, field for field, in fewer
+    bytes."""
+    scene = synthetic.city_scene(np.random.default_rng(0), num_buildings=64)
+    bvh = api.build_scene_bvh(scene)
+    mats = api.MaterialLibrary.default().table_at(1064)
+    cfg = SensorConfig(tls_position=(0.0, 10.0, 0.0),
+                       tls_fov_horizontal=360.0, tls_fov_vertical=100.0,
+                       tls_middle_angle_vertical=-35.0,
+                       tls_resolution_horizontal=512,
+                       tls_resolution_vertical=32, rays_per_pulse=4,
+                       max_returns=2, chunk_pulses=4096)
+    rays = api.build_rays(cfg, scene, device="cuda")
+    out = {}
+    for compact in (None, False, True):
+        stats = {}
+        sim = Simulator(scene=scene, bvh=bvh, materials=mats, cfg=cfg,
+                        device="cuda", compact_readback=compact)
+        out[compact] = (sim.run(rays, stats=stats), stats)
+        assert sim.compact_readback is (compact is not False)
+    ref = out[False][0].compact_host()
+    for key in (None, True):
+        cloud = out[key][0]
+        assert cloud.capacity == ref.capacity > 1000
+        for f in ("position", "normal", "uv", "intensity", "distance",
+                  "return_number", "num_returns", "scan_angle_rank",
+                  "scan_direction", "gps_time", "comp_id", "semantic",
+                  "asprs", "mask"):
+            assert torch.equal(getattr(cloud, f), getattr(ref, f)), f
+    assert 0 < out[True][1]["readback_bytes"] < out[False][1][
+        "readback_bytes"]
+
+
+def test_cli_card_matches_cpu(card, tmp_path):
+    """`python -m lidar_brdf_tpu_torch.cli simulate` on an OBJ directory
+    with measured tables, on the card and with ``--device cpu``: the same
+    points (positions atol 1e-4, intensity rtol 1e-4), K1 launched."""
+    from lidar_brdf_tpu_torch import cli
+    from lidar_brdf_tpu_torch.io.ply import read_ply
+    city = synthetic.city_scene(np.random.default_rng(0), num_buildings=64)
+    sdir = chip_smoke.city_scene_dir(city, str(tmp_path / "city"))
+    bdir = chip_smoke.brdf_dir(str(tmp_path / "brdf"))
+    cfg = SensorConfig(tls_position=(0.0, 10.0, 0.0),
+                       tls_fov_horizontal=360.0, tls_fov_vertical=100.0,
+                       tls_middle_angle_vertical=-35.0,
+                       tls_resolution_horizontal=256,
+                       tls_resolution_vertical=32, rays_per_pulse=4,
+                       max_returns=2, chunk_pulses=4096)
+    cfg_path = tmp_path / "cfg.json"
+    cfg_path.write_text(cfg.to_json())
+    back = {}
+    for dev in ("cuda", "cpu"):
+        out = str(tmp_path / f"{dev}.ply")
+        before = tr.KERNEL.launches
+        assert cli.main(["simulate", "--scene", sdir, "--config",
+                         str(cfg_path), "--brdf-dir", bdir, "--out", out,
+                         "--device", dev]) == 0
+        assert (tr.KERNEL.launches > before) == (dev == "cuda")
+        back[dev] = read_ply(out)
+    g, c = back["cuda"], back["cpu"]
+    assert len(g["x"]) == len(c["x"]) > 1000
+    for k in ("returnNumber", "numReturns", "asprsSemanticGroup"):
+        np.testing.assert_array_equal(g[k], c[k], err_msg=k)
+    for k in ("x", "y", "z"):
+        np.testing.assert_allclose(g[k], c[k], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(g["intensity"], c["intensity"], rtol=1e-4,
+                               atol=0)
 
 
 # sizes that are no multiple of 4 go through the float4 body's scalar tail

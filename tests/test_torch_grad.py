@@ -347,6 +347,40 @@ def test_face_pack_false_forces_unpacked(L, monkeypatch):
                                    atol=1e-5 * np.abs(gp[k]).max(), err_msg=k)
 
 
+@pytest.mark.parametrize("models", [(2, 5), (4, 6), (3, 1)])
+def test_tile_path_analytic_grads_match_jax(models):
+    """ANALYTIC shading on the tile path (L = 1): the ground (STONE) and
+    the boxes (WOOD) on the analytic models ``models`` (Minnaert and Ward,
+    as the default table has them; Cook-Torrance and Oren-Nayar;
+    Blinn-Phong and ideal diffuse).  The loss, and the origin, vertex and
+    ``peak_power`` gradients against `jax.grad` at the tolerances above;
+    the table gradient is zero on both sides (ANALYTIC reads no table)."""
+    base = _chunk("tile", 1)
+    model = np.asarray(base.mats.brdf_model).copy()
+    model[7], model[8] = models
+    ch = dataclasses.replace(
+        base, cfg=base.cfg.with_(shading_mode=ShadingMode.ANALYTIC),
+        mats=base.mats.__class__(**{**base.mats.__dict__,
+                                    "brdf_model": jnp.asarray(model)}))
+    loss, x0 = port_loss_fn(ch)
+    xs = [x.detach().clone().requires_grad_(True) for x in x0]
+    val = loss(*xs)
+    val.backward()
+    lt = float(val.detach())
+    gt = {k: x.grad for k, x in zip(PARAMS, xs)}
+    lj, gj = jax_loss_and_grads(ch)
+    assert np.isfinite(lt) and lt > 0
+    np.testing.assert_allclose(lt, lj, rtol=1e-5)
+    assert gt.pop("brdf_table") is None and not gj["brdf_table"].any()
+    gt = {k: g.numpy() for k, g in gt.items()}
+    for k in ("origin", "vertices", "peak_power"):
+        assert np.isfinite(gt[k]).all(), f"{k}: non-finite port gradient"
+        scale = np.abs(gj[k]).max()
+        assert scale > 0, f"{k}: the JAX gradient is all zero"
+        np.testing.assert_allclose(gt[k], gj[k], atol=2e-4 * scale,
+                                   rtol=2e-3, err_msg=k)
+
+
 def test_vertex_grads_match_finite_differences():
     """The port alone, unpacked branch: d loss / d vertices against central
     differences on the coordinates with the largest gradient, as

@@ -25,7 +25,8 @@ def test_importing_the_port_loads_no_jax():
     mods = _modules()
     for m in ("kernels.traverse", "kernels.pulse", "kernels.cuda_build",
               "kernels.packet", "geom.packet", "physics.intensity",
-              "sensors.als", "sensors.paths"):
+              "sensors.als", "sensors.paths", "cli", "viz", "io.obj",
+              "io.ply", "io.png", "io.rgl_bsdf"):
         assert "lidar_brdf_tpu_torch." + m in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -98,7 +98,8 @@ def test_api_simulate_on_cpu():
     assert cloud.capacity == 2048 and int(m.sum()) > 500
     assert torch.isfinite(cloud.position[m]).all()
     assert (cloud.intensity[m] >= 0).all() and (cloud.intensity[m] > 0).any()
-    assert set(stats) == {"order_s", "cull_s", "device_s", "readback_s"}
+    assert set(stats) == {"order_s", "cull_s", "device_s", "readback_s",
+                          "readback_bytes"}
 
 
 def test_entry_points_need_a_card_unless_asked_for_cpu():
@@ -132,25 +133,20 @@ def _port_run(scene, bvh, mats, cfg, rays, noise, **kw):
 
 
 def test_unported_paths_raise():
-    """ANALYTIC shading still raises.  The paths that raised before the
-    packet walk was ported now match the JAX `Simulator` slot by slot: a
-    water scene (the hybrid: culled level 0, packet-walk bounces) and the
-    360 x 60 degree scan of `tests/test_pallas.py:93-120`, whose tile
-    beams are too wide to cull (level 0 on the packet walk).  Discrete
-    fields exact; positions atol 1e-4, intensity rtol 1e-4."""
-    dry = tsyn.terrain_with_boxes(np.random.default_rng(0), num_boxes=2)
-    # analytic BRDF shading, on a narrow scan that culls fine
-    analytic = tcfg.SensorConfig(
-        tls_position=(0.0, 9.0, 0.0), tls_fov_horizontal=90.0,
-        tls_fov_vertical=40.0, tls_middle_angle_vertical=-45.0,
-        tls_resolution_horizontal=32, tls_resolution_vertical=16,
-        rays_per_pulse=2, shading_mode=tcfg.ShadingMode.ANALYTIC)
-    with pytest.raises(NotImplementedError, match="analytic"):
-        tapi.simulate(dry, analytic, device="cpu")
+    """The paths that raised before they were ported now match the JAX
+    `Simulator` slot by slot: ANALYTIC shading (on a narrow scan that
+    culls fine, through the tile path), a water scene (the hybrid: culled
+    level 0, packet-walk bounces) and the 360 x 60 degree scan of
+    `tests/test_pallas.py:93-120`, whose tile beams are too wide to cull
+    (level 0 on the packet walk).  Discrete fields exact; positions atol
+    1e-4, intensity rtol 1e-4."""
     mats = MaterialLibrary.default().table_at(1064)
     wide = _cfg(tls_fov_horizontal=360.0, tls_fov_vertical=60.0)
-    for water, cfg in ((True, _cfg(max_returns=2, pulse_radius=0.1)),
-                       (False, wide)):
+    analytic = _cfg(shading_mode=ShadingMode.ANALYTIC)
+    for water, beams_ok, cfg in (
+            (False, True, analytic),
+            (True, True, _cfg(max_returns=2, pulse_radius=0.1)),
+            (False, False, wide)):
         scene = jsyn.terrain_with_boxes(np.random.default_rng(1234),
                                         num_boxes=4, water_patch=water)
         bvh = build_scene_bvh(scene)
@@ -159,7 +155,7 @@ def test_unported_paths_raise():
                         use_pallas=True, compact_readback=False)
         beams = sim._culler.beams_ok(np.asarray(rays.origin),
                                      np.asarray(rays.direction))
-        assert beams == water and sim.scene_has_water == water
+        assert beams == beams_ok and sim.scene_has_water == water
         cj = sim.run(rays)
         tsim, ct = _port_run(scene, bvh, mats, cfg, rays, sim.noise_buf)
         assert tsim.scene_has_water == water

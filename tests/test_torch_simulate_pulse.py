@@ -84,7 +84,8 @@ def _run_both(scene, cfg, pulses=None):
         == (sim.block_pulses, sim.pulse_group)
     stats = {}
     ct = tsim.run(convert.rays_from_numpy(_np(rays)), stats=stats)
-    assert set(stats) == {"order_s", "cull_s", "device_s", "readback_s"}
+    assert set(stats) == {"order_s", "cull_s", "device_s", "readback_s",
+                          "readback_bytes"}
     for k in ("mask", "comp_id", "return_number", "num_returns", "asprs"):
         np.testing.assert_array_equal(getattr(ct, k).numpy(),
                                       np.asarray(getattr(cj, k)), err_msg=k)
