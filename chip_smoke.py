@@ -63,7 +63,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    Prints rays/s fwd+bwd, the `BENCH_GRADS` split and host syncs per step.
 7. Card vs CPU gradients at the sizes of phase 5: loss to rtol 1e-5, each
    gradient within atol 1e-4 * max|g| (scatter-add order on the card is not
-   fixed, so gradients are not bitwise reproducible).
+   fixed, so gradients are not bitwise reproducible); and through the water
+   scan of phase 5 (532 nm, bathymetric, L = 3, K4 for every level), where
+   origins are compared ray by ray on pulses whose winners agree and summed
+   over each pulse's rays elsewhere (parallel rays tie at the flat bottom).
 9. Scenes from files at full width: the `tls` city written as a scene
    directory (OBJ/MTL, PNG textures, `.LiDARMaterial` / `.semanticASPRS`
    sidecars) and a measured-BRDF directory of `.bsdf` files, scanned by
@@ -77,7 +80,21 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    seconds; equal clouds), the device time of `pack_compact` and of the
    analytic factor at the scan's size, a full-width ANALYTIC scan (as
    many points, finite non-negative intensities) and the `render-ortho`
-   and `render-overlays` commands.  Runs before phase 8.
+   and `render-overlays` commands; the CLI's host cull per wavelength (the
+   second wavelength from the ladder cache).  Runs before phase 8.
+10. The rest of the runtime, before phase 8: (a) the port's bench with
+   ``BENCH_CONFIG=forward`` in process (1,048,576 pulses x 10 rays over the
+   city in 8 chunks; warm, cold, cached with metrics, cached): K1 8 times
+   in each scan, the cached clouds equal to the cold one bit for bit, the
+   JSON line and the `stats=` split of a cold and a cached scan; (b) phase
+   4's `als` scan twice on one `Simulator`: the second's host cull under 1%
+   of the first's, K2 8 times in each, equal clouds, device memory, and
+   chunk 0's cached (permuted) slice and ladders against a fresh cull; (c)
+   `Simulator.benchmark` on the `tls` workload, its report printed; (d)
+   checkpoint/resume on the forward config cut to 2 chunks (state cut to 1
+   chunk, resumed by a new `Simulator`: K1 once, the uninterrupted cloud);
+   (e) the three fit examples at their step counts (K4 once a step, finite
+   falling losses, step-0 loss equal to the CPU port's to rtol 1e-5).
 8. Profiles, last so that they disturb no timed phase: K1's device time on
    the `tls` chunk, K2's on the `als` chunk (as the Simulator calls it, and
    with the wrapper's two output fills instead), and K3's and
@@ -132,6 +149,10 @@ WATER_WARM = 8192               # its warm run
 WATER_CELLS = 64                # water plane cells a side (8,192 faces)
 STEP_ITERS = 5                  # timed training steps per measurement
 K3_BIG = 1 << 20                # K3 vs plain on 1M elements as well
+FORWARD_PULSES = 1_048_576      # the bench's forward config (phase 10a)
+FORWARD_CHUNK = 131072          # its chunks (8); 2 for the checkpoint
+BENCH_EXECS = 3                 # Simulator.benchmark repetitions (10c)
+EXAMPLE_STEPS = None            # None: each fit example's own step count
 DEVICE = "cuda"                 # a rehearsal on the CPU may set "cpu"
 
 
@@ -1941,11 +1962,107 @@ def compare_grads(what, scene, cfg, rays, kind):
     return errs
 
 
+def water_loss_and_grads(dev):
+    """The summed masked intensity of `water_over_ground`'s scan (every
+    level on the packet walk, K4 on the card) and its gradients w.r.t.
+    the BRDF table, the ray origins, the vertices and ``peak_power``, on
+    ``dev`` (rays made on the host); with the records' winners and
+    mask."""
+    import dataclasses
+    import torch
+    from lidar_brdf_tpu_torch import api
+    from lidar_brdf_tpu_torch.core.types import RayBundle, as_numpy
+    from lidar_brdf_tpu_torch.geom.packet import make_packet_traverser
+    from lidar_brdf_tpu_torch.io.materials import MaterialLibrary
+    from lidar_brdf_tpu_torch.physics.returns import (SimScalars,
+                                                      simulate_returns)
+    from lidar_brdf_tpu_torch.runtime.simulate import simulate_chunk
+    from lidar_brdf_tpu_torch.utils import noise as noise_mod
+    scene, cfg = water_over_ground()
+    bvh = api.build_scene_bvh(scene)
+    rays = api.build_rays(cfg, scene, device="cpu").to(dev)
+    min_y = float(as_numpy(scene.vertices)[:, 1].min())
+    scene = scene.to(dev)
+    mats = MaterialLibrary.default().table_at(532).to(dev)
+    scalars = SimScalars.from_config(cfg, min_y, dev)
+    noise = noise_mod.make_sim_noise(cfg.seed, device=dev)
+    walk = make_packet_traverser(scene, bvh)
+    xs = [x.detach().clone().requires_grad_(True)
+          for x in (mats.brdf_table, rays.origin, scene.vertices,
+                    scalars.peak_power)]
+    table, origin, verts, peak = xs
+    r = RayBundle(origin=origin, direction=rays.direction,
+                  gps_time=rays.gps_time)
+    cloud = simulate_chunk(
+        dataclasses.replace(scene, vertices=verts),
+        dataclasses.replace(mats, brdf_table=table), r, noise,
+        dataclasses.replace(scalars, peak_power=peak), cfg,
+        scene_has_water=True, packet_fn=walk)
+    loss = torch.where(cloud.mask, cloud.intensity,
+                       torch.zeros_like(cloud.intensity)).sum()
+    loss.backward()
+    with torch.no_grad():
+        rec = simulate_returns(scene, mats, rays, noise, scalars, cfg,
+                               scene_has_water=True, packet_fn=walk)[0]
+    names = ("brdf_table", "origin", "vertices", "peak_power")
+    return (float(loss.detach()),
+            {k: x.grad.cpu() for k, x in zip(names, xs)},
+            rec.winner_ray.cpu(), rec.mask.cpu())
+
+
+def compare_water_grads():
+    """Card vs CPU gradients through the water scan (532 nm, bathymetric,
+    L = 3): the loss to rtol 1e-5; the vertex and ``peak_power``
+    gradients within atol 1e-4 * max|g|; the table gradient zero on both
+    (the scan's lookups sit on the tables' clipped retro peak).  A pulse's
+    parallel rays reach the flat bottom at the same t in real arithmetic,
+    so where the card's and the CPU's rounding pick different winners the
+    pulse's origin gradient moves between its rays: origins are compared
+    ray by ray on the pulses with the same winners and summed over each
+    pulse's rays everywhere (within atol 1e-4 * max|g|)."""
+    import torch
+    from lidar_brdf_tpu_torch.kernels import packet as kpk
+    before = kpk.KERNEL.launches
+    (lg, gg, wg, mg), (lc, gc, wc, mc) = [water_loss_and_grads(dev)
+                                          for dev in (DEVICE, "cpu")]
+    if DEVICE == "cuda" and kpk.KERNEL.launches <= before:
+        fail("the water gradient run launched K4 no time")
+    if not (lc > 0 and abs(lg - lc) <= 1e-5 * lc) or not torch.equal(mg, mc):
+        fail(f"card vs CPU water grads: loss {lg} vs {lc}, masks "
+             f"{'equal' if torch.equal(mg, mc) else 'differ'}")
+    errs = {}
+    for k, g in gg.items():
+        if not bool(torch.isfinite(g).all()):
+            fail(f"card vs CPU water grads: {k} is not finite")
+    if gg["brdf_table"].any() or gc["brdf_table"].any():
+        fail("card vs CPU water grads: a table gradient is not zero")
+    flip = (mc & (wg != wc)).any(dim=0)
+    same = ~flip
+    pairs = dict(vertices=(gg["vertices"], gc["vertices"]),
+                 peak_power=(gg["peak_power"], gc["peak_power"]),
+                 origin=(gg["origin"][same], gc["origin"][same]),
+                 origin_per_pulse=(gg["origin"].sum(1), gc["origin"].sum(1)))
+    for k, (a, b) in pairs.items():
+        scale = float(gc["origin" if k.startswith("origin") else k]
+                      .abs().max())
+        err = float((a - b).abs().max()) if a.numel() else 0.0
+        if not (scale > 0 and err <= 1e-4 * scale):
+            fail(f"card vs CPU water grads: {k} max |dg| {err:.3e} of max "
+                 f"|g| {scale:.3e}")
+        errs[k] = err / scale
+    log(f"[card-vs-cpu grads] water L=3 (532 nm, bathymetric): loss "
+        f"{lg:.6e} vs {lc:.6e}; winners differ on {int(flip.sum())} of "
+        f"{flip.numel()} pulses; max |dg| / max |g| {errs}")
+    return errs
+
+
 def phase_card_vs_cpu_grads():
-    """Card vs CPU gradients of the bench's loss at phase 5's sizes."""
+    """Card vs CPU gradients of the bench's loss at phase 5's sizes, and
+    through the water scan."""
     for kind in ("tile", "pulse"):
         for case in grad_cases(kind):
             compare_grads(*case, kind)
+    compare_water_grads()
 
 
 FILES_WAVELENGTHS = (1064, 1065)    # phase 9's sweep: tables re-bound
@@ -1996,11 +2113,26 @@ def phase_files(tls):
     libs = traversal_libs()
     for lib in libs.values():                   # main path starts here
         lib.launches = 0
+    cli_runs = []                               # `stats=` of each run
+    run = Simulator.run
+
+    def recorded(self, rays, *a, stats=None, **k):
+        cli_runs.append({} if stats is None else stats)
+        return run(self, rays, *a, stats=cli_runs[-1], **k)
+
+    Simulator.run = recorded
     t0 = time.perf_counter()
-    rc = cli.main(["simulate", "--scene", sdir, "--config", cfg_path,
-                   "--brdf-dir", bdir, "--out", out] + dev)
+    try:
+        rc = cli.main(["simulate", "--scene", sdir, "--config", cfg_path,
+                       "--brdf-dir", bdir, "--out", out] + dev)
+    finally:
+        Simulator.run = run
     res["cli_s"] = time.perf_counter() - t0
     launches = {k: lib.launches for k, lib in libs.items()}
+    res["cli_cull_s"] = [r.get("cull_s") for r in cli_runs]
+    log(f"[files] CLI scans, host cull per wavelength "
+        f"{dict(zip(FILES_WAVELENGTHS, res['cli_cull_s']))} s (the second "
+        f"from the ladder cache)")
     if rc != 0:
         fail(f"the CLI simulate exited with {rc}")
     chunks = -(-rays.num_pulses // cfg.chunk_pulses)
@@ -2177,6 +2309,275 @@ def phase_files(tls):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the rest of the runtime (caches, checkpoint/resume, benchmark),
+# the bench's forward config and the fit examples
+# ---------------------------------------------------------------------------
+
+def same_clouds(a, b) -> bool:
+    """Every field of two PointClouds equal bit for bit."""
+    import torch
+    return all(torch.equal(getattr(a, k), getattr(b, k)) for k in vars(a))
+
+
+def launch_counts(fn):
+    """(fn()'s result, {kernel id: launches}): the traversal kernels'
+    counts set to 0 just before ``fn`` runs and read just after."""
+    libs = traversal_libs()
+    for lib in libs.values():
+        lib.launches = 0
+    out = fn()
+    return out, {k: lib.launches for k, lib in libs.items()}
+
+
+def expect_launches(what, launches, want):
+    """Fails unless ``launches`` is ``want`` ({id: count}, others 0)."""
+    want = {k: want.get(k, 0) for k in KERNELS}
+    if DEVICE == "cuda" and launches != want:
+        fail(f"{what} launched {launches}: expected {want}")
+
+
+def runtime_forward_bench():
+    """10a: `python -m lidar_brdf_tpu_torch.bench` with
+    ``BENCH_CONFIG=forward`` in process (`bench.forward_main`) at full
+    width after the bench's pre-flight K3: K1 once per chunk in each scan,
+    the cold and cached clouds equal bit for bit."""
+    import torch
+    from lidar_brdf_tpu_torch import bench
+    env = dict(BENCH_PULSES=str(FORWARD_PULSES), BENCH_TRIS=str(TLS_TRIS),
+               BENCH_CHUNK=str(FORWARD_CHUNK))
+    saved = {k: os.environ.get(k) for k in env}
+    launches = {}
+
+    def run_pass(name, run):
+        cloud, launches[name] = launch_counts(run)
+        return cloud
+
+    bench.kernel_smoke(DEVICE)
+    os.environ.update(env)
+    try:
+        res, clouds, stats = bench.forward_main(torch.device(DEVICE),
+                                                run_pass)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    chunks = -(-FORWARD_PULSES // FORWARD_CHUNK)
+    for name, n in launches.items():
+        expect_launches(f"the forward bench's {name} scan", n,
+                        {"K1": chunks})
+    for name in ("cached_metrics", "cached"):
+        if not same_clouds(clouds["cold"], clouds[name]):
+            fail(f"the forward bench's {name} cloud differs from the cold "
+                 f"one")
+    if res["points"] <= 0:
+        fail("the forward bench's scan gave no points")
+    log(f"[forward bench] " + json.dumps(res))
+    for name in ("cold", "cached"):
+        log(f"[forward bench] {name} stats= split: " + ", ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in stats[name].items()))
+    log(f"[forward bench] {FORWARD_PULSES * 10} rays in {chunks} chunks: "
+        f"cold {res['wall_s_cold']:.3f} s = {res['cold_rays_per_s']:.0f} "
+        f"rays/s, cached {res['wall_s_cached']:.3f} s = {res['value']:.0f} "
+        f"rays/s; launches {launches}; clouds equal")
+    return dict(line=res, stats=stats, launches=launches)
+
+
+def runtime_als_repeat(als):
+    """10b: phase 4's `als` scan twice on one `Simulator`: the second run
+    culls nothing (its ``cull_s`` under 1% of the first's), still launches
+    K2 once per chunk and gives the first run's cloud (a hit reuses
+    ladders, not results).  Then the pulse path's cached slice: chunk 0's
+    entry holds the permuted slice and the ladders a fresh cull of that
+    chunk gives, under the key of its padded rays."""
+    import torch
+    from lidar_brdf_tpu_torch.runtime.simulate import Simulator
+    scene, bvh, cfg, mats, rays = als
+    sim = Simulator(scene=scene, bvh=bvh, materials=mats, cfg=cfg,
+                    device=DEVICE)
+    chunks = -(-rays.num_pulses // cfg.chunk_pulses)
+    runs, clouds = [], []
+    for i in range(2):
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held0 = torch.cuda.memory_allocated()
+        stats = {}
+        t0 = time.perf_counter()
+        cloud, launches = launch_counts(lambda: sim.run(rays, stats=stats))
+        stats["wall_s"] = time.perf_counter() - t0
+        expect_launches(f"the als scan's run {i + 1}", launches,
+                        {"K2": chunks})
+        if DEVICE == "cuda":
+            stats["peak_bytes"] = torch.cuda.max_memory_allocated()
+            stats["held_bytes"] = torch.cuda.memory_allocated() - held0
+        stats["launches"] = launches
+        runs.append(stats)
+        clouds.append(cloud)
+    if len(sim._ladder_cache) != chunks:
+        fail(f"the als cache holds {len(sim._ladder_cache)} chunks, not "
+             f"{chunks}")
+    if not runs[1]["cull_s"] < 0.01 * runs[0]["cull_s"]:
+        fail(f"the repeat als scan's cull_s {runs[1]['cull_s']:.4f} s is "
+             f"not under 1% of the first's {runs[0]['cull_s']:.4f} s")
+    if not same_clouds(clouds[0], clouds[1]):
+        fail("the repeat als scan's cloud differs from the first")
+    n = cfg.chunk_pulses
+    host = host_rays(head(rays, n))
+    key, (dev0, data0) = next(iter(sim._ladder_cache.items()))
+    dev1, data1, _ = sim._prep(host, 0, n, n)
+
+    def equal(a, b):
+        if isinstance(a, torch.Tensor):
+            return torch.equal(a, b)
+        if isinstance(a, (tuple, list)):
+            return len(a) == len(b) and all(map(equal, a, b))
+        return a == b
+
+    if not (key == sim._chunk_key(host["origin"], host["direction"])
+            and same_clouds(dev0, dev1) and equal(tuple(data0), tuple(data1))
+            and data0.uncovered == data1.uncovered):
+        fail("the cached als chunk is not the slice and ladders a fresh "
+             "cull of it gives")
+    moved = not torch.equal(dev0.gps_time.cpu(),
+                            torch.from_numpy(host["gps_time"]))
+    for i, r in enumerate(runs):
+        log(f"[cache] als run {i + 1}: wall {r['wall_s']:.3f} s, order "
+            f"{r['order_s']:.3f} s, cull {r['cull_s']:.4f} s, device "
+            f"{r['device_s']:.3f} s, readback {r['readback_s']:.3f} s; "
+            f"launches {r['launches']}; device memory peak "
+            f"{r.get('peak_bytes')} B, held after "
+            f"{r.get('held_bytes')} B")
+    log(f"[cache] als repeat: cull {runs[1]['cull_s']:.4f} s of "
+        f"{runs[0]['cull_s']:.3f} s; clouds equal; chunk 0's cached slice "
+        f"is the {'permuted' if moved else 'unpermuted'} slice a fresh "
+        f"cull gives, its ladders equal")
+    return runs
+
+
+def runtime_benchmark(tls):
+    """10c: `Simulator.benchmark` on the `tls` workload (BENCH_EXECS
+    executions, the steady passes on its one chunk): K1 twice an execution
+    (FIND_COLLISION, TOTAL) and once a steady pass."""
+    from lidar_brdf_tpu_torch.runtime.simulate import Simulator
+    scene, bvh, cfg, mats, rays = tls
+    sim = Simulator(scene=scene, bvh=bvh, materials=mats, cfg=cfg,
+                    device=DEVICE)
+    metrics, launches = launch_counts(
+        lambda: sim.benchmark(rays, num_execs=BENCH_EXECS))
+    steady = -(-min(2 * cfg.chunk_pulses, rays.num_pulses)
+               // cfg.chunk_pulses)
+    expect_launches("Simulator.benchmark", launches,
+                    {"K1": BENCH_EXECS * (2 + steady)})
+    for stage in ("RAY_BUILDING", "TRAVERSE_PREP", "FIND_COLLISION",
+                  "REDUCE", "INTENSITY", "TOTAL", "READ"):
+        if len(metrics.samples.get(stage, [])) != BENCH_EXECS:
+            fail(f"Simulator.benchmark has no {BENCH_EXECS} samples of "
+                 f"{stage}")
+    log("[benchmark] tls, Simulator.benchmark(num_execs="
+        f"{BENCH_EXECS}); launches {launches}:\n" + metrics.report())
+    return {k: dict(mean_s=metrics.mean(k), std_s=metrics.std(k),
+                    n=len(metrics._kept(k))) for k in metrics.samples}
+
+
+def runtime_checkpoint():
+    """10d: the forward config cut to two chunks, run with a checkpoint
+    directory; its state cut back to one chunk; a new `Simulator` resumes
+    (K1 once: the second chunk) and gives the uninterrupted run's cloud."""
+    import json as json_mod
+    from lidar_brdf_tpu_torch import bench
+    from lidar_brdf_tpu_torch.runtime.checkpoint import ChunkCheckpointer
+    from lidar_brdf_tpu_torch.runtime.simulate import Simulator
+    spec = bench.CONFIGS["forward"]
+    scene, bvh, cfg, rays, mats = bench.build_workload(
+        "forward", 2 * FORWARD_CHUNK, spec["rays_pulse"],
+        spec["max_returns"], spec["scene"], TLS_TRIS)
+    cfg = cfg.with_(chunk_pulses=FORWARD_CHUNK)
+    ckdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "chip_smoke_checkpoint")
+    shutil.rmtree(ckdir, ignore_errors=True)
+
+    def simulator():
+        return Simulator(scene=scene, bvh=bvh, materials=mats, cfg=cfg,
+                         device=DEVICE)
+
+    t0 = time.perf_counter()
+    full = simulator().run(rays, checkpoint_dir=ckdir)
+    full_s = time.perf_counter() - t0
+    ck = ChunkCheckpointer(ckdir)
+    if ck.completed_chunks() != 2:
+        fail(f"the checkpoint holds {ck.completed_chunks()} chunks, not 2")
+    with open(ck.state_path, "w") as fh:
+        json_mod.dump({"completed_chunks": 1}, fh)
+    t0 = time.perf_counter()
+    resumed, launches = launch_counts(
+        lambda: simulator().run(rays, checkpoint_dir=ckdir))
+    resumed_s = time.perf_counter() - t0
+    expect_launches("the resumed scan", launches, {"K1": 1})
+    if not same_clouds(full.compact_host(), resumed.compact_host()):
+        fail("the resumed scan's cloud differs from the uninterrupted one")
+    shutil.rmtree(ckdir)
+    log(f"[checkpoint] forward config, 2 chunks of {FORWARD_CHUNK}: "
+        f"uninterrupted {full_s:.3f} s, resumed after chunk 1 "
+        f"{resumed_s:.3f} s (launches {launches}); {full.capacity} points, "
+        f"clouds equal")
+    return dict(full_s=full_s, resumed_s=resumed_s, points=full.capacity)
+
+
+def runtime_examples():
+    """10e: the three fit examples (`lidar_brdf_tpu_torch/examples`) at
+    their step counts on the packet walk: finite, falling losses, K4 once
+    a step, the step-0 loss equal to the CPU port's within rtol 1e-5."""
+    import importlib
+    import numpy as np
+    from lidar_brdf_tpu_torch.examples import adam_fit
+    out = {}
+    for name in ("fit_brdf", "fit_pose", "fit_geometry"):
+        mod = importlib.import_module(
+            f"lidar_brdf_tpu_torch.examples.{name}")
+        steps = EXAMPLE_STEPS or mod.STEPS
+        loss_fn, x0 = mod.build_problem(DEVICE)
+        res, launches = launch_counts(
+            lambda: adam_fit(loss_fn, x0, mod.LR, steps))
+        expect_launches(f"{name}'s {steps} steps", launches, {"K4": steps})
+        cpu_fn, cx0 = mod.build_problem("cpu")
+        cpu0 = float(cpu_fn(cx0).detach())
+        losses = res["losses"]
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            fail(f"{name}: losses {losses[0]} -> {losses[-1]} are not "
+                 f"finite and falling")
+        if not abs(losses[0] - cpu0) <= 1e-5 * abs(cpu0):
+            fail(f"{name}: step-0 loss {losses[0]} on {DEVICE} vs {cpu0} "
+                 f"on the CPU")
+        out[name] = dict(steps=steps, loss_first=losses[0],
+                         loss_last=losses[-1], cpu_loss_first=cpu0,
+                         s_per_step=res["s_per_step"], launches=launches)
+        log(f"[examples] {name}: loss {losses[0]:.6g} -> {losses[-1]:.6g} "
+            f"in {steps} steps, {res['s_per_step'] * 1e3:.2f} ms/step; CPU "
+            f"step-0 loss {cpu0:.6g}; launches {launches}")
+    return out
+
+
+def phase_runtime(tls, als):
+    """Phase 10 (10a-10e), each part's seconds under ``seconds``."""
+    res, seconds = {}, {}
+    for name, run in (("forward_bench", runtime_forward_bench),
+                      ("als_repeat", lambda: runtime_als_repeat(als)),
+                      ("benchmark", lambda: runtime_benchmark(tls)),
+                      ("checkpoint", runtime_checkpoint),
+                      ("examples", runtime_examples)):
+        t0 = time.perf_counter()
+        res[name] = run()
+        seconds[name] = time.perf_counter() - t0
+    res["seconds"] = seconds
+    log(f"[runtime] phase 10 took {sum(seconds.values()):.1f} s: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
+    return res
+
+
 def main() -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
@@ -2233,9 +2634,15 @@ def main() -> int:
      training) = phase_training(als)
     phase_card_vs_cpu_grads()
     files = phase_files(tls)
+    runtime = phase_runtime(tls, als)
+    k1["launches_forward_bench"] = runtime["forward_bench"]["launches"]
+    k2["launches_als_repeat"] = [
+        r["launches"]["K2"] for r in runtime["als_repeat"]]
+    k4["launches_examples"] = {
+        k: v["launches"]["K4"] for k, v in runtime["examples"].items()}
     phase_profiles(k1_chunk_data, k1, k3, k2_chunk_data, k2)
     log(json.dumps({"card": card, "tls_forward": tls_fwd,
-                    "files": files,
+                    "files": files, "runtime": runtime,
                     "als_forward": als_fwd, "water_forward": water_fwd,
                     "tls_packet_walk_forward": tls_walk,
                     "traverser_choice": choice, "fwd_bwd": training,

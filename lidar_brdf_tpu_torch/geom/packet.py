@@ -31,20 +31,29 @@ class PackedScene(NamedTuple):
     tri_rows: torch.Tensor    # (F, 9) f32 [v0 e1 e2]
 
 
+def triangle_rows(vertices: torch.Tensor,
+                  faces: torch.Tensor) -> torch.Tensor:
+    """(F, 9) f32 rows [v0 e1 e2] from detached vertices (the walk is
+    forward-only).  A caller that moves the vertices (a geometry fit)
+    builds them again and walks them over the same node arrays
+    (``packed._replace(tri_rows=...)``), as the JAX package packs inside
+    every traced call; the node boxes stay the BVH's."""
+    with torch.no_grad():
+        v = vertices.detach().float()
+        f = faces.long()
+        v0 = v[f[:, 0]]
+        return torch.cat([v0, v[f[:, 1]] - v0, v[f[:, 2]] - v0],
+                         dim=1).contiguous()
+
+
 def pack_scene(scene: TriangleScene, bvh: BVH) -> PackedScene:
     """The scene's triangle rows and the BVH's node arrays, on the scene's
-    device.  The walk is forward-only, so the rows are built from detached
-    vertices.  Raises ValueError unless every skip link points forward
-    (what bounds a walk's length)."""
+    device.  Raises ValueError unless every skip link points forward (what
+    bounds a walk's length)."""
     dev = scene.vertices.device
     skip = np.asarray(as_numpy(bvh.node_skip), np.int32)
     if (skip <= np.arange(skip.shape[0])).any():
         raise ValueError("a BVH skip link does not point forward")
-    with torch.no_grad():
-        v = scene.vertices.detach().float()
-        f = scene.faces.long()
-        v0 = v[f[:, 0]]
-        tri_rows = torch.cat([v0, v[f[:, 1]] - v0, v[f[:, 2]] - v0], dim=1)
     put = lambda a, dt: torch.from_numpy(
         np.ascontiguousarray(as_numpy(a), dt)).to(dev)
     node_box = torch.cat([put(bvh.node_min, np.float32),
@@ -52,7 +61,7 @@ def pack_scene(scene: TriangleScene, bvh: BVH) -> PackedScene:
     return PackedScene(node_box=node_box.contiguous(),
                        node_skip=torch.from_numpy(skip).to(dev),
                        node_face=put(bvh.node_face, np.int32),
-                       tri_rows=tri_rows.contiguous())
+                       tri_rows=triangle_rows(scene.vertices, scene.faces))
 
 
 def intersect_packed_scene(packed: PackedScene, origin, direction, *,

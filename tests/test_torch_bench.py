@@ -63,12 +63,76 @@ def test_bench_prints_one_json_line(monkeypatch, capsys):
     assert line["grads"] == "brdf_table+sensor_origin+scene_vertices"
 
 
-def test_bench_metric_names_and_forward_waits(monkeypatch):
+def test_bench_metric_names_and_forward_waits():
+    """The metric names, and the ``forward`` config with the JAX bench's
+    shapes (`bench.py:131-132`), which no longer waits for the cache."""
     assert bench.metric_name("als") == "rays_per_s_fwd_bwd_per_chip_als"
-    assert set(bench.CONFIGS) == {"tls", "multireturn", "als", "alphaprime"}
-    monkeypatch.setenv("BENCH_CONFIG", "forward")
-    with pytest.raises(NotImplementedError, match="ladder caching"):
-        bench.main()
+    assert (bench.metric_name("forward")
+            == "rays_per_s_forward_end_to_end_per_chip")
+    assert set(bench.CONFIGS) == {"tls", "multireturn", "als", "alphaprime",
+                                  "forward"}
+    assert bench.CONFIGS["forward"] == dict(
+        pulses=1_048_576, rays_pulse=10, max_returns=1, scene="city",
+        num_tris=40_000, traverser="none")
+
+
+FORWARD = dict(BENCH_CONFIG="forward", BENCH_FORCE_CPU="1",
+               BENCH_PULSES="4096", BENCH_TRIS="2000", BENCH_CHUNK="1024")
+
+
+def test_bench_forward_prints_one_json_line(monkeypatch, capsys):
+    for k, v in FORWARD.items():
+        monkeypatch.setenv(k, v)
+    assert bench.main() == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    line = json.loads(lines[0])
+    assert line["metric"] == "rays_per_s_forward_end_to_end_per_chip"
+    assert set(line) >= {"metric", "value", "unit", "vs_baseline",
+                         "compile_s", "cold_rays_per_s", "wall_s_cold",
+                         "wall_s_cached", "traverse_prep_s_overlapped",
+                         "device_total_s_cold", "device_total_s_cached",
+                         "points", "device", "power_limit_w"}
+    assert line["value"] == pytest.approx(4096 * 10 / line["wall_s_cached"],
+                                          rel=1e-3)
+    assert line["cold_rays_per_s"] > 0 and line["points"] > 1000
+    assert line["traverse_prep_s_overlapped"] > 0
+    assert line["device"] == "cpu" and line["power_limit_w"] is None
+    assert line["pulses"] == 4096 and line["traverser"] == "culled"
+
+
+@pytest.mark.parametrize("packet", [False, True])
+def test_bench_forward_cold_and_cached_clouds_equal(monkeypatch, packet):
+    """Four chunks: the cold scan culls every chunk, the cached scans none,
+    and every pass gives the same cloud bit for bit;
+    ``BENCH_FORWARD_PACKET=1`` culls nothing at all."""
+    from lidar_brdf_tpu_torch.runtime import simulate
+    for k, v in FORWARD.items():
+        monkeypatch.setenv(k, v)
+    if packet:
+        monkeypatch.setenv("BENCH_FORWARD_PACKET", "1")
+    culls = []
+    prepare = simulate.TileTraverser.prepare
+    monkeypatch.setattr(simulate.TileTraverser, "prepare",
+                        lambda *a, **k: culls.append(1) or prepare(*a, **k))
+    per_pass = {}
+
+    def run_pass(name, run):
+        before = len(culls)
+        cloud = run()
+        per_pass[name] = len(culls) - before
+        return cloud
+
+    _, clouds, stats = bench.forward_main(torch.device("cpu"), run_pass)
+    assert list(clouds) == ["warm", "cold", "cached_metrics", "cached"]
+    n = 0 if packet else 4
+    assert per_pass == dict(warm=n, cold=n, cached_metrics=0, cached=0)
+    for name in ("cold", "cached_metrics", "cached"):
+        for k in vars(clouds["warm"]):
+            assert torch.equal(getattr(clouds[name], k),
+                               getattr(clouds["warm"], k)), (name, k)
+    if not packet:
+        assert stats["cached"]["cull_s"] < stats["cold"]["cull_s"]
 
 
 def test_bench_needs_a_card_unless_forced_to_cpu(monkeypatch):

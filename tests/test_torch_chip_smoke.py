@@ -186,7 +186,49 @@ def test_chip_smoke_training_phases_on_cpu(monkeypatch, capsys):
     out = capsys.readouterr().out
     assert "[fwd+bwd] tls" in out and "[fwd+bwd] als BENCH_GRADS" in out
     assert "[card-vs-cpu grads] ALS L=2" in out
+    assert "[card-vs-cpu grads] water L=3" in out
     assert "K3 tile" in out
+
+
+def test_chip_smoke_runtime_phase_on_cpu(monkeypatch, capsys):
+    """Phase 10 at a small size: the bench's forward config in process
+    (cold and cached clouds equal), the `als` scan twice on one
+    Simulator (no cull the second time, the cached slice checked against
+    a fresh cull), `Simulator.benchmark`, checkpoint/resume and the three
+    fit examples (two steps each)."""
+    from lidar_brdf_tpu_torch.runtime import simulate
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "TLS_PULSES", 4096)
+    monkeypatch.setattr(chip_smoke, "TLS_TRIS", 2000)
+    monkeypatch.setattr(chip_smoke, "ALS_PULSES", 2048)
+    monkeypatch.setattr(chip_smoke, "ALS_TRIS", 20_000)
+    monkeypatch.setattr(chip_smoke, "ALS_CHUNK", 1024)
+    monkeypatch.setattr(chip_smoke, "FORWARD_PULSES", 4096)
+    monkeypatch.setattr(chip_smoke, "FORWARD_CHUNK", 1024)
+    monkeypatch.setattr(chip_smoke, "BENCH_EXECS", 2)
+    monkeypatch.setattr(chip_smoke, "EXAMPLE_STEPS", 2)
+    monkeypatch.setattr(simulate, "PULSE_MIN_FACES", 10_000)
+    tls = chip_smoke.tls_workload("cpu")
+    als = chip_smoke.als_workload("cpu")
+    res = chip_smoke.phase_runtime(tls, als)
+    line = res["forward_bench"]["line"]
+    assert line["metric"] == "rays_per_s_forward_end_to_end_per_chip"
+    assert line["pulses"] == 4096 and line["points"] > 1000
+    first, second = res["als_repeat"]
+    assert second["cull_s"] < 0.01 * first["cull_s"]
+    assert res["benchmark"]["TOTAL"]["n"] == 1
+    assert res["checkpoint"]["points"] > 0
+    assert set(res["examples"]) == {"fit_brdf", "fit_pose", "fit_geometry"}
+    for r in res["examples"].values():
+        assert r["steps"] == 2 and r["loss_last"] < r["loss_first"]
+    out = capsys.readouterr().out
+    assert "[forward bench] cold stats= split" in out
+    assert "[cache] als repeat" in out and "permuted slice" in out
+    assert "RUN_STEADY" in out and "[checkpoint]" in out
+    assert "[examples] fit_geometry" in out
+    assert not os.path.exists(os.path.join(
+        os.path.dirname(chip_smoke.__file__), "build",
+        "chip_smoke_checkpoint"))
 
 
 def test_chip_smoke_refuses_without_a_card():

@@ -13,9 +13,14 @@ ladders or buckets, JAX noise and scalars handed to the port through
 * (b) the pulse path: `tests/test_vertgrad.py`'s workload (8,000-face rough
   terrain, 256 pulses x 4 rays), which takes the unpacked branch (F > P * L);
   JAX with and without `vertex_grad_aux`;
-* (c) the same pulses with the face pack forced on both sides.
+* (c) the same pulses with the face pack forced on both sides;
+* (d) the water scan of `tests/test_water.py` (ALS over water at y = 2
+  above ground at y = 0, L = 3, at 532 nm bathymetric and at 1064 nm
+  not), every level on the packet walk on both sides
+  (`test_water_scan_grads_match_jax`, whose docstring states what differs
+  there).
 
-Each at L = 1 and 2.  The loss agrees to rtol 1e-5; gradients within atol
+(a)-(c) each at L = 1 and 2.  The loss agrees to rtol 1e-5; gradients within atol
 2e-4 * max|g_jax| and rtol 2e-3, `tests/test_vertgrad.py`'s tolerance for
 two correct backwards of one function: XLA's CPU backend contracts
 multiply-adds into FMAs inside `jit` and PyTorch does not (ROADMAP.md
@@ -49,6 +54,7 @@ from lidar_brdf_tpu.utils import noise as jnoise
 from lidar_brdf_tpu_torch.core import config as tcfg
 from lidar_brdf_tpu_torch.core import convert
 from lidar_brdf_tpu_torch.core.types import RayBundle
+from lidar_brdf_tpu_torch.geom.packet import make_packet_traverser
 from lidar_brdf_tpu_torch.kernels import pulse as tpulse
 from lidar_brdf_tpu_torch.kernels.traverse import TileTraverser
 from lidar_brdf_tpu_torch.physics import brdf as tbrdf
@@ -456,3 +462,118 @@ def test_tie_rules_follow_jax():
     assert torch.equal(safemath.clip(x, 0.0, 1.0), torch.clamp(x, 0.0, 1.0))
     assert torch.equal(safemath.abs_(x), torch.abs(x))
     assert torch.equal(safemath.maximum(x, 0.0), torch.clamp(x, min=0.0))
+
+
+@pytest.mark.parametrize("bathymetric", [True, False])
+def test_water_scan_grads_match_jax(bathymetric):
+    """(d): gradients through the refraction scan (`_returns_retraverse`)
+    against `jax.grad` of the JAX `simulate_chunk` (jitted, as its users
+    run it), on the same rays, noise and scalars, every level on the
+    packet walk.
+
+    Every measured-BRDF lookup of this near-nadir scan lands on the
+    default tables' retro-reflection peak, where the Hermite value
+    exceeds 1 and `clip(., 0, 1)` passes no gradient: the table gradient
+    is zero on both sides at both wavelengths (asserted; the table
+    gradients of (a)-(c) are compared where the lookups are not clipped).
+    JAX's backward is finite everywhere on this scene (asserted): no
+    masked bathymetric slot gives 0 * inf here, so no tolerance is set
+    for one.  A pulse's two parallel rays reach the flat bottom at the
+    same t in real arithmetic; under `jit` XLA's FMA contraction breaks
+    that tie for another ray than the port's rounding in ~13% of the
+    pulses (level 1 only; asserted below), so the winner, and with it
+    the share of the pulse's origin gradient each of its rays gets,
+    moves to the other ray.  Origins are therefore compared ray by ray
+    where both pick the same winners and summed over the pulse's rays
+    elsewhere; the loss, the vertices, `peak_power` and the table at the
+    tolerances of (a)-(c)."""
+    from test_water import _als_cfg, water_over_ground_scene
+    scene = water_over_ground_scene()
+    cfg = (_als_cfg() if bathymetric
+           else _als_cfg(bathymetric=False, wavelength_nm=(1064, 1064)))
+    bvh = build_scene_bvh(scene)
+    rays = build_rays(cfg, scene)
+    mats = MaterialLibrary.default().table_at(cfg.wavelength_nm[0])
+    scalars = jret.SimScalars.from_config(
+        cfg, float(np.asarray(scene.vertices)[:, 1].min()))
+    noise = jnoise.make_sim_noise(jax.random.PRNGKey(0))
+    scene, bvh, mats, scalars = jax.tree.map(jnp.asarray,
+                                             (scene, bvh, mats, scalars))
+
+    def jax_rays(origin):
+        return JRays(origin=origin, direction=rays.direction,
+                     gps_time=rays.gps_time)
+
+    def jloss(table, origin, verts, peak):
+        cloud = simulate_chunk(
+            scene.__class__(**{**scene.__dict__, "vertices": verts}), bvh,
+            mats.__class__(**{**mats.__dict__, "brdf_table": table}),
+            jax_rays(origin), noise,
+            scalars.__class__(**{**scalars.__dict__, "peak_power": peak}),
+            cfg, scene_has_water=True)
+        return jnp.sum(jnp.where(cloud.mask, cloud.intensity, 0.0))
+
+    x0 = (mats.brdf_table, jnp.asarray(rays.origin), scene.vertices,
+          scalars.peak_power)
+    lj, gj = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1, 2, 3)))(*x0)
+    lj, gj = float(lj), {k: np.asarray(g) for k, g in zip(PARAMS, gj)}
+    w_jax = np.asarray(jax.jit(lambda o: jret.simulate_returns(
+        scene, bvh, mats, jax_rays(o), noise, scalars, cfg,
+        scene_has_water=True)[0].winner_ray)(x0[1]))
+
+    ts = convert.scene_from_numpy(_np(scene))
+    tm = convert.materials_from_numpy(_np(mats))
+    tsc = convert.scalars_from_numpy(_np(scalars))
+    tr = convert.rays_from_numpy(_np(rays))
+    tn = convert.noise_from_numpy(np.asarray(noise))
+    tc = tcfg.SensorConfig.from_json(cfg.to_json())
+    walk = make_packet_traverser(ts, convert.bvh_from_numpy(_np(bvh)))
+
+    def tloss(table, origin, verts, peak):
+        cloud = tchunk(
+            dataclasses.replace(ts, vertices=verts),
+            dataclasses.replace(tm, brdf_table=table),
+            RayBundle(origin=origin, direction=tr.direction,
+                      gps_time=tr.gps_time), tn,
+            dataclasses.replace(tsc, peak_power=peak), tc,
+            scene_has_water=True, packet_fn=walk)
+        return torch.where(cloud.mask, cloud.intensity,
+                           torch.zeros_like(cloud.intensity)).sum()
+
+    xs = [x.detach().clone().requires_grad_(True)
+          for x in (tm.brdf_table, tr.origin, ts.vertices, tsc.peak_power)]
+    val = tloss(*xs)
+    val.backward()
+    lt, gt = float(val.detach()), {k: x.grad.numpy()
+                                   for k, x in zip(PARAMS, xs)}
+    records = tret_simulate(ts, tm, tr, tn, tsc, tc, walk)
+    assert np.isfinite(lt) and lt > 0
+    np.testing.assert_allclose(lt, lj, rtol=1e-5)
+    for k in PARAMS:
+        assert np.isfinite(gt[k]).all(), f"{k}: non-finite port gradient"
+        assert np.isfinite(gj[k]).all(), f"{k}: non-finite JAX gradient"
+    mask = records.mask.numpy()
+    flip = mask & (records.winner_ray.numpy() != w_jax)
+    assert set(np.nonzero(flip)[0]) <= {1}
+    assert flip.any(axis=0).sum() <= 0.2 * mask.shape[1]
+    assert not gt["brdf_table"].any() and not gj["brdf_table"].any()
+    for k in ("vertices", "peak_power"):
+        scale = np.abs(gj[k]).max()
+        assert scale > 0, f"{k}: the JAX gradient is all zero"
+        np.testing.assert_allclose(gt[k], gj[k], atol=2e-4 * scale,
+                                   rtol=2e-3, err_msg=k)
+    same = ~flip.any(axis=0)
+    scale = np.abs(gj["origin"]).max()
+    assert scale > 0
+    np.testing.assert_allclose(gt["origin"][same], gj["origin"][same],
+                               atol=2e-4 * scale, rtol=2e-3)
+    np.testing.assert_allclose(gt["origin"].sum(1), gj["origin"].sum(1),
+                               atol=2e-4 * scale, rtol=2e-3)
+
+
+def tret_simulate(scene, mats, rays, noise, scalars, cfg, walk):
+    """The port's records of the water scan (winners per level)."""
+    from lidar_brdf_tpu_torch.physics.returns import simulate_returns
+    with torch.no_grad():
+        return simulate_returns(scene, mats, rays, noise, scalars, cfg,
+                                scene_has_water=True, packet_fn=walk)[0]

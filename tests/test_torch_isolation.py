@@ -26,7 +26,10 @@ def test_importing_the_port_loads_no_jax():
     for m in ("kernels.traverse", "kernels.pulse", "kernels.cuda_build",
               "kernels.packet", "geom.packet", "physics.intensity",
               "sensors.als", "sensors.paths", "cli", "viz", "io.obj",
-              "io.ply", "io.png", "io.rgl_bsdf"):
+              "io.ply", "io.png", "io.rgl_bsdf", "runtime.metrics",
+              "runtime.checkpoint", "utils.analysis", "utils.regular_grid",
+              "examples", "examples.fit_brdf", "examples.fit_pose",
+              "examples.fit_geometry"):
         assert "lidar_brdf_tpu_torch." + m in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
