@@ -95,6 +95,22 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    chunk, resumed by a new `Simulator`: K1 once, the uninterrupted cloud);
    (e) the three fit examples at their step counts (K4 once a step, finite
    falling losses, step-0 loss equal to the CPU port's to rtol 1e-5).
+11. Multi-rank scans and training steps on `torch.distributed`
+   (`lidar_brdf_tpu_torch/parallel/`), before phase 8: (a) one rank over
+   NCCL in this process: the `tls` workload at full width (131,072 pulses
+   x 10 rays over the city) through `sharded_forward` (tile, packet) and a
+   ``"full"`` `sharded_train_step`: the cloud equal to `simulate_chunk`'s
+   bit for bit, gradients within phase 7's tolerance of a step with no
+   collective, K1 once per call; (b) 4 ranks over gloo sharing the card,
+   started as subprocesses by `parallel/worker.py::launch` (scenes handed
+   over as one `.npz` each): the `tls` workload (K1 once per rank per
+   forward and per step, K4 once per rank) and the `als` ladder path at
+   131,072 pulses over the 4,999,122-face terrain (K2 once per rank per
+   forward and per step, one global `t_max`); every rank's PLY shards
+   byte-equal to the parent's own shards, losses and gradients bit-equal
+   across ranks and within phase 7's tolerance of the sum of the parent's
+   shards.  `[multirank]` lines: per rank wall, cull, forward and step
+   times, each all_reduce's time and bytes.
 8. Profiles, last so that they disturb no timed phase: K1's device time on
    the `tls` chunk, K2's on the `als` chunk (as the Simulator calls it, and
    with the wrapper's two output fills instead), and K3's and
@@ -153,6 +169,9 @@ FORWARD_PULSES = 1_048_576      # the bench's forward config (phase 10a)
 FORWARD_CHUNK = 131072          # its chunks (8); 2 for the checkpoint
 BENCH_EXECS = 3                 # Simulator.benchmark repetitions (10c)
 EXAMPLE_STEPS = None            # None: each fit example's own step count
+MULTI_RANKS = 4                 # phase 11b: ranks sharing the card
+MULTI_PULSES = 131072           # phase 11: tls at full width, the als step's
+MULTI_TIMEOUT = 600             # phase 11b: seconds the ranks may take
 DEVICE = "cuda"                 # a rehearsal on the CPU may set "cpu"
 
 
@@ -2578,6 +2597,266 @@ def phase_runtime(tls, als):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 11: multi-rank scans and training steps on torch.distributed
+# ---------------------------------------------------------------------------
+
+PATH_KERNEL = {"tile": "K1", "ladder": "K2", "packet": "K4"}
+
+
+def bits_equal(a, b) -> bool:
+    """Two f32 tensors equal bit for bit (a NaN equals the same NaN)."""
+    import torch
+    return a.shape == b.shape and torch.equal(
+        a.reshape(-1).view(torch.int32), b.reshape(-1).view(torch.int32))
+
+
+def within_grad_tol(what, got, want) -> float:
+    """Fails unless ``got`` is within phase 7's atol 1e-4 * max|want| of
+    ``want`` where ``want`` is finite and non-finite exactly where
+    ``want`` is; returns max |d| / max |want| over the finite entries."""
+    import torch
+    got, want = got.detach().cpu(), want.detach().cpu()
+    fin = torch.isfinite(want)
+    if not torch.equal(fin, torch.isfinite(got)):
+        fail(f"{what}: non-finite at other entries than the reference's")
+    scale = float(want[fin].abs().max()) if bool(fin.any()) else 0.0
+    err = float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) \
+        else 0.0
+    if not err <= 1e-4 * scale:
+        fail(f"{what}: max |d| {err:.3e} of max |g| {scale:.3e}")
+    return err / scale if scale else err
+
+
+def fmt_reduce(all_reduce) -> str:
+    return ", ".join(f"{k} {v['ms']:.3f} ms ({v['bytes']} B)"
+                     for k, v in (all_reduce or {}).items())
+
+
+def multirank_nccl(tls):
+    """11a: the `tls` workload at full width through `sharded_forward` and
+    a ``"full"`` `sharded_train_step` in this process, one rank over NCCL
+    (gloo in a CPU rehearsal): the tile cloud equal bit for bit to
+    `simulate_chunk`'s on the same rays and buckets, the loss to rtol 1e-5
+    and each gradient within phase 7's atol 1e-4 * max|g| of the same step
+    with no collective, K1 once per forward and per step, K4 once in the
+    packet forward."""
+    import torch
+    import torch.distributed as dist
+    from lidar_brdf_tpu_torch.parallel import multihost, shard, worker
+    from lidar_brdf_tpu_torch.runtime.simulate import simulate_chunk
+    scene, bvh, _, mats, _ = tls
+    multihost.initialize_distributed(
+        f"tcp://127.0.0.1:{worker.free_port()}", 1, 0, device=DEVICE)
+    try:
+        mesh = shard.ray_mesh(None if DEVICE == "cuda" else "cpu")
+        backend = dist.get_backend()
+        scene_d, mats_d = shard.replicate((scene, mats), mesh)
+        rep = (scene_d, bvh, mats_d)
+        t0 = time.perf_counter()
+        res = worker.run_workload("tls", mesh, rep, MULTI_PULSES, 0,
+                                  MULTI_PULSES)
+        wall_s = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    summary = res["summary"]["paths"]
+    for path, s in summary.items():
+        expect_launches(f"the one-rank {path} forward", s["fwd_launches"],
+                        {PATH_KERNEL[path]: 1})
+    expect_launches("the one-rank tile step", summary["tile"]["step_launches"],
+                    {"K1": 1})
+    fn, data, _ = res["traverse"]["tile"]
+    args = (rep[0], rep[2], res["rays"], res["noise"], res["scalars"])
+    with torch.no_grad():
+        ref = simulate_chunk(*args, res["cfg"], scene_has_water=False,
+                             traverse_fn=fn, traverse_data=data)
+    cloud = res["clouds"]["tile"]
+    if not same_clouds(cloud, ref):
+        fail("the one-rank tile cloud differs from simulate_chunk's")
+    target = torch.where(cloud.mask, cloud.intensity * 1.3,
+                         torch.zeros_like(cloud.intensity))
+    ref_loss, _, ref_grads = shard.sharded_train_step(
+        shard.RayMesh(None, 0, 1, mesh.device), res["cfg"], traverse_fn=fn,
+        grad_params="full")(*args, target, data)
+    loss, _, grads = res["steps"]["tile"]
+    if not abs(float(loss) - float(ref_loss)) <= 1e-5 * abs(float(ref_loss)):
+        fail(f"the one-rank step's loss {float(loss)} vs {float(ref_loss)}")
+    ref_named = worker.named_grads(ref_grads)
+    errs = {k: within_grad_tol(f"the one-rank step's {k} gradient", g,
+                               ref_named[k])
+            for k, g in worker.named_grads(grads).items()}
+    tile = summary["tile"]
+    log(f"[multirank] {backend}, 1 rank on {mesh.device}: tls "
+        f"{MULTI_PULSES} pulses x {res['rays'].rays_per_pulse} rays, "
+        f"{scene.num_faces} faces in {wall_s:.2f} s; tile cull "
+        f"{tile['prep_s']:.3f} s, forward {tile['fwd_ms']:.2f} ms (first "
+        f"{tile['fwd_first_ms']:.2f}), full step {tile['step_ms']:.2f} ms "
+        f"(first {tile['step_first_ms']:.2f}), packet forward "
+        f"{summary['packet']['fwd_ms']:.2f} ms (first "
+        f"{summary['packet']['fwd_first_ms']:.2f}); loss {float(loss):.6e}; "
+        f"cloud equal to simulate_chunk's, max |dg| / max |g| {errs}; "
+        f"all_reduce {fmt_reduce(tile['all_reduce'])}")
+    return dict(backend=backend, wall_s=wall_s, paths=summary, grad_err=errs)
+
+
+def check_ranks(name, ranks, refs, outdir):
+    """The ranks' results of workload ``name`` against the parent's shards
+    (`worker.run_shards_alone`): each rank's range and PLY shards (bytes
+    equal to the parent's shard written the same way), losses, replicated
+    gradients, updated materials and checksums bit-equal across ranks (a
+    NaN equal to the same NaN) and within phase 7's tolerance of the sum
+    of the shards', origin gradients of each rank within it of its
+    shard's (non-finite entries where the reference's are), one ladder
+    ``t_max``, and (on the card) each path's kernel once per forward and
+    per step.  Returns (max |dg| / max |g| by step path and gradient, the
+    count of non-finite gradient entries where there are any)."""
+    import filecmp
+    import torch
+    from lidar_brdf_tpu_torch.io.ply import write_ply
+    from lidar_brdf_tpu_torch.parallel import worker
+    got = [r["workloads"][name] for r in ranks]
+    for k, (g, ref) in enumerate(zip(got, refs)):
+        s = ref["summary"]
+        if (g["lo"], g["hi"]) != (s["lo"], s["hi"]):
+            fail(f"{name}: rank {k} took pulses [{g['lo']}, {g['hi']}), "
+                 f"not [{s['lo']}, {s['hi']})")
+        for path, cloud in ref["clouds"].items():
+            mine = os.path.join(outdir, f"parent_{name}_{path}.{k}.ply")
+            write_ply(mine, cloud)
+            if not filecmp.cmp(mine, g["paths"][path]["ply"], shallow=False):
+                fail(f"{name}: rank {k}'s {path} PLY shard differs from "
+                     f"the parent's shard {k}")
+            expect_launches(f"{name}: rank {k}'s {path} forward",
+                            g["paths"][path]["fwd_launches"],
+                            {PATH_KERNEL[path]: 1})
+        for path, _ in worker.WORKLOADS[name]["steps"]:
+            expect_launches(f"{name}: rank {k}'s {path} step",
+                            g["paths"][path]["step_launches"],
+                            {PATH_KERNEL[path]: 1})
+    for path in worker.WORKLOADS[name]["paths"]:
+        t_max = {g["paths"][path]["t_max"] for g in got}
+        if path == "ladder" and t_max != {
+                refs[0]["summary"]["paths"][path]["t_max"]}:
+            fail(f"{name}: the ranks' ladder t_max {t_max} is not the "
+                 f"global {refs[0]['summary']['paths'][path]['t_max']}")
+    errs, nonfinite = {}, {}
+    for path, _ in worker.WORKLOADS[name]["steps"]:
+        saved = [torch.load(g["paths"][path]["step_file"], weights_only=True)
+                 for g in got]
+        sums = [g["paths"][path]["grad_sums"] for g in got]
+        differ = []
+        for r, (s, c) in enumerate(zip(saved, sums)):
+            pairs = [("loss", s["loss"], saved[0]["loss"])] + [
+                (f"{k} gradient", s["grads"][k], saved[0]["grads"][k])
+                for k in s["grads"] if k != "origin"] + [
+                (f"updated {k}", s["materials"][k], saved[0]["materials"][k])
+                for k in worker.LEAVES]
+            differ += [f"rank {r}'s {what} (max |d| "
+                       f"{float((a.double() - b.double()).abs().max()):.3e})"
+                       for what, a, b in pairs if not bits_equal(a, b)]
+            differ += [f"rank {r}'s {k} checksum {c[k]} vs {sums[0][k]}"
+                       for k in c if k != "origin" and not (
+                           c[k] == sums[0][k]
+                           or math.isnan(c[k]) and math.isnan(sums[0][k]))]
+        if differ:
+            fail(f"{name}: the {path} step differs between ranks: "
+                 + "; ".join(differ))
+        want = sum(float(ref["steps"][path][0]) for ref in refs)
+        if not abs(float(saved[0]["loss"]) - want) <= 1e-5 * abs(want):
+            fail(f"{name}: the ranks' {path} loss "
+                 f"{float(saved[0]['loss'])} vs the shards' sum {want}")
+        ref_grads = [worker.named_grads(ref["steps"][path][2])
+                     for ref in refs]
+        for key, g in saved[0]["grads"].items():
+            bad = int((~torch.isfinite(g)).sum())
+            if bad:
+                nonfinite[f"{path}.{key}"] = bad
+        for key in saved[0]["grads"]:
+            what = f"{name}: the ranks' {path} {key} gradient"
+            if key == "origin":
+                errs[f"{path}.{key}"] = max(
+                    within_grad_tol(what, s["grads"][key], r[key])
+                    for s, r in zip(saved, ref_grads))
+            else:
+                errs[f"{path}.{key}"] = within_grad_tol(
+                    what, saved[0]["grads"][key],
+                    sum(r[key] for r in ref_grads))
+    return errs, nonfinite
+
+
+def multirank_gloo(tls, als):
+    """11b: MULTI_RANKS ranks over gloo sharing the card, started as
+    subprocesses (`worker.launch`): the `tls` workload at full width (K1
+    once per rank per forward and per step, K4 once in the packet
+    forward) and the `als` ladder path (K2 once per rank per forward and
+    per step, through `prepare_sharded`), held against the same shards
+    computed here (`check_ranks`).  The scenes, BVHs and materials go to
+    the ranks as one `.npz` each, written once."""
+    import tempfile
+    import torch
+    from lidar_brdf_tpu_torch.parallel import worker
+    dev = torch.device(DEVICE)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as outdir:
+        t0 = time.perf_counter()
+        for name, (scene, bvh, _, mats, _) in (("tls", tls), ("als", als)):
+            worker.write_replicated(os.path.join(outdir, f"{name}.npz"),
+                                    scene, bvh, mats)
+        out["write_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = worker.launch(MULTI_RANKS, outdir, ["tls", "als"],
+                              device=DEVICE, backend="gloo",
+                              pulses=MULTI_PULSES, timeout=MULTI_TIMEOUT)
+        out["ranks_s"] = time.perf_counter() - t0
+        out["errs"], out["nonfinite"], out["parent_s"] = {}, {}, {}
+        for name, (scene, bvh, _, mats, _) in (("tls", tls), ("als", als)):
+            t0 = time.perf_counter()
+            rep = (scene.to(dev), bvh, mats.to(dev))
+            total = worker.workload_pulses(name, scene, MULTI_PULSES)
+            refs = worker.run_shards_alone(name, rep, total, MULTI_RANKS,
+                                           DEVICE)
+            out["errs"][name], out["nonfinite"][name] = check_ranks(
+                name, ranks, refs, outdir)
+            out["parent_s"][name] = time.perf_counter() - t0
+            del refs, rep
+    out["ranks"] = ranks
+    for r in ranks:
+        parts = []
+        for name, w in r["workloads"].items():
+            for path, p in w["paths"].items():
+                parts.append(
+                    f"{name} {path}: prep {p['prep_s']:.3f} s, forward "
+                    f"{p['fwd_ms']:.2f} ms (first {p['fwd_first_ms']:.2f})"
+                    + (f", {p['grad_params']} step {p['step_ms']:.2f} ms "
+                       f"(first {p['step_first_ms']:.2f}), "
+                       f"all_reduce {fmt_reduce(p['all_reduce'])}, "
+                       f"{p['reduced_bytes']} B reduced"
+                       if "step_ms" in p else ""))
+            parts[-1] += (f" [{w['hi'] - w['lo']} pulses, load "
+                          f"{w['load_s']:.2f} s, {w['seconds']:.2f} s]")
+        log(f"[multirank] gloo rank {r['rank']} of {r['world']} on "
+            f"{r['device']}: wall {r['wall_s']:.2f} s; " + "; ".join(parts))
+    log(f"[multirank] gloo, {MULTI_RANKS} ranks sharing "
+        f"{'one card' if DEVICE == 'cuda' else 'the CPU'} (not a "
+        f"scaling figure): .npz written in {out['write_s']:.2f} s, ranks "
+        f"{out['ranks_s']:.2f} s, parent's shards "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in out["parent_s"].items())
+        + "; PLY shards equal the parent's, losses and replicated gradients "
+        f"bit-equal across ranks; max |dg| / max |g| vs the shards' sums "
+        f"{out['errs']}; non-finite gradient entries (the same on every "
+        f"rank and in the parent's shards) {out['nonfinite']}")
+    return out
+
+
+def phase_multirank(tls, als):
+    """Phase 11 (11a, 11b), with its seconds."""
+    t0 = time.perf_counter()
+    res = dict(nccl=multirank_nccl(tls), gloo=multirank_gloo(tls, als))
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[multirank] phase 11 took {res['seconds']:.1f} s")
+    return res
+
+
 def main() -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
@@ -2640,9 +2919,26 @@ def main() -> int:
         r["launches"]["K2"] for r in runtime["als_repeat"]]
     k4["launches_examples"] = {
         k: v["launches"]["K4"] for k, v in runtime["examples"].items()}
+    multirank = phase_multirank(tls, als)
+    gloo = [r["workloads"] for r in multirank["gloo"]["ranks"]]
+    nccl = multirank["nccl"]["paths"]
+    k1["launches_multirank"] = dict(
+        one_rank=[nccl["tile"]["fwd_launches"]["K1"],
+                  nccl["tile"]["step_launches"]["K1"]],
+        per_rank=[[w["tls"]["paths"]["tile"]["fwd_launches"]["K1"],
+                   w["tls"]["paths"]["tile"]["step_launches"]["K1"]]
+                  for w in gloo])
+    k2["launches_multirank"] = dict(per_rank=[
+        [w["als"]["paths"]["ladder"]["fwd_launches"]["K2"],
+         w["als"]["paths"]["ladder"]["step_launches"]["K2"]] for w in gloo])
+    k4["launches_multirank"] = dict(
+        one_rank=nccl["packet"]["fwd_launches"]["K4"],
+        per_rank=[w["tls"]["paths"]["packet"]["fwd_launches"]["K4"]
+                  for w in gloo])
     phase_profiles(k1_chunk_data, k1, k3, k2_chunk_data, k2)
     log(json.dumps({"card": card, "tls_forward": tls_fwd,
                     "files": files, "runtime": runtime,
+                    "multirank": multirank,
                     "als_forward": als_fwd, "water_forward": water_fwd,
                     "tls_packet_walk_forward": tls_walk,
                     "traverser_choice": choice, "fwd_bwd": training,

@@ -123,6 +123,33 @@ def kernel_smoke(device="cuda"):
                            f"{type(exc).__name__}: {exc}") from exc
 
 
+def sensor_config(config: str, num_pulses: int, rays_per_pulse: int,
+                  max_returns: int) -> SensorConfig:
+    """The config's sensor, as `bench.py::build_workload` sets it
+    (bench.py:153-190): the ALS zig-zag flight for ``als``, the alpha-prime
+    preset for ``alphaprime``, else the 360 x 100 degree TLS scan of
+    ``num_pulses // 64`` columns of 64 pulses."""
+    common = dict(rays_per_pulse=rays_per_pulse, max_returns=max_returns,
+                  chunk_pulses=num_pulses, shading_mode=ShadingMode.MEASURED,
+                  include_shiny_surface_error=True)
+    if config == "als":
+        return SensorConfig(
+            lidar_type=LiDARType.AERIAL_ZIGZAG, als_position=(0.0, 120.0, 0.0),
+            als_fov_horizontal=70.0, als_fov_vertical=4.5,
+            als_scan_frequency=40, als_pulse_frequency=2560, als_speed=30.0,
+            max_range=400.0, **common)
+    if config == "alphaprime":
+        return get_preset("alpha_prime").with_(
+            tls_position=(0.0, 10.0, 0.0), tls_middle_angle_vertical=-25.0,
+            tls_fov_vertical=100.0, **common)
+    return SensorConfig(
+        lidar_type=LiDARType.TERRESTRIAL_SPHERICAL,
+        tls_position=(0.0, 10.0, 0.0), tls_fov_horizontal=360.0,
+        tls_fov_vertical=100.0, tls_middle_angle_vertical=-35.0,
+        tls_resolution_horizontal=num_pulses // 64,
+        tls_resolution_vertical=64, **common)
+
+
 def build_workload(config: str, num_pulses: int, rays_per_pulse: int,
                    max_returns: int, scene_kind: str, num_tris: int):
     """Scene, BVH, config, host rays and materials, as `bench.py::
@@ -137,15 +164,8 @@ def build_workload(config: str, num_pulses: int, rays_per_pulse: int,
             rng, num_buildings=max((num_tris - 128) // 12, 1))
     scene = api.attach_face_neighbors(scene)
     bvh = api.build_scene_bvh(scene)
-    common = dict(rays_per_pulse=rays_per_pulse, max_returns=max_returns,
-                  chunk_pulses=num_pulses, shading_mode=ShadingMode.MEASURED,
-                  include_shiny_surface_error=True)
+    cfg = sensor_config(config, num_pulses, rays_per_pulse, max_returns)
     if config == "als":
-        cfg = SensorConfig(
-            lidar_type=LiDARType.AERIAL_ZIGZAG, als_position=(0.0, 120.0, 0.0),
-            als_fov_horizontal=70.0, als_fov_vertical=4.5,
-            als_scan_frequency=40, als_pulse_frequency=2560, als_speed=30.0,
-            max_range=400.0, **common)
         lo, hi = scene.aabb()
         plan = plan_flight(cfg, as_numpy(lo), as_numpy(hi),
                            np.random.default_rng(cfg.seed))
@@ -154,18 +174,6 @@ def build_workload(config: str, num_pulses: int, rays_per_pulse: int,
                               noise_mod.make_raygen_noise(cfg.seed + 1),
                               count=min(num_pulses, plan.num_pulses))
     else:
-        if config == "alphaprime":
-            cfg = get_preset("alpha_prime").with_(
-                tls_position=(0.0, 10.0, 0.0),
-                tls_middle_angle_vertical=-25.0, tls_fov_vertical=100.0,
-                **common)
-        else:
-            cfg = SensorConfig(
-                lidar_type=LiDARType.TERRESTRIAL_SPHERICAL,
-                tls_position=(0.0, 10.0, 0.0), tls_fov_horizontal=360.0,
-                tls_fov_vertical=100.0, tls_middle_angle_vertical=-35.0,
-                tls_resolution_horizontal=num_pulses // 64,
-                tls_resolution_vertical=64, **common)
         rays = api.build_rays(cfg, scene, device="cpu")
     host = {k: as_numpy(getattr(rays, k))
             for k in ("origin", "direction", "gps_time")}

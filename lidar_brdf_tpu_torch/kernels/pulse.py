@@ -24,8 +24,8 @@ reorders pulses bucket-contiguously so that results come back by slicing
 (`PermutedLayout`, one compiled executable per layout) because TPU scatter
 is slow.  Here a bucket on the device is just ``(pidx (B,) i32, cand (B, K)
 i32)``: the kernel gathers rows from the (F, 12) Wald table itself and
-writes through ``pidx``.  The multi-device `prepare_sharded` waits for the
-multi-GPU slice.
+writes through ``pidx``.  `PulseLadderTraverser.prepare_sharded` gives one
+rank of a multi-process scan its own ladders (`parallel/shard.py`).
 """
 
 from __future__ import annotations
@@ -35,13 +35,14 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.distributed import ReduceOp
 
 from ..core.types import BVH, Hit, TriangleScene, as_numpy, resolve_device
 from ..geom.beamcull import (_collect_candidates, beams_are_narrow,
                              tile_beams, wald_rows_np)
 from ..geom.intersect import BIG
 from .cuda_build import CudaLibrary, check_tensor, raw_stream
-from .traverse import CAND_BLOCK, wald_blocks_plain
+from .traverse import CAND_BLOCK, default_t_max, wald_blocks_plain
 
 LANES = 128          # bucket rows are padded to a multiple of this
 MAX_THREADS = 128    # K2 (csrc/pulse_traverse.cu): threads of a block,
@@ -368,10 +369,7 @@ class PulseLadderTraverser:
     def _resolve_t_max(self, bvh: BVH, o: np.ndarray,
                        t_max: float | None) -> float:
         if t_max is None:
-            nmin = np.asarray(bvh.node_min)[0]
-            nmax = np.asarray(bvh.node_max)[0]
-            far = np.linalg.norm(o - np.clip(o, nmin, nmax), axis=-1).max()
-            t_max = float(np.linalg.norm(nmax - nmin) + far + 1.0)
+            t_max = default_t_max(bvh, o)
         self.t_max = float(t_max)
         return self.t_max
 
@@ -393,6 +391,27 @@ class PulseLadderTraverser:
         t_max = self._resolve_t_max(bvh, o, t_max)
         return self.upload(build_pulse_ladders(bvh, o, d, self.kernel_rays,
                                                t_max=t_max))
+
+    def prepare_sharded(self, bvh: BVH, origin, direction, mesh,
+                        t_max: float | None = None) -> PulseLadders:
+        """This rank's ladders, with pulse ids local to its shard
+        (counterpart of `pulse_pallas.py::PulseLadderTraverser.
+        prepare_sharded`).
+
+        ``origin``/``direction`` are the rank's own rays; ``mesh`` its
+        `parallel/shard.py::RayMesh`.  ``t_max`` None is resolved over the
+        pulses of every rank, as the JAX package resolves it over all pulses
+        before it splits them: each rank's `default_t_max` of its own rays,
+        reduced by MAX over the mesh (exact: the rule is monotone in the far
+        distance).  The JAX version pads every shard to the union of the
+        shards' ladders so that `shard_map` sees one shape; here each rank
+        holds what `prepare` gives on its slice.  Sets ``self.t_max``.
+        """
+        if t_max is None:
+            local = torch.tensor([default_t_max(bvh, origin)],
+                                 dtype=torch.float64, device=mesh.device)
+            t_max = float(mesh.all_reduce(local, ReduceOp.MAX)[0])
+        return self.prepare(bvh, origin, direction, t_max=t_max)
 
     def __call__(self, origin, direction, traverse_data) -> Hit:
         shape = origin.shape[:-1]

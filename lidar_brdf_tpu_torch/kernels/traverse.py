@@ -239,6 +239,17 @@ def wald_t_m_plain(wald, o, d, ids, tm):
     return torch.where(ok, t, tm)
 
 
+def default_t_max(bvh: BVH, origin) -> float:
+    """The kernels' far bound when the caller gives none: the scene's
+    diagonal, plus the farthest origin's distance from the scene's box,
+    plus 1 (the JAX package's rule, in float32 as there)."""
+    nmin = np.asarray(bvh.node_min)[0]
+    nmax = np.asarray(bvh.node_max)[0]
+    o = np.asarray(as_numpy(origin), np.float32).reshape(-1, 3)
+    far = np.linalg.norm(o - np.clip(o, nmin, nmax), axis=-1).max()
+    return float(np.linalg.norm(nmax - nmin) + far + 1.0)
+
+
 class TileTraverser:
     """Scene-bound tile traverser: host prep + device call.
 
@@ -317,13 +328,17 @@ class TileTraverser:
                 t_max: float | None = None):
         """Host prep for one chunk: ((tidx, cand, bnd) per bucket) on the
         traverser's device.  Sets ``self.t_max``."""
-        buckets = self.build_buckets(bvh, origin, direction, t_max=t_max)
+        return self.pack_buckets(
+            bvh, self.build_buckets(bvh, origin, direction, t_max=t_max),
+            origin, direction, t_max)
+
+    def pack_buckets(self, bvh: BVH, buckets, origin, direction,
+                     t_max: float | None = None):
+        """Host (tidx, cand) buckets of `build_buckets` -> ((tidx, cand,
+        bnd) per bucket) on the traverser's device, with the kernel's
+        ``t_max`` (None: resolved from ``origin``).  Sets ``self.t_max``."""
         if t_max is None:
-            nmin = np.asarray(bvh.node_min)[0]
-            nmax = np.asarray(bvh.node_max)[0]
-            o = np.asarray(as_numpy(origin), np.float32).reshape(-1, 3)
-            far = np.linalg.norm(o - np.clip(o, nmin, nmax), axis=-1).max()
-            t_max = float(np.linalg.norm(nmax - nmin) + far + 1.0)
+            t_max = default_t_max(bvh, origin)
         self.t_max = float(t_max)
         bounds = self.bucket_bounds(bvh, buckets, origin, direction)
         put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(

@@ -231,6 +231,56 @@ def test_chip_smoke_runtime_phase_on_cpu(monkeypatch, capsys):
         "chip_smoke_checkpoint"))
 
 
+def test_chip_smoke_multirank_phase_on_cpu(monkeypatch, capsys):
+    """Phase 11 at a small size on the CPU: one rank over gloo in process
+    (the tls cloud equal to `simulate_chunk`'s, gradients within phase 7's
+    tolerance of a step with no collective), then 4 gloo ranks as
+    subprocesses on the tls and als workloads, held against the parent's
+    own shards (PLY shards byte-equal, bit-equal losses and gradients
+    across ranks, one ladder t_max)."""
+    import torch.distributed as dist
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "TLS_PULSES", 1024)
+    monkeypatch.setattr(chip_smoke, "TLS_TRIS", 2000)
+    monkeypatch.setattr(chip_smoke, "ALS_PULSES", 1024)
+    monkeypatch.setattr(chip_smoke, "ALS_TRIS", 20_000)
+    monkeypatch.setattr(chip_smoke, "MULTI_PULSES", 1024)
+    monkeypatch.setattr(chip_smoke, "MULTI_TIMEOUT", 300)
+    tls = chip_smoke.tls_workload("cpu")
+    als = chip_smoke.als_workload("cpu")
+    res = chip_smoke.phase_multirank(tls, als)
+    assert not dist.is_initialized()
+    assert res["nccl"]["backend"] == "gloo"
+    assert set(res["nccl"]["paths"]) == {"tile", "packet"}
+    ranks = res["gloo"]["ranks"]
+    assert [r["rank"] for r in ranks] == [0, 1, 2, 3]
+    for r in ranks:
+        assert r["workloads"]["tls"]["hi"] - r["workloads"]["tls"]["lo"] \
+            == 256
+        als_step = r["workloads"]["als"]["paths"]["ladder"]
+        assert als_step["loss"] > 0 and als_step["reduced_bytes"] > 0
+    assert set(res["gloo"]["errs"]) == {"tls", "als"}
+    assert "tile.vertices" in res["gloo"]["errs"]["tls"]
+    out = capsys.readouterr().out
+    assert "[multirank] gloo, 1 rank on cpu" in out
+    assert "[multirank] gloo rank 3 of 4" in out
+    assert "not a scaling figure" in out
+
+
+def test_phase_11_comparisons_treat_nan_as_a_value():
+    """A NaN equals the same NaN bit for bit; a gradient within tolerance
+    must be non-finite exactly where its reference is."""
+    nan = float("nan")
+    a = torch.tensor([1.0, nan, 3.0])
+    assert chip_smoke.bits_equal(a, a.clone())
+    assert not chip_smoke.bits_equal(a, torch.tensor([1.0, 2.0, 3.0]))
+    assert chip_smoke.within_grad_tol("g", a + 1e-5, a) < 1e-4
+    with pytest.raises(SystemExit, match="non-finite"):
+        chip_smoke.within_grad_tol("g", torch.tensor([nan, 2.0, 3.0]), a)
+    with pytest.raises(SystemExit, match="max"):
+        chip_smoke.within_grad_tol("g", a * 2, a)
+
+
 def test_chip_smoke_refuses_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
