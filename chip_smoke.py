@@ -26,9 +26,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    128 rays), whole blocks of padding inside hand-built ladders and
    tail-padded ladders, and one real `als` chunk of 131,072 pulses culled as
    `Simulator._prep` does it (one launch per call).  Both timed with CUDA
-   events on their real chunk; then K1 and K2 on the same pulses of both
-   scenes (the traverser-choice figures; K2 on the `tls` chunk back to
-   back and on a queue).
+   events on their real chunk; then K1, K2 and K4 (no cull, scan order)
+   on the same pulses of both scenes (the traverser-choice figures; K2 on
+   the `tls` chunk back to back and on a queue).
 3. The `tls` forward scan at full width through `api.simulate` (1,310,720
    rays over a ~40k-face city), warm, then timed; the launch counts are
    reset just before the timed run: K1 once per chunk, K2 not.
@@ -41,10 +41,14 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    chunks of 131,072), warm on 8,192, then timed: K2 once per chunk (level 0), K4 twice (levels 1 and
    2), K1 not; it must give bottom returns.  Then the `tls` scan through
    `Simulator(use_culled=False)` (no host cull): K4 once per chunk, no K1.
+   The water chunk's bounce levels must hand the walk their active masks.
    K4 against its plain version, faces and t bit for bit and walks as
-   long: a fan over boxes, the grazing fan, zero-direction rays, the `tls`
-   rays in scan order and the water chunk's level-1 rays, the last two
-   timed with CUDA events.
+   long, on every ray and with a mask: a fan over boxes, the grazing fan
+   and zero-direction rays at every packet width (1, 128), the `tls`
+   rays in scan order and the water chunk's level-1 and level-2 rays at
+   `PACKET`; a masked call under `torch.cuda.set_sync_debug_mode("error")`
+   (no host sync); K4 timed with CUDA events on the water levels (masked
+   and every ray) and the `tls` rays, beside both bounds.
 5. Card vs CPU at a small size (L = 1 and 2): same seed, same rays, for
    the TLS tile path and the ALS pulse path; `tests/test_water.py`'s
    bathymetric scan (L = 3, K1 and K4); an ANALYTIC scan whose materials
@@ -120,12 +124,17 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 The line before the last is `{"kernels": [...]}`; the last line is
 `{"ok": true, "device": {...}}`.  It imports nothing of JAX.
 
-`python3 chip_smoke.py --k1-chunk` runs K1 alone on the `tls` chunk and
+`python3 chip_smoke.py --k1-chunk` runs K1 alone on the `tls` chunk,
 `--k2-chunk` K2 alone on the `als` chunk and on the `tls` chunk's
-ladders; each prints one JSON line
-(launches per call, CUDA-event and profiler times).  A copy of the script
-in the root of another tree of the repo measures that tree's kernel the
-same way.
+ladders, and `--k4-chunk` K4 alone on the water chunk's level-1 and
+level-2 rays, the `tls` rays and the `als` chunk's rays at every packet
+width, masked and not, beside both bounds; each prints one JSON line
+(launches per call, CUDA-event and profiler times).  `--water-scan` runs
+the topo-bathymetric scan of phase 4b alone, twice, and prints each
+run's wall, host cull and device seconds.  A copy of the script in the
+root of another tree of the repo measures that tree's kernel or scan the
+same way (a tree whose K4 takes no mask: every ray, in its 128-ray
+tiles).
 """
 
 from __future__ import annotations
@@ -164,6 +173,7 @@ WATER_PULSES = 1_048_576        # the topo-bathymetric scan: eight chunks
 WATER_WARM = 8192               # its warm run
 WATER_CELLS = 64                # water plane cells a side (8,192 faces)
 STEP_ITERS = 5                  # timed training steps per measurement
+K4_REPS = 10                    # K4 calls a CUDA-event timing (2, 4b)
 K3_BIG = 1 << 20                # K3 vs plain on 1M elements as well
 FORWARD_PULSES = 1_048_576      # the bench's forward config (phase 10a)
 FORWARD_CHUNK = 131072          # its chunks (8); 2 for the checkpoint
@@ -474,13 +484,14 @@ def phase_card_and_build():
     torch.cuda.synchronize()
     if not torch.equal(y, x * 2.0 + 1.0):
         fail("K3 one-tile launch did not give 2x + 1")
-    # a one-leaf tree over the same triangle: 128 rays, one tile
-    tri = torch.tensor([[-1.0, -1.0, 50.0, 2.0, 0.0, 0.0, 1.0, 2.0, 0.0]],
-                       device="cuda")
+    # a one-leaf tree over the same triangle: 128 rays
+    from lidar_brdf_tpu_torch.geom.packet import triangle_rows
+    tri = triangle_rows(torch.from_numpy(v).cuda(),
+                        torch.tensor([[0, 1, 2]], device="cuda"))
     box = torch.tensor([[-1.0, -1.0, 50.0, 1.0, 1.0, 50.0]], device="cuda")
     i32 = dict(dtype=torch.int32, device="cuda")
-    t, f = kpk.packet_traverse(box, torch.ones(1, **i32),
-                               torch.zeros(1, **i32), tri, o, d)
+    nodes = kpk.node_records(box, torch.ones(1, **i32), torch.zeros(1, **i32))
+    t, f = kpk.packet_traverse(*nodes, tri, o, d)
     torch.cuda.synchronize()
     if not (bool((f == 0).all()) and bool(((t - 50.0).abs() < 1e-5).all())):
         fail(f"K4 one-leaf launch gave faces {f.unique().tolist()}")
@@ -936,11 +947,27 @@ def phase_k2_vs_plain(als):
 
 
 def phase_traverser_choice(tls, als, k1, als_sim):
-    """K1 and K2 on the same pulses of both scenes: device ms and host cull
-    seconds.  Figures only; the auto rule stays the JAX package's."""
+    """K1, K2 and K4 on the same pulses of both scenes: device ms and host
+    cull seconds (K4 culls nothing: its scene's pack seconds instead, once
+    a scene).  Figures only; the auto rule stays the JAX package's."""
+    from lidar_brdf_tpu_torch.geom.packet import pack_scene
+    from lidar_brdf_tpu_torch.kernels import packet as kpk
     from lidar_brdf_tpu_torch.kernels import pulse as pp
     from lidar_brdf_tpu_torch.kernels import traverse as tr
     from lidar_brdf_tpu_torch.runtime.simulate import Simulator, bsp_order
+
+    def k4(scene, bvh, rays):
+        """K4 on ``rays`` in scan order, no cull: (queued ms, pack s)."""
+        t0 = time.perf_counter()
+        packed = pack_scene(scene.to(DEVICE), bvh)
+        sync()
+        pack_s = time.perf_counter() - t0
+        o = rays.origin.reshape(-1, 3).contiguous()
+        d = rays.direction.reshape(-1, 3).contiguous()
+        ms = cuda_ms(lambda: kpk.packet_traverse(*packed, o, d), K4_REPS,
+                     queued=True)
+        return ms, pack_s
+
     out = {}
     # tls chunk: K1 figures from phase 2; K2 on ladders in scan order
     scene, rays = tls[0], tls[4]
@@ -949,8 +976,10 @@ def phase_traverser_choice(tls, als, k1, als_sim):
     k2 = lambda: pp.pulse_traverse(t2.wald, og, dg, data, t2.t_max,
                                    t2.kernel_rays)
     ms2 = cuda_ms(k2, 20)
+    ms4, pack4 = k4(scene, tls[1], rays)
     out["tls"] = dict(faces=scene.num_faces, pulses=n, k1_ms=k1["ms"],
                       k1_cull_s=k1["cull_s"], k2_ms=ms2, k2_cull_s=cull2,
+                      k4_ms=ms4, k4_cull_s=0.0, k4_pack_s=pack4,
                       k2_queued_ms=cuda_ms(k2, 20, queued=True),
                       k2_launches_per_call=launches_in(pp.KERNEL, k2),
                       k2_buckets=[tuple(c.shape) for _, c in data])
@@ -980,14 +1009,17 @@ def phase_traverser_choice(tls, als, k1, als_sim):
     d2 = sl2.direction.reshape(-1, 3).contiguous()
     ms2 = cuda_ms(lambda: pp.pulse_traverse(t2.wald, o2, d2, data2, t2.t_max,
                                             t2.kernel_rays), 20)
+    ms4, pack4 = k4(scene, bvh, sub)
     out["als"] = dict(faces=scene.num_faces, pulses=n, k1_ms=ms1,
                       k1_cull_s=cull1, k2_ms=ms2, k2_cull_s=cull2,
+                      k4_ms=ms4, k4_cull_s=0.0, k4_pack_s=pack4,
                       k1_buckets=[tuple(c.shape) for _, c, _ in data1],
                       k2_buckets=[tuple(c.shape) for _, c in data2])
     for name, r in out.items():
         log(f"[choice] {name} ({r['faces']} faces, {r['pulses']} pulses): "
             f"K1 {r['k1_ms']:.4f} ms + host cull {r['k1_cull_s']:.3f} s; "
-            f"K2 {r['k2_ms']:.4f} ms + host cull {r['k2_cull_s']:.3f} s")
+            f"K2 {r['k2_ms']:.4f} ms + host cull {r['k2_cull_s']:.3f} s; "
+            f"K4 {r['k4_ms']:.4f} ms, no cull (pack {r['k4_pack_s']:.3f} s)")
     r = out["tls"]
     log(f"[choice] tls K2 (buckets {r['k2_buckets']}): "
         f"{r['k2_launches_per_call']} launch(es) per call; back-to-back "
@@ -1123,8 +1155,8 @@ def compare_clouds(what, g, c, bathymetric=False, analytic=False):
 
 
 def pad_tiles(o, d):
-    """Rays (N, 3) padded to whole 128-ray tiles as `intersect_packed_scene`
-    pads them (origin 1e10, direction 0)."""
+    """Rays (N, 3) padded to whole 128-ray tiles (origin 1e10, direction
+    0), as the first K4 took them (the parent tree's, in `--k4-chunk`)."""
     import torch
     pad = (-o.shape[0]) % 128
     if pad:
@@ -1151,56 +1183,102 @@ def once_ms(fn) -> float:
     return start.elapsed_time(end)
 
 
-def compare_k4(name, packed, o, d):
-    """K4 vs its plain version on rays ``o``/``d`` (padded to tiles here):
-    faces equal, t equal bit for bit, every tile's walk as long.  Returns
-    (steps (T, 2): node steps and leaf steps per tile, the plain version's
-    ms for the call, the max |dt| over the rays that hit in both)."""
+def compare_k4(name, packed, o, d, active=None, width=None):
+    """K4 vs its plain version on rays ``o``/``d`` with the mask
+    ``active`` (None: every ray) in packets of ``width`` (None: `PACKET`):
+    faces equal, t equal bit for bit, every packet's walk as long, the rows
+    of ``steps`` past the walked packets untouched by both.  Returns
+    (steps (K, 2) of the K packets walked: node steps and leaf steps, the
+    plain version's ms for the call, the max |dt| over the rays that hit
+    in both)."""
     import torch
     from lidar_brdf_tpu_torch.kernels import packet as kpk
-    o, d = pad_tiles(o, d)
-    T = o.shape[0] // 128
-    steps_k = torch.zeros((T, 2), dtype=torch.int32, device=o.device)
-    steps_p = torch.zeros_like(steps_k)
-    t_k, f_k = kpk.packet_traverse(*packed, o, d, steps=steps_k)
+    width = kpk.PACKET if width is None else width
+    rows = kpk.packets(o.shape[0], width)
+    steps_k = torch.full((rows, 2), -1, dtype=torch.int32, device=o.device)
+    steps_p = steps_k.clone()
+    t_k, f_k = kpk.packet_traverse(*packed, o, d, steps_k, active=active,
+                                   width=width)
     out = {}
     plain_ms = once_ms(lambda: out.setdefault("p", kpk.packet_traverse_plain(
-        *packed, o, d, steps=steps_p)))
+        *packed, o, d, steps_p, active=active, width=width)))
     t_p, f_p = out["p"]
     sync()
+    what = f"{name}, {'masked' if active is not None else 'all rays'}, " \
+        f"packets of {width}"
     diff = (f_k != f_p).nonzero().flatten()
     if diff.numel():
-        fail(f"{name}: {diff.numel()} faces differ between K4 and plain "
+        fail(f"{what}: {diff.numel()} faces differ between K4 and plain "
              f"(first rays {diff[:5].tolist()})")
     hit = (f_k >= 0) & (f_p >= 0)
     err = float((t_k[hit] - t_p[hit]).abs().max()) if bool(hit.any()) \
         else 0.0
     if not torch.equal(t_k, t_p):
-        fail(f"{name}: t not bit-equal between K4 and plain (max |dt| over "
+        fail(f"{what}: t not bit-equal between K4 and plain (max |dt| over "
              f"hits {err:.3e})")
     if not torch.equal(steps_k, steps_p):
-        fail(f"{name}: walk lengths differ between K4 and plain")
-    log(f"[kernel] {name}: {o.shape[0]} rays ({T} tiles), {int(hit.sum())} "
-        f"hits: faces equal, max |dt| {err:.3e}, t equal bit for bit; node "
-        f"steps {int(steps_k[:, 0].sum())} (leaves "
-        f"{int(steps_k[:, 1].sum())}), longest walk "
-        f"{int(steps_k[:, 0].max())}; plain {plain_ms:.1f} ms")
-    return steps_k, plain_ms, err
+        fail(f"{what}: walk lengths differ between K4 and plain")
+    n_act = o.shape[0] if active is None else int(active.sum())
+    walked = int((steps_k[:, 0] >= 0).sum())
+    if walked != kpk.packets(n_act, width) or \
+            not bool((steps_k[walked:] == -1).all()):
+        fail(f"{what}: {walked} packets walked for {n_act} active rays")
+    if active is not None and not bool((f_k[~active] == -1).all()):
+        fail(f"{what}: an inactive ray was given a hit")
+    steps = steps_k[:walked]
+    log(f"[kernel] {what}: {o.shape[0]} rays ({n_act} active, {walked} "
+        f"packets), {int(hit.sum())} hits: faces equal, max |dt| "
+        f"{err:.3e}, t equal bit for bit; node steps "
+        f"{int(steps[:, 0].sum())} (leaves {int(steps[:, 1].sum())}), "
+        f"longest walk {int(steps[:, 0].max()) if walked else 0}; plain "
+        f"{plain_ms:.1f} ms")
+    return steps, plain_ms, err
 
 
-def k4_bound(steps, n_rays):
-    """(bound ms, "bytes" or "operations", ops ms, bytes ms) of one K4
-    call: the counted steps x 128 lanes x the operations a step does (the
-    slab test at a node, Moller-Trumbore at a leaf), and 32 bytes a ray
-    (rays in, (t, face) out; the node and triangle rows that the rays of
-    a tile share are not counted)."""
-    node = int(steps[:, 0].sum())
-    leaf = int(steps[:, 1].sum())
-    ops = 128 * ((node - leaf) * OPS_BOX + leaf * OPS_TRI)
-    ops_ms = ops / H100_F32_OPS_PER_S * 1e3
-    bytes_ms = 32 * n_rays / H100_BYTES_PER_S * 1e3
-    return (max(ops_ms, bytes_ms),
-            "operations" if ops_ms >= bytes_ms else "bytes", ops_ms, bytes_ms)
+def k4_walks(packed, o, d, active=None):
+    """The walk lengths both K4 bounds count, from K4 itself: 128-ray tiles
+    over every ray (what the first K4 walked) and each active ray alone
+    (width 1).  Returns (tile steps (T, 2), solo steps (A, 2))."""
+    import torch
+    from lidar_brdf_tpu_torch.kernels import packet as kpk
+    n = o.shape[0]
+    n_act = n if active is None else int(active.sum())
+    tile = torch.zeros((kpk.packets(n, 128), 2), dtype=torch.int32,
+                       device=o.device)
+    kpk.packet_traverse(*packed, o, d, tile, width=128)
+    solo = torch.zeros((n, 2), dtype=torch.int32, device=o.device)
+    kpk.packet_traverse(*packed, o, d, solo, active=active, width=1)
+    sync()
+    return tile, solo[:n_act]
+
+
+def k4_ops(steps, lanes: int = 1) -> int:
+    """f32 operations of walks: a box test at an internal node, a
+    Moller-Trumbore test at a leaf, on ``lanes`` rays a step."""
+    node, leaf = int(steps[:, 0].sum()), int(steps[:, 1].sum())
+    return lanes * ((node - leaf) * OPS_BOX + leaf * OPS_TRI)
+
+
+def k4_bound(tile_steps, solo_steps, n_rays, n_active) -> dict:
+    """Both bounds of one K4 call, in ms.  ``work_ms``: what these inputs
+    need, the sum over the rays the call answers of each one's solo walk
+    (`k4_walks`) x its operations; ``yardstick_ms``: the first K4's
+    128-ray tiles over every ray x 128 lanes (the figure PRs 6-9 held K4
+    against, one figure for old and new times); ``bytes_ms``: 32 bytes an
+    answered ray (rays in, (t, face) out) and 9 an inactive one (its mask
+    byte and the miss written), the node and triangle records that rays
+    share not counted.  ``bound_ms`` = max(work, bytes)."""
+    work_ms = k4_ops(solo_steps) / H100_F32_OPS_PER_S * 1e3
+    yard_ms = k4_ops(tile_steps, 128) / H100_F32_OPS_PER_S * 1e3
+    nbytes = 32 * n_active + 9 * (n_rays - n_active)
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    return dict(bound_ms=max(work_ms, bytes_ms),
+                bound_by="operations" if work_ms >= bytes_ms else "bytes",
+                work_ms=work_ms, yardstick_ms=yard_ms, bytes_ms=bytes_ms,
+                solo_node_steps=int(solo_steps[:, 0].sum()),
+                solo_leaf_steps=int(solo_steps[:, 1].sum()),
+                tile_node_steps=int(tile_steps[:, 0].sum()),
+                tile_leaf_steps=int(tile_steps[:, 1].sum()))
 
 
 def grazing_fan():
@@ -1255,17 +1333,54 @@ def water_workload(als):
     return scene, bvh, cfg, mats, rays
 
 
+def capture_walk(packed):
+    """A packet walk over ``packed`` that records what it is handed:
+    (walk, list of (origins (N, 3), directions (N, 3), active (N,) or
+    None)).  A tree whose walk takes no mask (before K4's packets, as
+    `--k4-chunk` finds the parent) never hands it one."""
+    from lidar_brdf_tpu_torch.geom import packet as gp
+    seen = []
+
+    def walk(o, d, active=None):
+        seen.append((o.reshape(-1, 3), d.reshape(-1, 3),
+                     None if active is None else active.reshape(-1)))
+        kw = {} if active is None else dict(active=active)
+        return gp.intersect_packed_scene(packed, o, d, **kw)
+
+    return walk, seen
+
+
+def water_levels(water):
+    """The water scan's first chunk once more through a `Simulator` whose
+    packet walk records what it is handed (`capture_walk`), in the chunk's
+    bucket order as on the main path: per bounce level, (packed scene,
+    origins, directions, active mask or None)."""
+    from lidar_brdf_tpu_torch.geom.packet import pack_scene
+    from lidar_brdf_tpu_torch.runtime.simulate import Simulator
+    scene, bvh, cfg, mats, rays = water
+    sim = Simulator(scene=scene, bvh=bvh, materials=mats, cfg=cfg,
+                    device=DEVICE)
+    packed = pack_scene(sim.scene, sim.bvh)
+    sim.packet_fn, seen = capture_walk(packed)
+    n = min(cfg.chunk_pulses, rays.num_pulses)
+    sl, data, _ = sim._prep(host_rays(head(rays, n)), 0, n, n)
+    sim.run_chunk(sl, 0, data)
+    sync()
+    if len(seen) != cfg.max_returns - 1:
+        fail(f"the water chunk walked {len(seen)} bounce levels, not "
+             f"{cfg.max_returns - 1}")
+    return [(packed, *x) for x in seen]
+
+
 def phase_water(water):
     """The topo-bathymetric scan through `api.simulate`, timed after a
     warm run: K2 once a chunk (level 0), K4 twice (the refracted levels 1
     and 2), K1 never; it must give bottom returns (ASPRS 2 at return
-    number >= 1).  Then the first chunk once more through a `Simulator`
-    whose packet walk keeps the level-1 rays it is handed (in the chunk's
-    bucket order, as on the main path).  Returns (launches, the scan's
-    record, (packed scene, level-1 origins, level-1 directions))."""
-    from lidar_brdf_tpu_torch.geom.packet import (intersect_packed_scene,
-                                                  pack_scene)
-    from lidar_brdf_tpu_torch.runtime.simulate import Simulator
+    number >= 1).  Then the first chunk once more (`water_levels`): the
+    walk must be handed each bounce level's active mask.  Returns
+    (launches, the scan's record, the levels' (packed scene, origins,
+    directions, mask))."""
+    import torch
     scene, bvh, cfg, mats, rays = water
     L = cfg.max_returns
     launches, cloud, res = phase_forward(
@@ -1279,39 +1394,38 @@ def phase_water(water):
     if bottom <= 0:
         fail("the water scan gave no bottom returns")
     res.update(surface_returns=surface, bottom_returns=bottom)
-    sim = Simulator(scene=scene, bvh=bvh, materials=mats, cfg=cfg,
-                    device=DEVICE)
-    packed = pack_scene(sim.scene, sim.bvh)
-    seen = []
-
-    def walk(o, d):
-        seen.append((o.reshape(-1, 3), d.reshape(-1, 3)))
-        return intersect_packed_scene(packed, o, d)
-
-    sim.packet_fn = walk
-    n = min(cfg.chunk_pulses, rays.num_pulses)
-    sl, data, _ = sim._prep(host_rays(head(rays, n)), 0, n, n)
-    sim.run_chunk(sl, 0, data)
-    sync()
-    if len(seen) != L - 1:
-        fail(f"the water chunk walked {len(seen)} bounce levels, not {L - 1}")
-    return launches, res, (packed, *seen[0])
+    levels = water_levels(water)
+    shares = []
+    for k, (_, o, _, a) in enumerate(levels, 1):
+        if a is None or a.shape != o.shape[:1] or a.dtype != torch.bool:
+            fail(f"the walk of bounce level {k} was handed no mask")
+        shares.append(int(a.sum()) / a.shape[0])
+        log(f"[water] bounce level {k}: {int(a.sum())} of {a.shape[0]} "
+            f"rays active ({shares[-1]:.4f})")
+    res.update(active_share=shares)
+    return launches, res, levels
 
 
-def phase_k4_vs_plain(tls, level1):
+def phase_k4_vs_plain(tls, levels):
     """K4 against its plain version, faces and t bit-equal and walks as
-    long: on the fan over boxes, the grazing fan, zero-direction padding
-    rays, the `tls` chunk in scan order (what ``use_culled=False`` hands
-    it) and the water scan's level-1 rays; timed with CUDA events on the
-    last two.  Returns K4's record (its time and bound on the level-1
-    rays, the main path's input)."""
+    long, with and without a mask: on the fan over boxes, the grazing fan
+    and zero-direction padding rays at every packet width (a random mask
+    from a seed), the `tls` chunk in scan order (what ``use_culled=False``
+    hands it) and the water scan's level-1 and level-2 rays (their own
+    masks) at `PACKET`.  A masked call under `torch.cuda.
+    set_sync_debug_mode("error")`: no host sync.  Timed with CUDA events
+    on the water levels (masked, the main path, and every ray) and on the
+    `tls` rays, beside both bounds (`k4_bound`).  Returns K4's record (its
+    time and bound on the masked level-1 rays, the main path's input)."""
     import numpy as np
     import torch
     from lidar_brdf_tpu_torch import api
-    from lidar_brdf_tpu_torch.geom.packet import pack_scene
+    from lidar_brdf_tpu_torch.geom.packet import (intersect_packed_scene,
+                                                  pack_scene)
     from lidar_brdf_tpu_torch.io import synthetic
     from lidar_brdf_tpu_torch.kernels import packet as kpk
     put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)
+    mask = lambda n: put(np.random.default_rng(0).random(n) < 0.6)
     boxes = synthetic.terrain_with_boxes(np.random.default_rng(1234),
                                          num_boxes=6)
     o, d = fan_rays(64)
@@ -1325,40 +1439,153 @@ def phase_k4_vs_plain(tls, level1):
             ("K4 grazing fan", rough, o2, d2),
             ("K4 fan with zero-direction rays", boxes, og, dg)):
         packed = pack_scene(scene.to(DEVICE), api.build_scene_bvh(scene))
-        errs.append(compare_k4(name, packed, put(oo), put(dd))[2])
-    out = {}
+        for width in kpk.WIDTHS:
+            for a in (None, mask(oo.shape[0])):
+                errs.append(compare_k4(name, packed, put(oo), put(dd), a,
+                                       width)[2])
     scene, bvh, _, _, rays = tls
-    cases = (("tls", pack_scene(scene.to(DEVICE), bvh),
-              rays.origin.reshape(-1, 3), rays.direction.reshape(-1, 3)),
-             ("water", *level1))
-    for key, packed, oo, dd in cases:
-        steps, plain_ms, err = compare_k4(f"K4 {key} rays", packed, oo, dd)
-        errs.append(err)
-        op, dp = pad_tiles(oo, dd)
-        call = lambda: kpk.packet_traverse(*packed, op, dp)
-        per_call = launches_in(kpk.KERNEL, call)
-        if DEVICE == "cuda" and per_call != 1:
-            fail(f"K4 launched {per_call} times in one call")
-        ms = [cuda_ms(call, 10, queued=True) for _ in range(2)]
-        bound_ms, bound_by, ops_ms, bytes_ms = k4_bound(steps, oo.shape[0])
-        node, leaf = int(steps[:, 0].sum()), int(steps[:, 1].sum())
-        out[key] = dict(rays=oo.shape[0], ms=min(ms), ms_runs=ms,
-                        plain_ms=plain_ms, bound_ms=bound_ms,
-                        bound_by=bound_by, node_steps=node, leaf_steps=leaf,
-                        longest_walk=int(steps[:, 0].max()))
-        log(f"[kernel] K4 {key} rays: {ms[0]:.4f} / {ms[1]:.4f} ms (CUDA "
-            f"events on a queue of 10 calls, two runs), plain "
-            f"{plain_ms:.1f} ms; {node} node steps x 128 lanes ({leaf} "
-            f"leaves): bound {bound_ms:.4f} ms ({bound_by}; ops "
-            f"{ops_ms:.4f}, bytes {bytes_ms:.4f})")
+    ot, dt = rays.origin.reshape(-1, 3), rays.direction.reshape(-1, 3)
+    cases = [("tls", pack_scene(scene.to(DEVICE), bvh), ot, dt, None),
+             ("water", *levels[0]), ("water_level2", *levels[1])]
+    out = {}
+    for key, packed, oo, dd, a in cases:
+        compares = (a, None) if a is not None else (None, mask(oo.shape[0]))
+        steps = {}
+        for aa in compares:
+            st, plain_ms, err = compare_k4(f"K4 {key} rays", packed, oo, dd,
+                                           aa)
+            steps[aa is a] = (st, plain_ms)
+            errs.append(err)
+        tile, solo = k4_walks(packed, oo, dd, a)
+        for aa, tag in ((a, ""), (None, "_all")) if a is not None \
+                else ((None, ""),):
+            call = lambda: kpk.packet_traverse(*packed, oo, dd, active=aa)
+            per_call = launches_in(kpk.KERNEL, call)
+            if DEVICE == "cuda" and per_call != 1:
+                fail(f"K4 launched {per_call} times in one call")
+            ms = [cuda_ms(call, K4_REPS, queued=True) for _ in range(2)]
+            n_act = oo.shape[0] if aa is None else int(aa.sum())
+            st, plain_ms = steps[aa is a]
+            b = k4_bound(tile, solo if aa is a else k4_walks(
+                packed, oo, dd)[1], oo.shape[0], n_act)
+            out[key + tag] = dict(
+                rays=oo.shape[0], active=n_act, ms=min(ms), ms_runs=ms,
+                plain_ms=plain_ms, node_steps=int(st[:, 0].sum()),
+                leaf_steps=int(st[:, 1].sum()),
+                longest_walk=int(st[:, 0].max()) if st.numel() else 0, **b)
+            log(f"[kernel] K4 {key} rays{' (every ray)' if tag else ''}: "
+                f"{ms[0]:.4f} / {ms[1]:.4f} ms (CUDA events on a queue of "
+                f"{K4_REPS} calls, two runs), plain {plain_ms:.1f} ms; {n_act} of "
+                f"{oo.shape[0]} rays walk, {out[key + tag]['node_steps']} "
+                f"node steps x {kpk.PACKET} lanes "
+                f"({out[key + tag]['leaf_steps']} leaves); bound "
+                f"{b['bound_ms']:.4f} ms ({b['bound_by']}: solo walks "
+                f"{b['work_ms']:.4f}, bytes {b['bytes_ms']:.4f}); the first "
+                f"K4's yardstick {b['yardstick_ms']:.4f} ms (128-ray tiles, "
+                f"every ray)")
+    packed, oo, dd, a = levels[0]
+    if DEVICE == "cuda":
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            intersect_packed_scene(packed, oo, dd, active=a)
+        except RuntimeError as e:
+            fail(f"the masked packet walk synchronised with the host: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        log("[kernel] K4 masked call under set_sync_debug_mode('error'): no "
+            "host sync")
     w = out["water"]
     return dict(name="packet_traverse", route="cuda",
                 source="lidar_brdf_tpu_torch/kernels/csrc/packet_traverse.cu",
                 replaces="lidar_brdf_tpu/geom/packet.py:148",
                 launches=None, max_abs_err=max(errs), ms=w["ms"],
                 plain_ms=w["plain_ms"], bound_ms=w["bound_ms"],
-                bound_by=w["bound_by"], library_ms=None, water=w,
-                tls=out["tls"])
+                bound_by=w["bound_by"], library_ms=None, packet=kpk.PACKET,
+                **out)
+
+
+def k4_inputs():
+    """`--k4-chunk`'s inputs: [(name, packed scene, origins, directions,
+    mask or None)] for the water chunk's level-1 and level-2 rays
+    (`water_levels`), the `tls` rays in scan order and the `als` chunk's
+    rays (scan order, no cull)."""
+    from lidar_brdf_tpu_torch.geom.packet import pack_scene
+    als = als_workload(DEVICE)
+    water = water_workload(als)
+    levels = water_levels(water)
+    del water
+    tls = tls_workload(DEVICE)
+    flat = lambda r: (r.origin.reshape(-1, 3).contiguous(),
+                      r.direction.reshape(-1, 3).contiguous())
+    scene, bvh, _, _, rays = als
+    return [("water_level1", *levels[0]), ("water_level2", *levels[1]),
+            ("tls", pack_scene(tls[0].to(DEVICE), tls[1]), *flat(tls[4]),
+             None),
+            ("als", pack_scene(scene.to(DEVICE), bvh),
+             *flat(head(rays, min(ALS_CHUNK, rays.num_pulses))), None)]
+
+
+def k4_chunk(reps: int = 10, inputs=None, runs: int = 3) -> dict:
+    """K4 alone, for comparing two trees on one card (``python3
+    chip_smoke.py --k4-chunk``, from a copy of this script in the root of
+    either tree), on `k4_inputs`.  In a tree whose K4 has packet widths
+    (`kernels/packet.py::WIDTHS`) at each width, with the level's mask and
+    on every ray; in a tree before them, its 128-ray tiles on every ray
+    (padded).  Per input and variant: launches per call, CUDA-event ms per
+    call (``runs`` runs of ``reps`` queued), node and leaf steps; in a
+    tree with widths also both bounds (`k4_bound`)."""
+    import torch
+    from lidar_brdf_tpu_torch.kernels import packet as kpk
+    widths = getattr(kpk, "WIDTHS", None)
+    i32 = dict(dtype=torch.int32, device=DEVICE)
+    out = dict(source=os.path.dirname(os.path.abspath(__file__)),
+               widths=widths)
+    for name, packed, o, d, a in inputs or k4_inputs():
+        n = o.shape[0]
+        rec = dict(rays=n, active=n if a is None else int(a.sum()))
+        if widths is None:
+            o, d = pad_tiles(o, d)
+            variants = [("tile128_all", 128, lambda st: dict(steps=st))]
+        else:
+            variants = [(f"w{w}_{tag}", w, lambda st, aa=aa, w=w: dict(
+                steps=st, active=aa, width=w))
+                for w in widths
+                for tag, aa in (("active", a), ("all", None))
+                if tag == "all" or a is not None]
+        for key, w, kw in variants:
+            st = torch.full((-(-o.shape[0] // w), 2), -1, **i32)
+            kpk.packet_traverse(*packed, o, d, **kw(st))
+            sync()
+            st = st[st[:, 0] >= 0]
+            call = lambda: kpk.packet_traverse(*packed, o, d, **kw(None))
+            rec[key] = dict(
+                launches_per_call=launches_in(kpk.KERNEL, call),
+                events_ms=[cuda_ms(call, reps, queued=True)
+                           for _ in range(runs)],
+                node_steps=int(st[:, 0].sum()),
+                leaf_steps=int(st[:, 1].sum()))
+            log(f"[k4-chunk] {name} {key}: {rec[key]}")
+        if widths is not None:
+            tile, solo = k4_walks(packed, o, d, a)
+            rec["bound"] = k4_bound(tile, solo, n, rec["active"])
+            log(f"[k4-chunk] {name} bound: {rec['bound']}")
+        out[name] = rec
+    return out
+
+
+def water_scan(runs: int = 2) -> dict:
+    """The topo-bathymetric scan alone, for comparing two trees on one card
+    (``python3 chip_smoke.py --water-scan``, from a copy of this script in
+    the root of either tree): the workload built once, then ``runs`` times
+    a warm run and a timed scan through `api.simulate` (`phase_forward`),
+    each with its wall, host cull and device seconds and its launches."""
+    water = water_workload(als_workload(DEVICE))
+    L, P = water[2].max_returns, water[4].num_pulses
+    out = dict(source=os.path.dirname(os.path.abspath(__file__)), runs=[])
+    for _ in range(runs):
+        out["runs"].append(phase_forward(
+            "water", water, min(WATER_WARM, P), {"K2": 1, "K4": L - 1})[2])
+    return out
 
 
 def water_over_ground():
@@ -2873,9 +3100,15 @@ def main() -> int:
     if sys.argv[1:] == ["--k2-chunk"]:
         log(json.dumps({"k2_chunk": k2_chunk()}))
         return 0
+    if sys.argv[1:] == ["--k4-chunk"]:
+        log(json.dumps({"k4_chunk": k4_chunk()}))
+        return 0
+    if sys.argv[1:] == ["--water-scan"]:
+        log(json.dumps({"water_scan": water_scan()}))
+        return 0
     if sys.argv[1:]:
-        fail(f"unknown arguments {sys.argv[1:]} (only --k1-chunk or "
-             f"--k2-chunk)")
+        fail(f"unknown arguments {sys.argv[1:]} (only --k1-chunk, "
+             f"--k2-chunk, --k4-chunk or --water-scan)")
     t_start = time.perf_counter()
     card = phase_card_and_build()
     t0 = time.perf_counter()
@@ -2896,7 +3129,7 @@ def main() -> int:
     t0 = time.perf_counter()
     water = water_workload(als)
     log(f"[setup] water workload built in {time.perf_counter() - t0:.2f} s")
-    water_launches, water_fwd, level1 = phase_water(water)
+    water_launches, water_fwd, levels = phase_water(water)
     del water
     _, _, tls_walk = phase_forward("tls, use_culled=False", tls, TLS_PULSES,
                                    {"K4": 1}, use_culled=False)
@@ -2904,8 +3137,8 @@ def main() -> int:
         f"rays/s wall, device {tls_walk['device_s']:.3f} s; culled (K1) "
         f"{tls_fwd['rays_per_s']:.0f} rays/s, device "
         f"{tls_fwd['device_s']:.3f} s")
-    k4 = phase_k4_vs_plain(tls, level1)
-    del level1
+    k4 = phase_k4_vs_plain(tls, levels)
+    del levels
     k4["launches"] = water_launches["K4"]
     k2["launches_water"] = water_launches["K2"]
     phase_card_vs_cpu()

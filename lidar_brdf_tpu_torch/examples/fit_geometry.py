@@ -41,6 +41,7 @@ from . import adam_fit
 
 STEPS = 150
 LR = 5e-3
+JAX_TILE = 128      # the JAX package's packet-walk tile (geom/packet.py)
 
 
 def build_problem(device="cuda"):
@@ -77,10 +78,14 @@ def build_problem(device="cuda"):
     def forward(offsets):
         verts = scene.vertices + offsets[vcomp]
         moved = packed._replace(tri_rows=triangle_rows(verts, scene.faces))
+        # the node boxes are the unmoved scene's, so which rays test a
+        # moved triangle depends on the packets: walk the JAX example's
+        # 128-ray tiles
         cloud = simulate_chunk(
             dataclasses.replace(scene, vertices=verts), materials, rays,
             noise, scalars, cfg, scene_has_water=False,
-            packet_fn=lambda o, d: intersect_packed_scene(moved, o, d))
+            packet_fn=lambda o, d, active=None: intersect_packed_scene(
+                moved, o, d, active=active, width=JAX_TILE))
         return (torch.where(cloud.mask, cloud.distance,
                             torch.zeros_like(cloud.distance)), cloud.mask)
 

@@ -1,14 +1,16 @@
-"""Packet (ray-tile) BVH traversal over the whole scene (counterpart of
+"""Packet BVH traversal over the whole scene (counterpart of
 `lidar_brdf_tpu/geom/packet.py`).
 
-The traversal that needs no host cull: rays are tiled in order, T = 128
-consecutive rays a tile, and each tile walks the threaded tree once,
-descending into a node when any of its rays hits the node's box (classic
-packet tracing).  The `Simulator` takes it for refracted bounce rays on
-water scenes, for chunks whose tile beams or pulse cones are too wide to
-cull, and for ``use_culled=False``.  The walk itself is
-`kernels/packet.py::packet_traverse`: the CUDA kernel K4 on the card, its
-plain version on the CPU.
+The traversal that needs no host cull: rays are cut in order into packets
+of consecutive rays (`kernels/packet.py::PACKET`; the JAX package tiles
+128), and each packet walks the threaded tree once, descending into a node
+when any of its rays hits the node's box (classic packet tracing).  The
+`Simulator` takes it for refracted bounce rays on water scenes, for chunks
+whose tile beams or pulse cones are too wide to cull, and for
+``use_culled=False``.  The walk itself is `kernels/packet.py::
+packet_traverse`: the CUDA kernel K4 on the card, its plain version on the
+CPU.  The walk also takes the rays' ``active`` mask, which the bounce
+levels of `physics/returns.py` hand it: only those rays walk.
 """
 
 from __future__ import annotations
@@ -19,11 +21,14 @@ import numpy as np
 import torch
 
 from ..core.types import BVH, Hit, TriangleScene, as_numpy
-from ..kernels.packet import TILE, packet_traverse
+from ..kernels.packet import PACKET, node_records, packet_traverse
 
 
 class PackedScene(NamedTuple):
-    """Traversal-ready arrays on the compute device."""
+    """Traversal-ready arrays on the compute device.  Each field holds the
+    JAX package's values; the three node arrays are views of one (N, 8)
+    record and the rows a view of (F, 12) rows, the layouts K4 reads
+    (`kernels/packet.py::node_records`, `triangle_rows`)."""
 
     node_box: torch.Tensor    # (N, 6) f32 [min.xyz max.xyz]
     node_skip: torch.Tensor   # (N,)  i32
@@ -34,63 +39,69 @@ class PackedScene(NamedTuple):
 def triangle_rows(vertices: torch.Tensor,
                   faces: torch.Tensor) -> torch.Tensor:
     """(F, 9) f32 rows [v0 e1 e2] from detached vertices (the walk is
-    forward-only).  A caller that moves the vertices (a geometry fit)
-    builds them again and walks them over the same node arrays
-    (``packed._replace(tri_rows=...)``), as the JAX package packs inside
-    every traced call; the node boxes stay the BVH's."""
+    forward-only), a view of (F, 12) rows padded with zeros (48 bytes a
+    row: three 16-byte loads in K4).  A caller that moves the vertices (a
+    geometry fit) builds them again and walks them over the same node
+    arrays (``packed._replace(tri_rows=...)``), as the JAX package packs
+    inside every traced call; the node boxes stay the BVH's."""
     with torch.no_grad():
         v = vertices.detach().float()
         f = faces.long()
         v0 = v[f[:, 0]]
-        return torch.cat([v0, v[f[:, 1]] - v0, v[f[:, 2]] - v0],
-                         dim=1).contiguous()
+        rows = v.new_zeros((f.shape[0], 12))
+        rows[:, 0:3] = v0
+        rows[:, 3:6] = v[f[:, 1]] - v0
+        rows[:, 6:9] = v[f[:, 2]] - v0
+        return rows[:, :9]
 
 
 def pack_scene(scene: TriangleScene, bvh: BVH) -> PackedScene:
-    """The scene's triangle rows and the BVH's node arrays, on the scene's
-    device.  Raises ValueError unless every skip link points forward (what
-    bounds a walk's length)."""
+    """The scene's triangle rows and the BVH's node records, on the
+    scene's device.  Raises ValueError unless every skip link points
+    forward (what bounds a walk's length)."""
     dev = scene.vertices.device
     skip = np.asarray(as_numpy(bvh.node_skip), np.int32)
     if (skip <= np.arange(skip.shape[0])).any():
         raise ValueError("a BVH skip link does not point forward")
     put = lambda a, dt: torch.from_numpy(
         np.ascontiguousarray(as_numpy(a), dt)).to(dev)
-    node_box = torch.cat([put(bvh.node_min, np.float32),
-                          put(bvh.node_max, np.float32)], dim=1)
-    return PackedScene(node_box=node_box.contiguous(),
-                       node_skip=torch.from_numpy(skip).to(dev),
-                       node_face=put(bvh.node_face, np.int32),
+    box = torch.cat([put(bvh.node_min, np.float32),
+                     put(bvh.node_max, np.float32)], dim=1)
+    node_box, node_skip, node_face = node_records(
+        box, torch.from_numpy(skip).to(dev), put(bvh.node_face, np.int32))
+    return PackedScene(node_box=node_box, node_skip=node_skip,
+                       node_face=node_face,
                        tri_rows=triangle_rows(scene.vertices, scene.faces))
 
 
 def intersect_packed_scene(packed: PackedScene, origin, direction, *,
-                           steps=None) -> Hit:
+                           steps=None, active=None,
+                           width: int = PACKET) -> Hit:
     """Nearest-hit intersection by the packet walk.
 
-    ``origin``/``direction``: (..., 3).  Rays are flattened and tiled in
-    order (callers should pass coherent rays); the last tile is padded with
-    rays at 1e10 of zero direction, which never hit.  ``steps``: see
-    `packet_traverse` (one row per tile).  Forward-only: the rays are
-    detached.
+    ``origin``/``direction``: (..., 3).  Rays are flattened and cut into
+    packets of ``width`` in order (callers should pass coherent rays).
+    ``active``: None (every ray walks) or a bool mask of the rays' leading
+    shape; an inactive ray's hit is the miss (t BIG, face -1).  ``steps``:
+    see `packet_traverse` (one row per packet).  Forward-only: the rays
+    are detached.
     """
     shape = origin.shape[:-1]
-    o = origin.detach().reshape(-1, 3).float()
-    d = direction.detach().reshape(-1, 3).float()
-    n_rays = o.shape[0]
-    pad = (-n_rays) % TILE
-    if pad:
-        o = torch.cat([o, o.new_full((pad, 3), 1e10)])
-        d = torch.cat([d, d.new_zeros((pad, 3))])
-    t, f = packet_traverse(*packed, o.contiguous(), d.contiguous(), steps)
-    return Hit(t=t[:n_rays].reshape(shape), face=f[:n_rays].reshape(shape))
+    o = origin.detach().reshape(-1, 3).float().contiguous()
+    d = direction.detach().reshape(-1, 3).float().contiguous()
+    a = None if active is None else active.reshape(-1).contiguous()
+    t, f = packet_traverse(*packed, o, d, steps, active=a, width=width)
+    return Hit(t=t.reshape(shape), face=f.reshape(shape))
 
 
 def make_packet_traverser(scene: TriangleScene, bvh: BVH):
-    """Pack once; returns ``traverse(origin, direction) -> Hit``."""
+    """Pack once; returns ``traverse(origin, direction, active=None) ->
+    Hit`` (`intersect_packed_scene`), the ``packet_fn`` contract of
+    `physics/returns.py::simulate_returns`."""
     packed = pack_scene(scene, bvh)
 
-    def traverse(origin, direction):
-        return intersect_packed_scene(packed, origin, direction)
+    def traverse(origin, direction, active=None):
+        return intersect_packed_scene(packed, origin, direction,
+                                      active=active)
 
     return traverse

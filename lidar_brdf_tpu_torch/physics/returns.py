@@ -195,19 +195,22 @@ def simulate_returns(scene: TriangleScene, materials: MaterialTable,
     """Per-return extraction for one chunk of pulses.
 
     ``traverse_fn(origin, direction[, traverse_data]) -> Hit`` gives the
-    level-0 hits.  ``packet_fn(origin, direction) -> Hit`` is the packet
-    walk over the whole scene (`geom/packet.py::make_packet_traverser`,
-    packed once by the caller); it stands in for a missing
-    ``traverse_fn``.  On water scenes (``scene_has_water``) and in
+    level-0 hits.  ``packet_fn(origin, direction, active=None) -> Hit`` is
+    the packet walk over the whole scene (`geom/packet.py::
+    make_packet_traverser`, packed once by the caller); it stands in for a
+    missing ``traverse_fn``.  On water scenes (``scene_has_water``) and in
     bathymetric mode the refracted bounce levels traverse again: on
     ``packet_fn`` when level 0 was culled (``traverse_data``: candidates
     cover only the rays the host saw; the hybrid), else on level 0's
-    traverser, as in the JAX package.  ``face_pack``: None builds the
-    (F, 23) pack when the scene has at most P * L faces (the JAX package's
-    gate: the F-row build pays only when it replaces as many per-winner
-    gathers), False never builds it (every winner gathers its own vertex,
-    uv and material rows), a tensor is used as given.  Returns (records
-    (L, P), outliers (L, P), num_returns (P,), final ray origins
+    traverser, as in the JAX package.  When a bounce level walks on
+    ``packet_fn`` it hands it the level's active mask (``active``, the
+    rays' leading shape), and only those rays walk; a caller's
+    ``traverse_fn`` is called with the rays alone.  ``face_pack``: None
+    builds the (F, 23) pack when the scene has at most P * L faces (the JAX
+    package's gate: the F-row build pays only when it replaces as many
+    per-winner gathers), False never builds it (every winner gathers its
+    own vertex, uv and material rows), a tensor is used as given.  Returns
+    (records (L, P), outliers (L, P), num_returns (P,), final ray origins
     (P, R, 3)).
     """
     retraverse = bool(cfg.bathymetric) or scene_has_water
@@ -234,7 +237,7 @@ def simulate_returns(scene: TriangleScene, materials: MaterialTable,
             face_pack, base_ray_index, sensor_normal)
     return _returns_retraverse(
         scene, materials, rays, noise_buf, scalars, cfg, hits0, face_pack,
-        base_ray_index, sensor_normal, bounce_fn)
+        base_ray_index, sensor_normal, bounce_fn, bounce_fn is packet_fn)
 
 
 def _stack(records) -> object:
@@ -248,7 +251,8 @@ def _returns_retraverse(scene: TriangleScene, materials: MaterialTable,
                         rays: RayBundle, noise_buf: torch.Tensor,
                         scalars: SimScalars, cfg: SensorConfig, hits0,
                         face_pack: torch.Tensor | None, base_ray_index: int,
-                        sensor_normal: tuple, bounce_fn):
+                        sensor_normal: tuple, bounce_fn,
+                        bounce_masked: bool):
     """Return extraction for water scenes and bathymetric mode.
 
     A water hit refracts the rays that go on (`computeRayDirection`), so
@@ -258,7 +262,11 @@ def _returns_retraverse(scene: TriangleScene, materials: MaterialTable,
     record field stays differentiable where the JAX package's is: through
     the ray state (origins move to refracted water hits), the winner rows
     and the face rows; the traversals are forward-only.  Gathers are plain
-    indexing (see `_returns_noretraverse`).
+    indexing (see `_returns_noretraverse`).  With ``bounce_masked`` (the
+    bounce traverser is the packet walk) each bounce level hands
+    ``bounce_fn`` the rays still active and only those walk: the records
+    read a ray's hit only where it is active (``valid2``), and an inactive
+    ray gets the miss.  Else every ray walks, as in the JAX package.
     """
     P, R = rays.num_pulses, rays.rays_per_pulse
     N = P * R
@@ -492,8 +500,15 @@ def _returns_retraverse(scene: TriangleScene, materials: MaterialTable,
     for level in range(max_returns):
         # level 0 on the primary hits; refracted bounce levels traverse
         # again
-        hits = hits0 if level == 0 else bounce_fn(
-            state[0].reshape(P, R, 3), state[1].reshape(P, R, 3))
+        if level == 0:
+            hits = hits0
+        elif bounce_masked:
+            hits = bounce_fn(state[0].reshape(P, R, 3),
+                             state[1].reshape(P, R, 3),
+                             active=state[3].reshape(P, R))
+        else:
+            hits = bounce_fn(state[0].reshape(P, R, 3),
+                             state[1].reshape(P, R, 3))
         state, rec, out = step(state, hits, level)
         records.append(rec)
         outliers.append(out)

@@ -28,59 +28,33 @@ power limit.
 
 from __future__ import annotations
 
-import ctypes
 import json
-import os
 import re
-import subprocess
 import sys
-from concurrent.futures import ThreadPoolExecutor
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-OUT = os.path.join(ROOT, "build", "variants")
+from variant_harness import ROOT, apply_edits, build_all, card_line
 
 
 def source(name: str, base: str) -> str:
     """The variant ``name`` (without its ``@T``) of K2's source ``base``."""
     changes = {
         "base": [],
-        "cg": [("lbt::cp_async16_l1(", "lbt::cp_async16(")],
+        "cg": [("lbt::cp_async16_l1(", "lbt::cp_async16(", None)],
         "no_tests": [("const float t_m = lbt::wald_t_m(ray, wr, c[m], t_max);",
-                      "const float t_m = wr[0] + wr[5] + wr[11] + ray.ox;")],
+                      "const float t_m = wr[0] + wr[5] + wr[11] + ray.ox;",
+                      None)],
         "no_rays": [(re.search(r"ray = lbt::Ray\{__ldg.*?\};", base,
                                re.S).group(0),
                      "ray = lbt::Ray{0.01f * r, 0.02f * q, 100.0f, "
-                     "0.001f * r, -1.0f, 0.0f};")],
+                     "0.001f * r, -1.0f, 0.0f};", None)],
     }
     if name.startswith("min_blocks="):
         n = int(name.split("=")[1])
         edits = [("constexpr int MIN_BLOCKS = 12;",
-                  f"constexpr int MIN_BLOCKS = {n};")]
+                  f"constexpr int MIN_BLOCKS = {n};", None)]
     else:
         edits = changes[name]
-    out = base
-    for old, new in edits:
-        if old not in out:
-            raise SystemExit(f"variant {name}: {old!r} not in the source")
-        out = out.replace(old, new)
-    return out
-
-
-def build(name: str, text: str, cb):
-    """nvcc ``text`` into build/variants/lib<name>.so; (ptxas lines, lib)."""
-    safe = re.sub(r"\W", "_", name)
-    src = os.path.join(OUT, safe + ".cu")
-    with open(src, "w") as f:
-        f.write(text)
-    so = os.path.join(OUT, "lib" + safe + ".so")
-    proc = subprocess.run([cb._nvcc(), *cb.NVCC_FLAGS, "-I", cb.CSRC, "-o",
-                           so, src], capture_output=True, text=True,
-                          timeout=600)
-    if proc.returncode:
-        raise SystemExit(f"variant {name} failed to build:\n"
-                         f"{proc.stdout}{proc.stderr}")
-    return ([l.strip() for l in (proc.stdout + proc.stderr).splitlines()
-             if "registers" in l or "spill" in l], ctypes.CDLL(so))
+    return apply_edits(name, base, edits)
 
 
 def main() -> int:
@@ -90,23 +64,12 @@ def main() -> int:
         print("k2_variants: no CUDA device is available", file=sys.stderr)
         return 2
     import chip_smoke as cs
-    from lidar_brdf_tpu_torch.kernels import cuda_build as cb
     from lidar_brdf_tpu_torch.kernels import pulse as pp
     runs = [(a.split("@")[0], int(a.split("@")[1]) if "@" in a else
              pp.MAX_THREADS) for a in (sys.argv[1:] or ["base"])]
     base = open(pp.KERNEL.source).read()
-    os.makedirs(OUT, exist_ok=True)
-    names = sorted({n for n, _ in runs})
-    with ThreadPoolExecutor(len(names)) as pool:
-        built = dict(zip(names, pool.map(
-            lambda n: build(n, source(n, base), cb), names)))
-    libs = {}
-    for n, (ptxas, lib) in built.items():
-        pp._declare(lib)
-        lib.lbt_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.lbt_cuda_error_string.restype = ctypes.c_char_p
-        libs[n] = lib
-        print(json.dumps({"variant": n, "ptxas": ptxas}), flush=True)
+    libs = build_all("k2", {n: source(n, base) for n, _ in runs},
+                     pp._declare)
     _, als_t, als_o, als_d, als_b, _ = cs.als_chunk(cs.als_workload("cuda"))
     tls = cs.tls_pulse_chunk(cs.tls_workload("cuda"))
     chunks = {"als": (als_t, als_o, als_d, als_b), "tls": tls[:4]}
@@ -132,10 +95,7 @@ def main() -> int:
                     cs.k2_device_split(call, 20)["k2_ms"])
     for r in res.values():
         print(json.dumps(r), flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    print(smi.stdout.strip(), flush=True)
+    print(card_line(), flush=True)
     return 0
 
 

@@ -28,6 +28,7 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys):
     monkeypatch.setattr(chip_smoke, "ALS_TRIS", 20_000)
     monkeypatch.setattr(chip_smoke, "ALS_CHUNK", 1024)
     monkeypatch.setattr(chip_smoke, "ALS_SUB_PULSES", 512)
+    monkeypatch.setattr(chip_smoke, "K4_REPS", 1)
     # the small terrain must still take the ladders, the small city tiles
     monkeypatch.setattr(simulate, "PULSE_MIN_FACES", 10_000)
     tls = chip_smoke.tls_workload("cpu")
@@ -47,6 +48,8 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys):
     choice = chip_smoke.phase_traverser_choice(tls, als, k1, als_sim)
     assert set(choice) == {"tls", "als"}
     assert choice["als"]["pulses"] == 512
+    for r in choice.values():
+        assert r["k4_ms"] > 0 and r["k4_cull_s"] == 0.0 and r["k4_pack_s"] > 0
     _, _, fwd = chip_smoke.phase_forward("tls", tls, 4096, {"K1": 1})
     assert fwd["points"] > 0 and fwd["rays"] == 4096 * 10
     _, _, fwd = chip_smoke.phase_forward("als", als, 1024, {"K2": 1})
@@ -96,6 +99,7 @@ def test_chip_smoke_water_and_packet_walk_on_cpu(monkeypatch, capsys):
     """The topo-bathymetric scan (the `als` terrain under a water plane,
     3 returns at 532 nm), the `tls` scan with ``use_culled=False`` and K4
     against its plain version, at a small size."""
+    from lidar_brdf_tpu_torch.kernels import packet as kpk
     from lidar_brdf_tpu_torch.runtime import simulate
     monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
     monkeypatch.setattr(chip_smoke, "TLS_PULSES", 2048)
@@ -106,6 +110,7 @@ def test_chip_smoke_water_and_packet_walk_on_cpu(monkeypatch, capsys):
     monkeypatch.setattr(chip_smoke, "WATER_PULSES", 2048)
     monkeypatch.setattr(chip_smoke, "WATER_WARM", 512)
     monkeypatch.setattr(chip_smoke, "WATER_CELLS", 8)
+    monkeypatch.setattr(chip_smoke, "K4_REPS", 1)
     monkeypatch.setattr(simulate, "PULSE_MIN_FACES", 10_000)
     als = chip_smoke.als_workload("cpu")
     water = chip_smoke.water_workload(als)
@@ -113,24 +118,98 @@ def test_chip_smoke_water_and_packet_walk_on_cpu(monkeypatch, capsys):
     assert scene.num_faces == als[0].num_faces + 2 * 8 * 8
     assert cfg.bathymetric and cfg.max_returns == 3
     assert rays.num_pulses == 2048 and rays.rays_per_pulse == 10
-    launches, res, level1 = chip_smoke.phase_water(water)
+    launches, res, levels = chip_smoke.phase_water(water)
     assert res["bottom_returns"] > 0 and res["surface_returns"] > 0
     assert res["rays"] == 2048 * 10 and set(launches) == {"K1", "K2", "K4"}
-    packed, o1, d1 = level1
-    assert o1.shape == d1.shape == (1024 * 10, 3)
+    assert len(levels) == 2 and len(res["active_share"]) == 2
+    for packed, o1, d1, a1 in levels:
+        assert o1.shape == d1.shape == (1024 * 10, 3)
+        assert a1.shape == (1024 * 10,) and a1.dtype == torch.bool
+    # fewer rays walk at level 2 than at level 1 (none at this size), and
+    # not every ray at level 1
+    assert 0 <= res["active_share"][1] < res["active_share"][0] < 1
     tls = chip_smoke.tls_workload("cpu")
     _, _, walk = chip_smoke.phase_forward("tls packet walk", tls, 2048,
                                           {"K4": 1}, use_culled=False)
     assert walk["points"] > 0 and walk["cull_s"] < 0.5
-    k4 = chip_smoke.phase_k4_vs_plain(tls, level1)
+    k4 = chip_smoke.phase_k4_vs_plain(tls, levels)
     for key in ("name", "route", "source", "replaces", "max_abs_err", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms"):
         assert key in k4
     assert k4["bound_by"] == "operations" and k4["bound_ms"] > 0
-    assert k4["water"]["leaf_steps"] < k4["water"]["node_steps"]
+    for key in ("water", "water_all", "water_level2_all", "tls"):
+        r = k4[key]
+        assert 0 < r["leaf_steps"] < r["node_steps"]
+        # the solo walks of the rays a call answers, and the first K4's
+        # tiles over every ray, which walk no less
+        assert 0 < r["work_ms"] <= r["yardstick_ms"]
+    r = k4["water_level2"]
+    assert (r["node_steps"] == 0) == (r["active"] == 0)
+    assert r["bound_ms"] > 0 and r["work_ms"] <= r["yardstick_ms"]
+    assert k4["water"]["active"] < k4["water_all"]["active"] == \
+        k4["water"]["rays"]
+    assert k4["water"]["work_ms"] < k4["water_all"]["work_ms"]
     out = capsys.readouterr().out
-    assert "K4 water rays" in out and "K4 grazing fan" in out
-    assert "bottom returns" in out
+    assert f"K4 water rays, masked, packets of {kpk.PACKET}" in out
+    assert "K4 grazing fan, masked, packets of 1" in out
+    assert "K4 fan over boxes, all rays, packets of 128" in out
+    assert "K4 water_level2 rays, all rays" in out
+    assert "bottom returns" in out and "bounce level 2" in out
+
+
+def test_chip_smoke_k4_chunk_on_cpu(monkeypatch):
+    """`--k4-chunk` at a small size: the water levels, the `tls` and the
+    `als` rays at every packet width, masked and not, with both bounds; no
+    launch and no device time on the CPU."""
+    from lidar_brdf_tpu_torch.kernels import packet as kpk
+    from lidar_brdf_tpu_torch.runtime import simulate
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "TLS_PULSES", 512)
+    monkeypatch.setattr(chip_smoke, "TLS_TRIS", 2000)
+    monkeypatch.setattr(chip_smoke, "ALS_PULSES", 512)
+    monkeypatch.setattr(chip_smoke, "ALS_TRIS", 20_000)
+    monkeypatch.setattr(chip_smoke, "ALS_CHUNK", 256)
+    monkeypatch.setattr(chip_smoke, "WATER_PULSES", 512)
+    monkeypatch.setattr(chip_smoke, "WATER_CELLS", 8)
+    monkeypatch.setattr(simulate, "PULSE_MIN_FACES", 10_000)
+    out = chip_smoke.k4_chunk(reps=1, runs=1)
+    assert out["widths"] == list(kpk.WIDTHS) or out["widths"] == kpk.WIDTHS
+    for name, masked in (("water_level1", True), ("water_level2", True),
+                         ("tls", False), ("als", False)):
+        r = out[name]
+        assert (r["active"] < r["rays"]) == masked
+        walked = r["active"] > 0
+        keys = {f"w{w}_all" for w in kpk.WIDTHS}
+        if masked:
+            keys |= {f"w{w}_active" for w in kpk.WIDTHS}
+        assert keys <= set(r)
+        for k in keys:
+            assert r[k]["launches_per_call"] == 0
+            assert len(r[k]["events_ms"]) == 1
+            assert (r[k]["node_steps"] > 0) == (walked or "all" in k)
+        assert r["bound"]["bound_ms"] > 0
+
+
+def test_chip_smoke_water_scan_on_cpu(monkeypatch):
+    """`--water-scan` at a small size: each run a full scan of the water
+    workload with bottom returns counted in its points, its seconds split,
+    and no launch on the CPU."""
+    from lidar_brdf_tpu_torch.runtime import simulate
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "ALS_PULSES", 512)
+    monkeypatch.setattr(chip_smoke, "ALS_TRIS", 20_000)
+    monkeypatch.setattr(chip_smoke, "WATER_PULSES", 512)
+    monkeypatch.setattr(chip_smoke, "WATER_WARM", 128)
+    monkeypatch.setattr(chip_smoke, "WATER_CELLS", 8)
+    monkeypatch.setattr(simulate, "PULSE_MIN_FACES", 10_000)
+    out = chip_smoke.water_scan(runs=2)
+    assert len(out["runs"]) == 2
+    for r in out["runs"]:
+        assert r["rays"] == 512 * 10 and r["points"] > 0
+        assert r["launches"] == {"K1": 0, "K2": 0, "K4": 0}
+        for key in ("wall_s", "cull_s", "device_s", "readback_s"):
+            assert r[key] >= 0
+    assert out["runs"][0]["points"] == out["runs"][1]["points"]
 
 
 def test_chip_smoke_k2_chunk_on_cpu(monkeypatch):

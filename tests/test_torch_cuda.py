@@ -317,10 +317,13 @@ def test_pulse_kernel_padding_contract(card):
         assert int((f == 40).sum()) > 10 and not bool((f == 12).any()), name
 
 
+@pytest.mark.parametrize("width", kpk.WIDTHS)
+@pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("case", ["fan", "grazing", "padding"])
-def test_packet_kernel_matches_plain(card, case):
+def test_packet_kernel_matches_plain(card, case, masked, width):
     """K4 vs its plain version (`chip_smoke.compare_k4`: faces and t bit
-    for bit, walks as long), one launch a call."""
+    for bit, walks as long) at each packet width, on every ray and with a
+    mask; one launch a call, no host sync with the mask."""
     from lidar_brdf_tpu_torch.geom.packet import pack_scene
     if case == "grazing":
         scene, o, d = chip_smoke.grazing_fan()
@@ -334,17 +337,24 @@ def test_packet_kernel_matches_plain(card, case):
             o, d = o[:4000], d[:4000]
     packed = pack_scene(scene.to("cuda"), api.build_scene_bvh(scene))
     og, dg = torch.from_numpy(o).cuda(), torch.from_numpy(d).cuda()
-    steps, _, err = chip_smoke.compare_k4(f"K4 {case}", packed, og, dg)
+    active = torch.from_numpy(
+        np.random.default_rng(0).random(o.shape[0]) < 0.6).cuda() \
+        if masked else None
+    steps, _, err = chip_smoke.compare_k4(f"K4 {case}", packed, og, dg,
+                                          active, width)
     assert bool((steps[:, 0] > 0).all()) and err == 0.0
-    op, dp = chip_smoke.pad_tiles(og, dg)
     before = kpk.KERNEL.launches
-    kpk.packet_traverse(*packed, op, dp)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        kpk.packet_traverse(*packed, og, dg, active=active, width=width)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert kpk.KERNEL.launches == before + 1
     with pytest.raises(ValueError):
-        kpk.packet_traverse(*packed, op[:64], dp[:64])
+        kpk.packet_traverse(*packed, og[:64], dg[:63])
     with pytest.raises(ValueError):
-        kpk.packet_traverse(*packed, op, dp.cpu())
+        kpk.packet_traverse(*packed, og, dg.cpu())
 
 
 def test_water_simulator_card_matches_cpu(card):

@@ -11,8 +11,11 @@ not, so a ray running exactly along a shared edge (the fans start above a
 grid vertex, along the grid's axes) may be taken by one triangle on one
 side and by its neighbour, or by none, on the other; against the brute
 force, two faces at the same t (a shared edge) may also be taken in either
-order.  K4 itself is held against the plain version on the card by
-`tests/test_torch_cuda.py` and `chip_smoke.py`.
+order.  The port walks packets of `kernels/packet.py::PACKET` rays (the
+JAX package tiles 128), and with an ``active`` mask only the active rays,
+compacted in order: both change which leaves a ray is tested against, and
+the same rules hold.  K4 itself is held against the plain version on the
+card by `tests/test_torch_cuda.py` and `chip_smoke.py`.
 """
 
 import dataclasses
@@ -110,6 +113,8 @@ def _port(scene):
 
 
 def test_pack_scene_bit_equal():
+    """Every field holds the JAX pack's values; the node arrays are views
+    of one (N, 8) record and the rows of (F, 12) zero-padded rows."""
     scene = jsyn.terrain_with_boxes(np.random.default_rng(3), num_boxes=4)
     tree, _, packed = _port(scene)
     pj = jpk.pack_scene(scene, tree)
@@ -117,6 +122,15 @@ def test_pack_scene_bit_equal():
         a, b = np.asarray(getattr(pj, name)), getattr(packed, name).numpy()
         assert a.dtype == b.dtype, name
         np.testing.assert_array_equal(b, a, err_msg=name)
+    box, skip, face, rows = packed
+    n, f = box.shape[0], rows.shape[0]
+    rec = torch.as_strided(box, (n, 8), (8, 1))
+    assert skip.data_ptr() == box.data_ptr() + 24 == face.data_ptr() - 4
+    np.testing.assert_array_equal(rec.numpy().view(np.int32)[:, 6:],
+                                  np.stack([np.asarray(pj.node_skip),
+                                            np.asarray(pj.node_face)], 1))
+    assert rows.stride() == (12, 1)
+    assert not torch.as_strided(rows, (f, 12), (12, 1))[:, 9:].any()
 
 
 @pytest.mark.parametrize("case", ["fan", "grazing", "padding"])
@@ -125,7 +139,7 @@ def test_plain_walk_matches_jax_and_brute(case):
     tree, ts, packed = _port(scene)
     hj = jpk.intersect_packed_scene(jpk.pack_scene(scene, tree),
                                     jnp.asarray(o), jnp.asarray(d))
-    steps = torch.zeros((-(-o.shape[0] // 128), 2), dtype=torch.int32)
+    steps = torch.zeros((kpk.packets(o.shape[0]), 2), dtype=torch.int32)
     ht = tpk.intersect_packed_scene(packed, torch.from_numpy(o),
                                     torch.from_numpy(d), steps=steps)
     fj, tj = np.asarray(hj.face), np.asarray(hj.t)
@@ -139,8 +153,12 @@ def test_plain_walk_matches_jax_and_brute(case):
     assert max(n_jax, n_brute) <= 0.1 * o.shape[0]
     assert int((ft >= 0).sum()) > 0.5 * o.shape[0] if case != "padding" \
         else int((ft >= 0).sum()) > 100
-    # every tile walked (leaf steps among its node steps)
-    assert bool((steps[:, 0] > 0).all()) and bool((steps[:, 1] >= 1).all())
+    # every packet walked (leaf steps among its node steps), and reached a
+    # leaf wherever one of its rays hits
+    W = kpk.PACKET
+    hit_pk = np.pad(ft >= 0, (0, (-ft.shape[0]) % W)).reshape(-1, W).any(1)
+    assert bool((steps[:, 0] > 0).all())
+    assert (steps[:, 1].numpy()[hit_pk] >= 1).all()
     assert bool((steps[:, 1] <= steps[:, 0]).all())
     if case == "padding":
         pad = (np.abs(d).sum(axis=1) == 0)
@@ -148,14 +166,15 @@ def test_plain_walk_matches_jax_and_brute(case):
         assert (fj[pad] == -1).all()
 
 
-def test_tiles_change_the_walk_not_the_hits():
+@pytest.mark.parametrize("width", kpk.WIDTHS)
+def test_tiles_change_the_walk_not_the_hits(width):
     """The same rays in scan order, shifted by half a tile and shuffled
-    into other tiles: the same hits up to box-versus-triangle rounding
+    into other packets: the same hits up to box-versus-triangle rounding
     (what lets the Simulator hand the walk its pulses in bucket order)."""
     scene, o, d = _case("fan")
     _, _, packed = _port(scene)
     hit = lambda oo, dd: tpk.intersect_packed_scene(
-        packed, torch.from_numpy(oo), torch.from_numpy(dd))
+        packed, torch.from_numpy(oo), torch.from_numpy(dd), width=width)
     base = hit(o, d)
     n = o.shape[0]
     for perm in (np.roll(np.arange(n), 64),
@@ -165,6 +184,72 @@ def test_tiles_change_the_walk_not_the_hits():
         f, t = h.face.numpy()[inv], h.t.numpy()[inv]
         _assert_hits_match(scene, base.face.numpy(), base.t.numpy(), f, t,
                            o, d)
+
+
+def _mask(n, seed=0):
+    return torch.from_numpy(np.random.default_rng(seed).random(n) < 0.6)
+
+
+@pytest.mark.parametrize("width", kpk.WIDTHS)
+@pytest.mark.parametrize("case", ["fan", "padding"])
+def test_masked_walk_matches_unmasked(case, width):
+    """With a mask the plain walk answers the active rays as the unmasked
+    walk does (bit for bit where a ray walks alone, up to the rules of
+    `_assert_hits_match` in packets: compaction puts other rays beside
+    it) and gives every inactive ray the miss; a mask with every ray
+    active is no mask; an all-False mask walks nothing."""
+    scene, o, d = _case(case)
+    _, _, packed = _port(scene)
+    ot, dt = torch.from_numpy(o), torch.from_numpy(d)
+    walk = lambda a: kpk.packet_traverse(*packed, ot, dt, active=a,
+                                         width=width)
+    t0, f0 = walk(None)
+    act = _mask(o.shape[0])
+    t1, f1 = walk(act)
+    a = act.numpy()
+    assert (t1.numpy()[~a] == np.float32(BIG)).all()
+    assert (f1.numpy()[~a] == -1).all()
+    if width == 1:
+        assert torch.equal(t1[act], t0[act]) and torch.equal(f1[act], f0[act])
+    else:
+        _assert_hits_match(scene, f0.numpy()[a], t0.numpy()[a],
+                           f1.numpy()[a], t1.numpy()[a], o[a], d[a])
+    t2, f2 = walk(torch.ones(o.shape[0], dtype=torch.bool))
+    assert torch.equal(t2, t0) and torch.equal(f2, f0)
+    steps = torch.full((kpk.packets(o.shape[0], width), 2), 7,
+                       dtype=torch.int32)
+    t3, f3 = kpk.packet_traverse(*packed, ot, dt, steps,
+                                 active=torch.zeros_like(act), width=width)
+    assert (f3 == -1).all() and (t3 == np.float32(BIG)).all()
+    assert (steps == 7).all()
+
+
+@pytest.mark.parametrize("width", kpk.WIDTHS)
+def test_walk_lengths_follow_the_packet_width(width):
+    """``steps`` holds one row per packet of ``width`` active rays (rows
+    past the last packet untouched); a packet walks at least as far as the
+    longest solo walk of its rays, which is each ray's row at width 1."""
+    scene, o, d = _case("fan")
+    _, _, packed = _port(scene)
+    ot, dt = torch.from_numpy(o), torch.from_numpy(d)
+    act = _mask(o.shape[0], seed=1)
+    m = int(act.sum())
+    steps = torch.full((kpk.packets(o.shape[0], width), 2), -5,
+                       dtype=torch.int32)
+    kpk.packet_traverse(*packed, ot, dt, steps, active=act, width=width)
+    solo = torch.zeros((m, 2), dtype=torch.int32)
+    kpk.packet_traverse(*packed, ot[act], dt[act], solo, width=1)
+    walked, rest = steps[:kpk.packets(m, width)], steps[kpk.packets(m, width):]
+    assert (rest == -5).all() and (walked[:, 0] >= 1).all()
+    assert (walked[:, 1] >= 0).all() and (walked[:, 1] <= walked[:, 0]).all()
+    pad = (-m) % width
+    longest = torch.cat([solo[:, 0], solo.new_zeros(pad)]).reshape(
+        -1, width).amax(dim=1)
+    assert (walked[:, 0] >= longest).all()
+    if width == 1:
+        assert torch.equal(walked, solo)
+    else:                              # wider packets walk the union
+        assert int(walked[:, 0].sum()) < width * int(solo[:, 0].sum()) // 2
 
 
 def test_traverser_shapes_and_counts():
@@ -199,10 +284,34 @@ def test_pack_and_wrapper_refuse_bad_inputs():
         tpk.pack_scene(ts, convert.bvh_from_numpy(bad))
     packed = tpk.pack_scene(ts, convert.bvh_from_numpy(_np(tree)))
     o = torch.zeros((128, 3))
-    with pytest.raises(ValueError, match="T"):
-        kpk.packet_traverse(*packed, o[:100], o[:100])
+    with pytest.raises(ValueError, match="N, 3"):
+        kpk.packet_traverse(*packed, o[:100], o[:99])
     with pytest.raises(ValueError):
         kpk.packet_traverse(*packed, o.double(), o.double())
     with pytest.raises(ValueError, match="steps"):
         kpk.packet_traverse(*packed, o, o,
                             steps=torch.zeros((2, 2), dtype=torch.int32))
+    with pytest.raises(ValueError, match="active"):
+        kpk.packet_traverse(*packed, o, o, active=torch.ones(100, dtype=bool))
+    for width in (32, 64):
+        with pytest.raises(ValueError, match="width"):
+            kpk.packet_traverse(*packed, o, o, width=width)
+    # arrays that are not views of the records K4 reads
+    with pytest.raises(ValueError, match="record"):
+        kpk.packet_traverse(*[x.contiguous() for x in packed], o, o)
+
+
+@pytest.mark.parametrize("name", ["base", "packet32", "prefetch",
+                                  "min_blocks=0"])
+def test_variant_script_edits_apply(name, monkeypatch):
+    """`scripts/k4_variants.py` makes each variant by a text change of K4's
+    source: every change still finds its text there, as often as the
+    variant expects."""
+    import importlib
+    import pathlib
+    monkeypatch.syspath_prepend(
+        str(pathlib.Path(__file__).parent.parent / "scripts"))
+    mod = importlib.import_module("k4_variants")
+    base = open(kpk.KERNEL.source).read()
+    out = mod.source(name, base)
+    assert (out == base) == (name == "base")

@@ -233,8 +233,8 @@ def _chunk_vs_oracle(scene, rays, cfg):
         build_scene_bvh(scene))))
     hits = []
 
-    def recording_walk(o, d):
-        hits.append(walk(o, d))
+    def recording_walk(o, d, active=None):
+        hits.append(walk(o, d, active=active))
         return hits[-1]
 
     args = (ts, convert.materials_from_numpy(_np(materials)),
@@ -350,3 +350,72 @@ def test_simulate_chunk_matches_parity_oracle_builders(kind):
     np.testing.assert_array_equal(mask[K:], out["mask"].reshape(K))
     if kind == "als_zigzag":
         assert rec["pwater"].any()
+
+
+def test_bounce_mask_changes_no_record_or_gradient():
+    """`_returns_retraverse` hands the packet walk (``packet_fn``) each
+    bounce level's active rays: the records and the gradients (w.r.t. ray
+    origins, vertices and peak power) are those of the same walk over
+    every ray, which a caller's ``traverse_fn`` gets, on the plain
+    version."""
+    scene = water_over_ground_scene()
+    cfg = _als_cfg()
+    materials = MaterialLibrary.default().table_at(532)
+    scalars = SimScalars.from_config(cfg, 0.0)
+    ts = convert.scene_from_numpy(_np(scene))
+    tm = convert.materials_from_numpy(_np(materials))
+    tsc = convert.scalars_from_numpy(_np(scalars))
+    tr = convert.rays_from_numpy(_np(build_rays(cfg, scene)))
+    tn = _sim_noise(cfg)
+    tc = _tcfg(cfg)
+    walk = make_packet_traverser(ts, convert.bvh_from_numpy(_np(
+        build_scene_bvh(scene))))
+    masks, unmasked = [], []
+
+    def masked(origin, direction, active=None):
+        masks.append(active)
+        return walk(origin, direction, active=active)
+
+    def traverse(origin, direction, *rest):
+        unmasked.append(rest)
+        return walk(origin, direction, *rest)
+
+    def run(**fn):
+        xs = [x.detach().clone().requires_grad_(True)
+              for x in (tr.origin, ts.vertices, tsc.peak_power)]
+        rays = dataclasses.replace(tr, origin=xs[0])
+        args = (dataclasses.replace(ts, vertices=xs[1]), tm, rays, tn,
+                dataclasses.replace(tsc, peak_power=xs[2]), tc)
+        records = tret.simulate_returns(*args, scene_has_water=True,
+                                        **fn)[0]
+        cloud = simulate_chunk(*args, scene_has_water=True, **fn)
+        torch.where(cloud.mask, cloud.intensity,
+                    torch.zeros_like(cloud.intensity)).sum().backward()
+        return records, [x.grad for x in xs]
+
+    rec_m, grads_m = run(packet_fn=masked)
+    rec_u, grads_u = run(traverse_fn=traverse)
+    L, P = cfg.max_returns, tr.num_pulses
+    assert unmasked == [()] * (2 * L)
+    # level 0 walks every ray (no culled traverser here), the bounce
+    # levels their active rays: twice (records, then the cloud)
+    assert len(masks) == 2 * L and masks[0] is None and masks[L] is None
+    bounce = masks[1:L] + masks[L + 1:]
+    for a in bounce:
+        assert a.shape == (P, cfg.rays_per_pulse) and a.dtype == torch.bool
+    assert 0 < int(bounce[0].sum()) < bounce[0].numel()
+    for f in dataclasses.fields(rec_m):
+        a, b = getattr(rec_m, f.name), getattr(rec_u, f.name)
+        assert torch.equal(a, b), f.name
+    assert bool(rec_m.mask[1:].any())
+    for name, gm, gu in zip(("origin", "vertices", "peak_power"), grads_m,
+                            grads_u):
+        assert bool(gm.any()), name
+        if name == "vertices":
+            # summed by `index_put_(accumulate=True)`, whose order varies
+            # between runs: the same walk run twice differs by ~2e-7 of
+            # max |g| here
+            scale = float(gu.abs().max())
+            torch.testing.assert_close(gm, gu, rtol=0, atol=1e-6 * scale)
+        else:
+            assert torch.equal(gm, gu), name
