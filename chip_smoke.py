@@ -50,7 +50,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    (no host sync); K4 timed with CUDA events on the water levels (masked
    and every ray) and the `tls` rays, beside both bounds.
 5. Card vs CPU at a small size (L = 1 and 2): same seed, same rays, for
-   the TLS tile path and the ALS pulse path; `tests/test_water.py`'s
+   the TLS tile path and the ALS pulse path (at L = 2 also with
+   ``use_culled=False``: K4 for every ray); `tests/test_water.py`'s
    bathymetric scan (L = 3, K1 and K4); an ANALYTIC scan whose materials
    take all eight model ids; and a water scene loaded from OBJ files,
    bathymetric at 532 nm (L = 3, K4 for the bounces).  The card reads
@@ -115,6 +116,22 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    across ranks and within phase 7's tolerance of the sum of the parent's
    shards.  `[multirank]` lines: per rank wall, cull, forward and step
    times, each all_reduce's time and bytes.
+12. The JAX package's last entry points on the card, and the scans with
+   no host cull, before phase 8: (a) `geom/intersect.py::intersect_bvh`
+   and `geom/packet.py::intersect_packed` (tile 1 and 128) on the fan over
+   boxes, the grazing fan and the `tls` rays in scan order, each call one
+   launch of K4; `geom/beamcull.py::intersect_culled` and
+   `CulledTraverser` (dense and bucketed) on phase 2's random tiles and
+   `tls` chunk, each call one launch of K1; every call's (t, face)
+   bit-equal to the same call with the plain versions, the walks' faces
+   equal to the brute force on the small inputs (but at ties and
+   barycentric thresholds, checked in float64); (b) the `als`, `water`
+   and `forward` cells through `Simulator(use_culled=False)` at full
+   width (K4 once a chunk, once a level on `water`): wall, the `stats=`
+   split, K4 launches and peak device memory beside the culled scan's,
+   and each cloud against the culled cloud of its cell (`als` slot for
+   slot, the others by counts and sorted intensities; printed figures,
+   not gates).  `[entry]` and `[no-cull]` lines.
 8. Profiles, last so that they disturb no timed phase: K1's device time on
    the `tls` chunk, K2's on the `als` chunk (as the Simulator calls it, and
    with the wrapper's two output fills instead), and K3's and
@@ -1064,6 +1081,7 @@ def phase_forward(name, workload, warm_pulses, per_chunk, **sim_kw):
     warm_s = time.perf_counter() - t0
     stats = {}
     sync()
+    base = peak_reset()
     libs = traversal_libs()
     for lib in libs.values():                   # main path starts here
         lib.launches = 0
@@ -1071,6 +1089,7 @@ def phase_forward(name, workload, warm_pulses, per_chunk, **sim_kw):
     cloud = scan(rays, stats)
     wall = time.perf_counter() - t0
     launches = {k: lib.launches for k, lib in libs.items()}
+    memory = peak_read(base)
     m = cloud.mask
     n_pts = int(m.sum())
     inten = cloud.intensity[m]
@@ -1081,7 +1100,8 @@ def phase_forward(name, workload, warm_pulses, per_chunk, **sim_kw):
         f"{wall:.3f} s = {n_rays / wall:.0f} rays/s wall-clock; order "
         f"{stats['order_s']:.3f} s, host cull {stats['cull_s']:.3f} s, "
         f"device {stats['device_s']:.3f} s, readback "
-        f"{stats['readback_s']:.3f} s; launches {launches}")
+        f"{stats['readback_s']:.3f} s; launches {launches}; device memory "
+        f"{fmt_memory(memory)}")
     chunks = -(-rays.num_pulses // cfg.chunk_pulses)
     want = {k: per_chunk.get(k, 0) * chunks for k in KERNELS}
     if DEVICE == "cuda" and launches != want:
@@ -1095,7 +1115,36 @@ def phase_forward(name, workload, warm_pulses, per_chunk, **sim_kw):
         fail(f"{name} positions are not finite")
     return launches, cloud, dict(
         rays=n_rays, faces=scene.num_faces, points=n_pts, wall_s=wall,
-        rays_per_s=n_rays / wall, launches=launches, **stats)
+        rays_per_s=n_rays / wall, launches=launches, **memory, **stats)
+
+
+def peak_reset():
+    """Device bytes allocated now, after resetting the peak counter (None
+    off the card)."""
+    import torch
+    if DEVICE != "cuda":
+        return None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def peak_read(base) -> dict:
+    """{base_bytes, peak_bytes}: the bytes allocated when `peak_reset` ran
+    and `torch.cuda.max_memory_allocated()` since (None off the card)."""
+    import torch
+    if base is None:
+        return dict(base_bytes=None, peak_bytes=None)
+    torch.cuda.synchronize()
+    return dict(base_bytes=base, peak_bytes=torch.cuda.max_memory_allocated())
+
+
+def fmt_memory(m: dict) -> str:
+    if m["peak_bytes"] is None:
+        return "not measured (no card)"
+    peak, base = m["peak_bytes"], m["base_bytes"]
+    return (f"peak {peak:,} B, {peak - base:,} B above the {base:,} B held "
+            f"before the scan")
 
 
 def compare_clouds(what, g, c, bathymetric=False, analytic=False):
@@ -1379,7 +1428,7 @@ def phase_water(water):
     number >= 1).  Then the first chunk once more (`water_levels`): the
     walk must be handed each bounce level's active mask.  Returns
     (launches, the scan's record, the levels' (packed scene, origins,
-    directions, mask))."""
+    directions, mask), the scan's cloud)."""
     import torch
     scene, bvh, cfg, mats, rays = water
     L = cfg.max_returns
@@ -1403,7 +1452,7 @@ def phase_water(water):
         log(f"[water] bounce level {k}: {int(a.sum())} of {a.shape[0]} "
             f"rays active ({shares[-1]:.4f})")
     res.update(active_share=shares)
-    return launches, res, levels
+    return launches, res, levels, cloud
 
 
 def phase_k4_vs_plain(tls, levels):
@@ -1812,6 +1861,12 @@ def phase_card_vs_cpu():
         if DEVICE == "cuda" and pp.KERNEL.launches <= before:
             fail("the ALS card-vs-CPU run launched K2 no time")
         compare_clouds(f"ALS L={L}", *clouds)
+    # the same pulses with no host cull: the packet walk (K4) for every ray
+    before = kpk.KERNEL.launches
+    clouds = both(scene, bvh, cfg, rays, use_culled=False)
+    if DEVICE == "cuda" and kpk.KERNEL.launches <= before:
+        fail("the ALS use_culled=False card-vs-CPU run launched K4 no time")
+    compare_clouds(f"ALS L={L}, use_culled=False", *clouds)
 
     # the water scene of tests/test_water.py: ALS, bathymetric at 532 nm,
     # 3 returns; the hybrid (K1 level 0, K4 bounces)
@@ -2587,16 +2642,20 @@ def runtime_forward_bench():
     """10a: `python -m lidar_brdf_tpu_torch.bench` with
     ``BENCH_CONFIG=forward`` in process (`bench.forward_main`) at full
     width after the bench's pre-flight K3: K1 once per chunk in each scan,
-    the cold and cached clouds equal bit for bit."""
+    the cold and cached clouds equal bit for bit; each scan's peak device
+    memory.  The record holds the cold cloud under ``cold_cloud`` (phase
+    12 compares its no-cull scan with it)."""
     import torch
     from lidar_brdf_tpu_torch import bench
     env = dict(BENCH_PULSES=str(FORWARD_PULSES), BENCH_TRIS=str(TLS_TRIS),
                BENCH_CHUNK=str(FORWARD_CHUNK))
     saved = {k: os.environ.get(k) for k in env}
-    launches = {}
+    launches, memory = {}, {}
 
     def run_pass(name, run):
+        base = peak_reset()
         cloud, launches[name] = launch_counts(run)
+        memory[name] = peak_read(base)
         return cloud
 
     bench.kernel_smoke(DEVICE)
@@ -2628,8 +2687,10 @@ def runtime_forward_bench():
     log(f"[forward bench] {FORWARD_PULSES * 10} rays in {chunks} chunks: "
         f"cold {res['wall_s_cold']:.3f} s = {res['cold_rays_per_s']:.0f} "
         f"rays/s, cached {res['wall_s_cached']:.3f} s = {res['value']:.0f} "
-        f"rays/s; launches {launches}; clouds equal")
-    return dict(line=res, stats=stats, launches=launches)
+        f"rays/s; launches {launches}; clouds equal; cold scan's device "
+        f"memory {fmt_memory(memory['cold'])}")
+    return dict(line=res, stats=stats, launches=launches, memory=memory,
+                cold_cloud=clouds["cold"])
 
 
 def runtime_als_repeat(als):
@@ -3084,6 +3145,313 @@ def phase_multirank(tls, als):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the JAX package's last entry points on the card, and the scans
+# with no host cull end to end
+# ---------------------------------------------------------------------------
+
+def plain_call(fn):
+    """``fn()`` with the wrappers of K1 and K4, where the entry points reach
+    them (`kernels/traverse.py::tile_traverse`, `geom/packet.py::
+    packet_traverse`), swapped for their plain versions: the same call on
+    the same tensors with no kernel."""
+    from lidar_brdf_tpu_torch.geom import packet as gp
+    from lidar_brdf_tpu_torch.kernels import packet as kpk
+    from lidar_brdf_tpu_torch.kernels import traverse as tr
+    saved = tr.tile_traverse, gp.packet_traverse
+    tr.tile_traverse = tr.tile_traverse_plain
+    gp.packet_traverse = kpk.packet_traverse_plain
+    try:
+        return fn()
+    finally:
+        tr.tile_traverse, gp.packet_traverse = saved
+
+
+def brute_differences(name, scene, o, d, hit) -> int:
+    """Faces of ``hit`` against `intersect_brute` on the same rays: equal,
+    but where the two faces tie in t (to rtol 1e-5: rays along a shared
+    edge) or the nearer face's barycentric margin is within 1e-5 in
+    float64 (the walk and the brute force round the test in other
+    orders).  Returns the count of such rays; fails on any other."""
+    import numpy as np
+    from lidar_brdf_tpu_torch.core.types import as_numpy
+    from lidar_brdf_tpu_torch.geom.beamcull import wald_rows_np
+    from lidar_brdf_tpu_torch.geom.intersect import intersect_brute
+    hb = intersect_brute(scene, o, d)
+    fa, ta = hit.face.cpu().numpy(), hit.t.cpu().numpy()
+    fb, tb = hb.face.cpu().numpy(), hb.t.cpu().numpy()
+    wald = wald_rows_np(as_numpy(scene.vertices), as_numpy(scene.faces))
+    on, dn = o.cpu().numpy(), d.cpu().numpy()
+    differ = np.nonzero(fa != fb)[0]
+    for i in differ:
+        near, far = (fa[i], fb[i]) if ta[i] <= tb[i] else (fb[i], fa[i])
+        lo, hi = min(ta[i], tb[i]), max(ta[i], tb[i])
+        margin = barycentric_margin(wald, on[i], dn[i], int(near))
+        if not (far >= 0 and hi - lo <= 1e-5 * hi) and abs(margin) > 1e-5:
+            fail(f"{name}: ray {i} takes face {fa[i]} (t {ta[i]}), the brute "
+                 f"force {fb[i]} (t {tb[i]}); nearer face's margin "
+                 f"{margin:.3e}")
+    return int(differ.size)
+
+
+def entry_call(name, kernel, call, brute=None) -> dict:
+    """One call of an entry point on the card: exactly one launch of
+    ``kernel`` (a `CudaLibrary`), (t, face) bit-equal to the same call with
+    the plain versions (`plain_call`); with ``brute`` = (scene, origins,
+    directions), faces held against the brute force
+    (`brute_differences`).  Returns the call's record."""
+    import torch
+    before = kernel.launches
+    hit = call()
+    sync()
+    n = kernel.launches - before
+    if DEVICE == "cuda" and n != 1:
+        fail(f"{name}: {n} launches in one call, not 1")
+    ms = once_ms(call)
+    out = {}
+    plain_ms = once_ms(lambda: out.setdefault("hit", plain_call(call)))
+    ref = out["hit"]
+    if not torch.equal(hit.face, ref.face):
+        fail(f"{name}: {int((hit.face != ref.face).sum())} faces differ "
+             f"from the plain version")
+    if not torch.equal(hit.t, ref.t):
+        fail(f"{name}: t not bit-equal to the plain version")
+    ties = None if brute is None else brute_differences(name, *brute, hit)
+    hits = int((hit.face >= 0).sum())
+    log(f"[entry] {name}: {hit.face.numel()} rays, {hits} hits, {n} "
+        f"launch: faces and t equal bit for bit to the plain version"
+        + ("" if ties is None else f"; faces equal to the brute force but "
+           f"{ties} rays at a tie or a barycentric threshold")
+        + f"; {ms:.3f} ms a call, plain {plain_ms:.1f} ms")
+    return dict(rays=hit.face.numel(), hits=hits, launches=n, ms=ms,
+                plain_ms=plain_ms, brute_ties=ties)
+
+
+def dense_candidates(buckets, n_tiles: int):
+    """One (n_tiles, C) candidate array from (tidx, cand) buckets on the
+    device: each tile's list, -1 padded; dummy rows (tidx == n_tiles) and
+    tiles in no bucket hold none."""
+    import torch
+    cand0 = buckets[0][1]
+    out = torch.full((n_tiles + 1, max(c.shape[1] for _, c in buckets)), -1,
+                     dtype=torch.int32, device=cand0.device)
+    for tidx, cand in buckets:
+        out[tidx.long(), :cand.shape[1]] = cand
+    return out[:n_tiles].contiguous()
+
+
+def phase_entry_points(tls, chunk):
+    """12a: the per-ray walk `intersect_bvh` and `intersect_packed` (tile 1
+    and 128) on the fan over boxes, the grazing fan and the `tls` rays in
+    scan order, each call one launch of K4; `intersect_culled` and
+    `CulledTraverser` (dense and bucketed, ``chunk=8``) on phase 2's random
+    tiles and its `tls` chunk (``chunk``: traverser, origins, directions,
+    buckets), each call one launch of K1.  Every call bit-equal to its
+    plain version; the walks' faces held against the brute force on the
+    small inputs.  Returns the records by call."""
+    import numpy as np
+    import torch
+    from lidar_brdf_tpu_torch import api
+    from lidar_brdf_tpu_torch.geom import beamcull as bc
+    from lidar_brdf_tpu_torch.geom import packet as gp
+    from lidar_brdf_tpu_torch.geom.intersect import intersect_bvh
+    from lidar_brdf_tpu_torch.io import synthetic
+    from lidar_brdf_tpu_torch.kernels import packet as kpk
+    from lidar_brdf_tpu_torch.kernels import traverse as tr
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)
+    boxes = synthetic.terrain_with_boxes(np.random.default_rng(1234),
+                                         num_boxes=6)
+    o, d = fan_rays(64)
+    rough, o2, d2 = grazing_fan()
+    scene, bvh, _, _, rays = tls
+    res = {}
+    for what, sc, tree, oo, dd, small in (
+            ("fan over boxes", boxes, api.build_scene_bvh(boxes), put(o),
+             put(d), True),
+            ("grazing fan", rough, api.build_scene_bvh(rough), put(o2),
+             put(d2), True),
+            ("tls rays", scene, bvh, rays.origin.reshape(-1, 3),
+             rays.direction.reshape(-1, 3), False)):
+        sc = sc.to(DEVICE)
+        brute = (sc, oo, dd) if small else None
+        name = f"intersect_bvh, {what}"
+        res[name] = entry_call(name, kpk.KERNEL,
+                               lambda: intersect_bvh(sc, tree, oo, dd), brute)
+        nodes, rows = gp.pack_bvh(tree, DEVICE), gp.pack_triangles(sc)
+        for tile in (1, gp.DEFAULT_TILE):
+            name = f"intersect_packed, tile {tile}, {what}"
+            res[name] = entry_call(
+                name, kpk.KERNEL,
+                lambda: gp.intersect_packed(nodes, rows, oo, dd, tile=tile),
+                brute)
+
+    rng = np.random.default_rng(7)
+    sc, o, d = random_tiles(rng)
+    tree = api.build_scene_bvh(sc)
+    cases = []
+    ct = bc.CulledTraverser(sc, tile_rays=256, chunk=8, device=DEVICE)
+    cases.append(("random tiles", ct, put(o), put(d),
+                  ct.build_candidates(tree, o, d, t_max=80.0),
+                  ct.prepare(tree, o, d, t_max=80.0)))
+    tt, og, dg, data = chunk
+    ct = bc.CulledTraverser(scene, tile_rays=tt.tile_rays, chunk=8,
+                            device=DEVICE)
+    buckets = tuple((t, c) for t, c, _ in data)
+    cases.append(("tls chunk", ct, og, dg, dense_candidates(
+        buckets, og.shape[0] // ct.tile_rays), buckets))
+    for what, ct, og, dg, dense, buckets in cases:
+        dense_t = torch.as_tensor(dense).to(DEVICE)
+        T, R = dense_t.shape[0], ct.tile_rays
+        name = f"intersect_culled, {what}"
+        res[name] = entry_call(name, tr.KERNEL, lambda: bc.intersect_culled(
+            ct.wald, dense_t, og.view(T, R, 3), dg.view(T, R, 3), chunk=8))
+        for kind, data in (("dense", dense), ("buckets", buckets)):
+            name = f"CulledTraverser, {kind}, {what}"
+            res[name] = entry_call(name, tr.KERNEL,
+                                   lambda: ct(og, dg, data))
+        res[f"intersect_culled, {what}"]["candidates"] = list(dense_t.shape)
+    return res
+
+
+def bench_cold_scan(bench_fwd) -> tuple:
+    """(cloud, record) of phase 10a's cold `forward` scan, the cloud taken
+    out of the bench's record (it stays out of the JSON line): the record
+    holds ``wall_s``, its ``stats=`` split and its device memory."""
+    return bench_fwd.pop("cold_cloud"), dict(
+        wall_s=bench_fwd["line"]["wall_s_cold"],
+        **bench_fwd["memory"]["cold"], **bench_fwd["stats"]["cold"])
+
+
+def forward_workload():
+    """The bench's ``forward`` config as `bench.forward_main` builds it:
+    (scene, BVH, config in chunks of FORWARD_CHUNK, materials, host rays)
+    of FORWARD_PULSES pulses over the TLS_TRIS-face city."""
+    from lidar_brdf_tpu_torch import bench
+    spec = bench.CONFIGS["forward"]
+    scene, bvh, cfg, rays, mats = bench.build_workload(
+        "forward", FORWARD_PULSES, spec["rays_pulse"], spec["max_returns"],
+        spec["scene"], TLS_TRIS)
+    cfg = cfg.with_(chunk_pulses=min(FORWARD_CHUNK, rays.num_pulses))
+    return scene, bvh, cfg, mats, rays
+
+
+def slot_keys(cloud, cfg):
+    """(keys, cloud compacted on the host): one int64 per valid slot of an
+    ALS cloud, pulse index x (L + 1) + return number; the pulse index is
+    the slot's GPS time x the pulse rate, rounded (the time adds the
+    return's travel, far below half a pulse period).  Fails unless the
+    keys are unique."""
+    import numpy as np
+    c = cloud.compact_host()
+    pulse = np.rint(c.gps_time.double().numpy() * cfg.als_pulse_frequency)
+    keys = pulse.astype(np.int64) * (cfg.max_returns + 1) \
+        + c.return_number.numpy()
+    if np.unique(keys).size != keys.size:
+        fail("ALS slot keys (pulse, return number) are not unique")
+    return keys, c
+
+
+def compare_slots(a, b, cfg) -> dict:
+    """The no-cull cloud ``a`` against the culled cloud ``b`` of one ALS
+    cell, slot for slot: valid slots in both and in one only, the share of
+    common slots whose winning face differs (read from the slot's normal,
+    the winner face's: the cloud holds no face id), and where the faces
+    agree the largest range, position and relative intensity differences
+    and the shares of slots whose intensity differs by over 1e-5 and 1e-2.
+    Slots are paired by pulse and return number (`slot_keys`): the ladder
+    path permutes each chunk's pulses (`Simulator._prep_pulse`), so its
+    slots, and the noise draws that follow them, are in another order, and
+    positions differ by the noise displacement where the range agrees."""
+    import numpy as np
+    ka, ca = slot_keys(a, cfg)
+    kb, cb = slot_keys(b, cfg)
+    _, ia, ib = np.intersect1d(ka, kb, assume_unique=True,
+                               return_indices=True)
+    same = (ca.normal.numpy()[ia] == cb.normal.numpy()[ib]).all(axis=1)
+    pa, pb = ca.position.numpy()[ia], cb.position.numpy()[ib]
+    dpos = np.abs(pa - pb).max(axis=1)[same]
+    ddist = np.abs(ca.distance.numpy()[ia] - cb.distance.numpy()[ib])[same]
+    ia_i, ib_i = ca.intensity.numpy()[ia], cb.intensity.numpy()[ib]
+    rel = (np.abs(ia_i - ib_i) / np.maximum(np.abs(ib_i), 1e-30))[same]
+    return dict(points=int(ka.size), culled_points=int(kb.size),
+                common=int(ia.size), only_no_cull=int(ka.size - ia.size),
+                only_culled=int(kb.size - ia.size),
+                face_differs_share=float(1.0 - same.mean()) if ia.size
+                else 0.0,
+                max_ddist_same_face=float(ddist.max()) if ddist.size
+                else 0.0,
+                max_dpos_same_face=float(dpos.max()) if dpos.size else 0.0,
+                max_rel_dI_same_face=float(rel.max()) if rel.size else 0.0,
+                rel_dI_over_1e_5_share=float((rel > 1e-5).mean())
+                if rel.size else 0.0,
+                rel_dI_over_1e_2_share=float((rel > 1e-2).mean())
+                if rel.size else 0.0)
+
+
+def compare_multisets(a, b) -> dict:
+    """The no-cull cloud ``a`` against the culled cloud ``b`` of a cell
+    whose culled path reorders the pulses (BSP order moves the noise
+    draws): valid counts; the share of ``a``'s intensities with no equal
+    value left in ``b`` (multisets: each value matched once), and with no
+    value of ``b`` within rel 1e-5; and the largest relative difference of
+    the sorted intensities, slot for slot when the counts agree, else at
+    1001 quantiles (one changed value shifts every sorted slot between its
+    old and new place, so this reads the spread of neighbouring values as
+    well)."""
+    import numpy as np
+    ia = np.sort(a.compact_host().intensity.numpy())
+    ib = np.sort(b.compact_host().intensity.numpy())
+    vals, inv = np.unique(np.concatenate([ia, ib]), return_inverse=True)
+    na = np.bincount(inv[:ia.size], minlength=vals.size)
+    nb = np.bincount(inv[ia.size:], minlength=vals.size)
+    at = np.clip(np.searchsorted(ib, ia), 1, max(ib.size - 1, 1))
+    near = np.minimum(np.abs(ia - ib[at - 1]), np.abs(ia - ib[at])) \
+        if ib.size > 1 else np.abs(ia - ib[:1])
+    out = dict(points=int(ia.size), culled_points=int(ib.size),
+               unmatched_intensity_share=float(
+                   np.maximum(na - nb, 0).sum() / max(ia.size, 1)),
+               no_value_within_1e_5_share=float(
+                   (near > 1e-5 * np.abs(ia)).mean()) if ia.size else 0.0)
+    if ia.size != ib.size:
+        q = np.linspace(0, 1, 1001)
+        ia, ib = np.quantile(ia, q), np.quantile(ib, q)
+    rel = np.abs(ia - ib) / np.maximum(np.abs(ib), 1e-30)
+    out["max_rel_dI_sorted"] = float(rel.max()) if rel.size else 0.0
+    return out
+
+
+def phase_no_cull(als, water, forward, culled) -> dict:
+    """12b: the `als`, `water` and `forward` scans through
+    `Simulator(use_culled=False)` at full width (`phase_forward`: warm,
+    then timed with its split and peak device memory): K4 once a chunk on
+    `als` and `forward` (K2 and K1 never), once per level on `water`.  Each
+    cloud against the culled cloud of the same cell (``culled``: {cell:
+    (cloud, record with ``wall_s`` and ``peak_bytes``)}), printed, not
+    gated: `als` slot for slot (`compare_slots`), `water` and `forward`
+    by counts and sorted intensities (`compare_multisets`)."""
+    res = {}
+    for cell, workload, warm in (("als", als, ALS_CHUNK),
+                                 ("water", water, WATER_WARM),
+                                 ("forward", forward, FORWARD_CHUNK)):
+        cfg, rays = workload[2], workload[4]
+        per_chunk = {"K4": cfg.max_returns if cell == "water" else 1}
+        _, cloud, rec = phase_forward(
+            f"{cell}, use_culled=False", workload,
+            min(warm, rays.num_pulses), per_chunk, use_culled=False)
+        ref_cloud, ref = culled[cell]
+        cmp = (compare_slots(cloud, ref_cloud, cfg) if cell == "als"
+               else compare_multisets(cloud, ref_cloud))
+        res[cell] = dict(rec, culled_wall_s=ref["wall_s"],
+                         culled_peak_bytes=ref["peak_bytes"],
+                         culled_cull_s=ref["cull_s"], **cmp)
+        log(f"[no-cull] {cell}: wall {rec['wall_s']:.3f} s (culled "
+            f"{ref['wall_s']:.3f} s, of it host cull {ref['cull_s']:.3f} s); "
+            f"peak device memory {rec['peak_bytes']} B (culled "
+            f"{ref['peak_bytes']} B); against the culled cloud: "
+            + ", ".join(f"{k} {v}" for k, v in cmp.items()))
+    return res
+
+
 def main() -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
@@ -3124,13 +3492,13 @@ def main() -> int:
     del als_sim
     launches, _, tls_fwd = phase_forward("tls", tls, TLS_PULSES, {"K1": 1})
     k1["launches"] = launches["K1"]
-    launches, _, als_fwd = phase_forward("als", als, ALS_CHUNK, {"K2": 1})
+    launches, als_cloud, als_fwd = phase_forward("als", als, ALS_CHUNK,
+                                                 {"K2": 1})
     k2["launches"] = launches["K2"]
     t0 = time.perf_counter()
     water = water_workload(als)
     log(f"[setup] water workload built in {time.perf_counter() - t0:.2f} s")
-    water_launches, water_fwd, levels = phase_water(water)
-    del water
+    water_launches, water_fwd, levels, water_cloud = phase_water(water)
     _, _, tls_walk = phase_forward("tls, use_culled=False", tls, TLS_PULSES,
                                    {"K4": 1}, use_culled=False)
     log(f"[tls] packet walk (K4, no host cull) {tls_walk['rays_per_s']:.0f} "
@@ -3147,6 +3515,7 @@ def main() -> int:
     phase_card_vs_cpu_grads()
     files = phase_files(tls)
     runtime = phase_runtime(tls, als)
+    forward_culled = bench_cold_scan(runtime["forward_bench"])
     k1["launches_forward_bench"] = runtime["forward_bench"]["launches"]
     k2["launches_als_repeat"] = [
         r["launches"]["K2"] for r in runtime["als_repeat"]]
@@ -3168,6 +3537,16 @@ def main() -> int:
         one_rank=nccl["packet"]["fwd_launches"]["K4"],
         per_rank=[w["tls"]["paths"]["packet"]["fwd_launches"]["K4"]
                   for w in gloo])
+    t0 = time.perf_counter()
+    entry = phase_entry_points(tls, k1_chunk_data)
+    forward = forward_workload()
+    no_cull = phase_no_cull(als, water, forward, {
+        "als": (als_cloud, als_fwd), "water": (water_cloud, water_fwd),
+        "forward": forward_culled})
+    del water, forward, als_cloud, water_cloud, forward_culled
+    k4["launches_no_cull"] = {k: v["launches"]["K4"]
+                              for k, v in no_cull.items()}
+    log(f"[phase 12] took {time.perf_counter() - t0:.1f} s")
     phase_profiles(k1_chunk_data, k1, k3, k2_chunk_data, k2)
     log(json.dumps({"card": card, "tls_forward": tls_fwd,
                     "files": files, "runtime": runtime,
@@ -3175,6 +3554,7 @@ def main() -> int:
                     "als_forward": als_fwd, "water_forward": water_fwd,
                     "tls_packet_walk_forward": tls_walk,
                     "traverser_choice": choice, "fwd_bwd": training,
+                    "entry_points": entry, "no_cull": no_cull,
                     "seconds": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": [k1, k2, k3, k4]}))
     log(json.dumps({"ok": True, "device": {

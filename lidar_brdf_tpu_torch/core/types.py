@@ -16,6 +16,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+Array = torch.Tensor
+
+# Sentinel for "no face" / "no hit" (`findBVHCollision-comp.glsl:105-107`).
+NO_HIT = np.int32(-1)
+
 # Surface flags (reference: `reduceCollisions-comp.glsl:8-9`).
 SURFACE_TERRAIN = 1 << 0
 SURFACE_WATER = 1 << 1

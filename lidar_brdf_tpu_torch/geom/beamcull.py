@@ -12,9 +12,15 @@ two, and the port keeps that split:
 
 2. DEVICE (`kernels/traverse.py`): each ray tile is intersected against its
    candidate list of Wald rows (plane + two barycentric planes, 12 floats)
-   by the hand-written CUDA tile kernel, or its plain PyTorch version.
+   by the hand-written CUDA tile kernel K1, or its plain PyTorch version.
+   `intersect_culled` and `CulledTraverser` give the JAX package's
+   interface to it: a dense (T, C) candidate array or its buckets.
 
-Hit semantics match `moller_trumbore` (`geom/intersect.py`).
+Hit semantics match `moller_trumbore` (`geom/intersect.py`).  Tie rule
+(equal t): K1 takes the least face id among the equal t of a block of 8
+candidates, and across blocks the earlier block wins; the JAX package's
+XLA path takes the least face id across a whole ``chunk`` of candidates
+(128 by default).  At ``chunk=8`` the two rules are the same.
 """
 
 from __future__ import annotations
@@ -22,8 +28,10 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
-from ..core.types import BVH
+from ..core.types import BVH, Hit, TriangleScene
+from .intersect import BIG
 
 DEFAULT_TILE_RAYS = 512
 DEFAULT_CHUNK = 128
@@ -266,6 +274,51 @@ def _collect_candidates(bvh: BVH, beams: TileBeams, t_max: float | None,
     return tiles, faces_out, counts
 
 
+def _tile_candidates(bvh: BVH, origins, directions, tile_rays: int,
+                     t_max: float | None, use_native: bool):
+    """The cull of rays tiled in flat order: (n_tiles, tiles, faces,
+    counts, offsets) with each tile's list from ``offsets[t]``."""
+    o = np.asarray(origins, np.float64).reshape(-1, 3)
+    d = np.asarray(directions, np.float64).reshape(-1, 3)
+    if o.shape[0] % tile_rays:
+        raise ValueError(f"ray count {o.shape[0]} not a multiple of "
+                         f"tile_rays={tile_rays}")
+    beams = tile_beams(o, d, tile_rays)
+    n_tiles = beams.center.shape[0]
+    tiles, faces_out, counts = _collect_candidates(bvh, beams, t_max,
+                                                   use_native)
+    offsets = np.zeros(n_tiles + 1, np.int64)
+    np.cumsum(counts, out=offsets[1:])
+    return n_tiles, tiles, faces_out, counts, offsets
+
+
+def build_tile_candidates(bvh: BVH, origins: np.ndarray,
+                          directions: np.ndarray, *,
+                          tile_rays: int = DEFAULT_TILE_RAYS,
+                          t_max: float | None = None,
+                          pad_to: int = DEFAULT_CHUNK,
+                          use_native: bool = True) -> np.ndarray:
+    """(n_tiles, C) int32 candidate face ids per ray tile, -1 padded, C a
+    multiple of ``pad_to``.
+
+    Rays are tiled in flat order: callers should pass coherently ordered
+    rays (see `runtime.simulate.bsp_order`).  Ray count must be a multiple
+    of ``tile_rays`` (pad with zero-direction rays).  ``t_max`` bounds the
+    reachable range (None = conservative scene-diagonal bound).
+    ``use_native=False`` takes the numpy culler (the JAX package reads
+    ``LIDAR_BRDF_TPU_NO_NATIVE`` for that).
+    """
+    n_tiles, tiles, faces_out, counts, offsets = _tile_candidates(
+        bvh, origins, directions, tile_rays, t_max, use_native)
+    c_max = int(counts.max()) if counts.size else 0
+    c_max = max(((c_max + pad_to - 1) // pad_to) * pad_to, pad_to)
+    cand = np.full((n_tiles, c_max), -1, np.int32)
+    if tiles.size:
+        col = np.arange(tiles.shape[0]) - offsets[tiles]
+        cand[tiles, col] = faces_out.astype(np.int32)
+    return cand
+
+
 def _next_pow2(x: int) -> int:
     return 1 << max(int(x) - 1, 0).bit_length()
 
@@ -285,18 +338,8 @@ def build_bucketed_candidates(bvh: BVH, origins: np.ndarray,
     dummy rows (tile id = n_tiles, cand = -1) so repeated chunks mostly
     reuse compiled shapes.
     """
-    o = np.asarray(origins, np.float64).reshape(-1, 3)
-    d = np.asarray(directions, np.float64).reshape(-1, 3)
-    if o.shape[0] % tile_rays:
-        raise ValueError(f"ray count {o.shape[0]} not a multiple of "
-                         f"tile_rays={tile_rays}")
-    beams = tile_beams(o, d, tile_rays)
-    n_tiles = beams.center.shape[0]
-    tiles, faces_out, counts = _collect_candidates(bvh, beams, t_max,
-                                                   use_native)
-    offsets = np.zeros(n_tiles + 1, np.int64)
-    np.cumsum(counts, out=offsets[1:])
-
+    n_tiles, _, faces_out, counts, offsets = _tile_candidates(
+        bvh, origins, directions, tile_rays, t_max, use_native)
     padded = np.maximum(
         pad_to * (2 ** np.ceil(np.log2(np.maximum(
             (counts + pad_to - 1) // pad_to, 1))).astype(np.int64)),
@@ -314,3 +357,119 @@ def build_bucketed_candidates(bvh: BVH, origins: np.ndarray,
         tidx_arr[:B] = tidx
         buckets.append((tidx_arr, cand))
     return tuple(buckets)
+
+
+# ---------------------------------------------------------------------------
+# Device half: the JAX package's culled-path interface over K1
+# ---------------------------------------------------------------------------
+
+def _no_exit_bounds(cand: torch.Tensor) -> torch.Tensor:
+    """Block bounds that never stop K1 early (a hit's t may be as low as
+    -EPSILON, so a bound of 0 could stop it), as the plain version never
+    stops: (B, C // 8) f32 of -inf."""
+    from ..kernels.traverse import CAND_BLOCK
+    return torch.full((cand.shape[0], cand.shape[1] // CAND_BLOCK),
+                      float("-inf"), dtype=torch.float32, device=cand.device)
+
+
+def intersect_culled(wald, cand, origin, direction, *,
+                     chunk: int = DEFAULT_CHUNK) -> Hit:
+    """Nearest hit of tiled rays against per-tile candidate lists.
+
+    ``wald`` (F, 12) f32 triangle rows; ``cand`` (T, C) i32 (-1 pad),
+    C % ``chunk`` == 0 and ``chunk`` a multiple of 8; ``origin`` /
+    ``direction`` (T, R, 3).  Returns a `Hit` of shape (T, R); misses are
+    (BIG, -1).  On CUDA tensors one launch of K1 (`kernels/traverse.py::
+    tile_traverse`): the array is one bucket of every tile (tidx =
+    arange(T)), each tile's rays padded to a multiple of 128 with
+    zero-direction rays (misses), no early exit, t_max BIG; on CPU tensors
+    its plain version.  Ties follow K1's blocks of 8, not ``chunk`` (the
+    module's note): ``chunk`` only checks the layout.
+    """
+    from ..kernels.traverse import CAND_BLOCK, LANES, tile_traverse
+    T, C = cand.shape
+    if chunk <= 0 or chunk % CAND_BLOCK or C % chunk:
+        raise ValueError(f"chunk {chunk} must be a multiple of {CAND_BLOCK} "
+                         f"and divide the {C} candidates")
+    R = origin.shape[1]
+    pad = (-R) % LANES
+    o = torch.nn.functional.pad(origin.detach().float(), (0, 0, 0, pad))
+    d = torch.nn.functional.pad(direction.detach().float(), (0, 0, 0, pad))
+    cand = cand.to(torch.int32).contiguous()
+    tidx = torch.arange(T, dtype=torch.int32, device=cand.device)
+    t, f = tile_traverse(wald, o.reshape(-1, 3).contiguous(),
+                         d.reshape(-1, 3).contiguous(),
+                         ((tidx, cand, _no_exit_bounds(cand)),), BIG, R + pad)
+    return Hit(t=t.view(T, R + pad)[:, :R], face=f.view(T, R + pad)[:, :R])
+
+
+class CulledTraverser:
+    """Scene-bound culled traverser with the JAX package's interface: the
+    host cull per call, then K1 on the device, through the
+    `kernels/traverse.py::TileTraverser` it wraps (the `Simulator`'s).
+
+    Usage::
+
+        tr = CulledTraverser(scene, tile_rays=512, device="cuda")
+        data = tr.build_candidates(bvh, origins, directions)   # host
+        hits = tr(origin, direction, data)                     # device
+
+    ``traverse_data`` is either a dense (T, C) candidate array (from
+    `build_tile_candidates`: one bucket of every tile) or a tuple of
+    (tile_idx, cand) buckets (from `build_bucketed_candidates`,
+    `prepare`), numpy or tensors.  Each call launches K1 once on CUDA
+    tensors, with no early exit and t_max BIG; ties follow K1's blocks of
+    8 (the module's note).
+    """
+
+    def __init__(self, scene: TriangleScene, *,
+                 tile_rays: int = DEFAULT_TILE_RAYS,
+                 chunk: int = DEFAULT_CHUNK, device="cuda"):
+        from ..kernels.traverse import CAND_BLOCK, TileTraverser
+        if chunk % CAND_BLOCK:
+            raise ValueError(f"chunk must be a multiple of {CAND_BLOCK}")
+        self._tiles = TileTraverser(scene, tile_rays=tile_rays, device=device)
+        self._tiles.t_max = BIG
+        self.tile_rays = tile_rays
+        self.chunk = chunk
+        self.device = self._tiles.device
+        self.wald = self._tiles.wald
+
+    def build_candidates(self, bvh: BVH, origin, direction,
+                         t_max: float | None = None) -> np.ndarray:
+        o, d = self._tiles._pad_np(origin, direction)
+        return build_tile_candidates(bvh, o, d, tile_rays=self.tile_rays,
+                                     t_max=t_max, pad_to=self.chunk)
+
+    def build_buckets(self, bvh: BVH, origin, direction,
+                      t_max: float | None = None):
+        o, d = self._tiles._pad_np(origin, direction)
+        return build_bucketed_candidates(
+            bvh, o, d, tile_rays=self.tile_rays, t_max=t_max,
+            pad_to=self.chunk)
+
+    def beams_ok(self, origin, direction) -> bool:
+        return self._tiles.beams_ok(origin, direction)
+
+    def prepare(self, bvh: BVH, origin, direction,
+                t_max: float | None = None):
+        """One-call host prep: traverse_data for `__call__` (bucket tuple)."""
+        return self.build_buckets(bvh, origin, direction, t_max=t_max)
+
+    def __call__(self, origin, direction, traverse_data) -> Hit:
+        put = lambda a: torch.as_tensor(a).to(
+            self.device, torch.int32).contiguous()
+        if isinstance(traverse_data, tuple):
+            pairs = traverse_data
+        else:
+            cand = put(traverse_data)
+            T = -(-origin.reshape(-1, 3).shape[0] // self.tile_rays)
+            if cand.shape[0] != T:
+                raise ValueError(f"candidates built for {cand.shape[0]} "
+                                 f"tiles, rays give {T}")
+            pairs = ((torch.arange(T, dtype=torch.int32), cand),)
+        buckets = []
+        for tidx, cand in pairs:
+            cand = put(cand)
+            buckets.append((put(tidx), cand, _no_exit_bounds(cand)))
+        return self._tiles(origin, direction, buckets)

@@ -22,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.types import BVH
+from ..core.types import BVH, as_numpy
 from .morton import morton3d_np
 
 _KEY_BITS = 53
@@ -211,3 +211,39 @@ def _karras_radix_tree(keys: np.ndarray):
     left = np.where(lo == gamma, num_internal + gamma, gamma)
     right = np.where(hi == gamma + 1, num_internal + gamma + 1, gamma + 1)
     return left.astype(np.int64), right.astype(np.int64)
+
+
+def validate_bvh(bvh: BVH, vertices, faces) -> None:
+    """Structural invariants (test helper; a copy of the JAX package's
+    `validate_bvh`): every face appears exactly once in a leaf, every
+    node's AABB contains its subtree, skip links are a valid DFS
+    threading.  Raises AssertionError where one fails."""
+    vertices, faces = as_numpy(vertices), as_numpy(faces)
+    node_face = as_numpy(bvh.node_face)
+    node_skip = as_numpy(bvh.node_skip)
+    node_min = as_numpy(bvh.node_min)
+    node_max = as_numpy(bvh.node_max)
+    n_nodes = node_face.shape[0]
+    leaves = node_face[node_face >= 0]
+    assert len(leaves) == faces.shape[0]
+    assert len(np.unique(leaves)) == faces.shape[0]
+    fmin, fmax = face_aabbs(vertices, faces)
+    # leaf AABBs match faces
+    leaf_ids = np.nonzero(node_face >= 0)[0]
+    assert np.allclose(node_min[leaf_ids], fmin[node_face[leaf_ids]])
+    assert np.allclose(node_max[leaf_ids], fmax[node_face[leaf_ids]])
+    # DFS threading: walking node+1/skip visits each node exactly once
+    visited = np.zeros(n_nodes, bool)
+    node = 0
+    count = 0
+    while node < n_nodes:
+        assert not visited[node]
+        visited[node] = True
+        count += 1
+        if node_face[node] >= 0:
+            node = node_skip[node]
+        else:
+            # child AABBs inside parent
+            assert (node_min[node] <= node_min[node + 1] + 1e-6).all()
+            node = node + 1
+    assert count == n_nodes

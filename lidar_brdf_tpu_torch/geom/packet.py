@@ -23,6 +23,8 @@ import torch
 from ..core.types import BVH, Hit, TriangleScene, as_numpy
 from ..kernels.packet import PACKET, node_records, packet_traverse
 
+DEFAULT_TILE = 128   # the JAX package's tile, one of K4's `WIDTHS`
+
 
 class PackedScene(NamedTuple):
     """Traversal-ready arrays on the compute device.  Each field holds the
@@ -55,23 +57,37 @@ def triangle_rows(vertices: torch.Tensor,
         return rows[:, :9]
 
 
-def pack_scene(scene: TriangleScene, bvh: BVH) -> PackedScene:
-    """The scene's triangle rows and the BVH's node records, on the
-    scene's device.  Raises ValueError unless every skip link points
-    forward (what bounds a walk's length)."""
-    dev = scene.vertices.device
+def pack_bvh(bvh: BVH, device=None):
+    """(node_box (N, 6) f32, node_skip (N,) i32, node_face (N,) i32), the
+    JAX package's values, as views of one (N, 8) record
+    (`kernels/packet.py::node_records`), on ``device`` (None: the BVH's
+    own).  Raises ValueError unless every skip link points forward (what
+    bounds a walk's length)."""
+    if device is None:
+        device = bvh.node_min.device if isinstance(bvh.node_min,
+                                                   torch.Tensor) else "cpu"
     skip = np.asarray(as_numpy(bvh.node_skip), np.int32)
     if (skip <= np.arange(skip.shape[0])).any():
         raise ValueError("a BVH skip link does not point forward")
     put = lambda a, dt: torch.from_numpy(
-        np.ascontiguousarray(as_numpy(a), dt)).to(dev)
+        np.ascontiguousarray(as_numpy(a), dt)).to(device)
     box = torch.cat([put(bvh.node_min, np.float32),
                      put(bvh.node_max, np.float32)], dim=1)
-    node_box, node_skip, node_face = node_records(
-        box, torch.from_numpy(skip).to(dev), put(bvh.node_face, np.int32))
-    return PackedScene(node_box=node_box, node_skip=node_skip,
-                       node_face=node_face,
-                       tri_rows=triangle_rows(scene.vertices, scene.faces))
+    return node_records(box, torch.from_numpy(skip).to(device),
+                        put(bvh.node_face, np.int32))
+
+
+def pack_triangles(scene: TriangleScene) -> torch.Tensor:
+    """(F, 9) f32 rows [v0 e1 e2] of the scene, on its device
+    (`triangle_rows`)."""
+    return triangle_rows(scene.vertices, scene.faces)
+
+
+def pack_scene(scene: TriangleScene, bvh: BVH) -> PackedScene:
+    """The scene's triangle rows and the BVH's node records, on the
+    scene's device (`pack_triangles`, `pack_bvh`)."""
+    return PackedScene(*pack_bvh(bvh, scene.vertices.device),
+                       tri_rows=pack_triangles(scene))
 
 
 def intersect_packed_scene(packed: PackedScene, origin, direction, *,
@@ -92,6 +108,17 @@ def intersect_packed_scene(packed: PackedScene, origin, direction, *,
     a = None if active is None else active.reshape(-1).contiguous()
     t, f = packet_traverse(*packed, o, d, steps, active=a, width=width)
     return Hit(t=t.reshape(shape), face=f.reshape(shape))
+
+
+def intersect_packed(nodes, tris, origin, direction, *,
+                     tile: int = DEFAULT_TILE) -> Hit:
+    """The walk over the (node_box, node_skip, node_face) triple of
+    `pack_bvh` and the rows of `pack_triangles`, in packets of ``tile``
+    rays (one of `kernels/packet.py::WIDTHS`; another raises ValueError).
+    The default is the JAX tile; `make_packet_traverser` walks one ray a
+    packet."""
+    return intersect_packed_scene(PackedScene(*nodes, tri_rows=tris), origin,
+                                  direction, width=tile)
 
 
 def make_packet_traverser(scene: TriangleScene, bvh: BVH):

@@ -81,6 +81,14 @@ def get_lib() -> ctypes.CDLL | None:
                                  f32p, f32p, f32p, f32p, u8p, i64,
                                  ctypes.c_float, i32p, i32p, f32p, i64]
         lib.lbt_cull.restype = i64
+        i64p = ctypes.POINTER(i64)
+        lib.lbt_parse_obj_sizes.argtypes = [ctypes.c_char_p, i64p, i64p,
+                                            i64p]
+        lib.lbt_parse_obj_sizes.restype = ctypes.c_int
+        lib.lbt_parse_obj_fill.argtypes = [
+            f32p, i32p, np.ctypeslib.ndpointer(np.int64,
+                                               flags="C_CONTIGUOUS")]
+        lib.lbt_parse_obj_fill.restype = ctypes.c_int
         _lib = lib
         return _lib
 
@@ -106,6 +114,33 @@ def build_bvh_native(vertices: np.ndarray, faces: np.ndarray) -> BVH | None:
         return None
     from ..geom.bvh import _bvh
     return _bvh(node_min, node_max, node_face, node_skip)
+
+
+def parse_obj_native(path: str):
+    """Fast positions + faces OBJ parse: (verts (V, 3) f32 global positions,
+    faces (F, 3) i32 fan-triangulated position ids, comp_start (C,) i64 the
+    face where each ``o``/``g`` component starts), or None when the library
+    is unavailable or the file cannot be read.  Attribute and material
+    resolution stay in `io/obj.py`.
+
+    The C side keeps the parse in one global between its two calls, so the
+    module's lock is held across both: two threads never read each other's
+    file."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    nv, nf, nc = ctypes.c_int64(), ctypes.c_int64(), ctypes.c_int64()
+    with _lock:
+        if lib.lbt_parse_obj_sizes(os.fsencode(path), ctypes.byref(nv),
+                                   ctypes.byref(nf), ctypes.byref(nc)) != 0:
+            return None
+        verts = np.empty((nv.value, 3), np.float32)
+        faces = np.empty((nf.value, 3), np.int32)
+        comp_start = np.empty(nc.value, np.int64)
+        if lib.lbt_parse_obj_fill(verts.reshape(-1), faces.reshape(-1),
+                                  comp_start) != 0:
+            return None
+    return verts, faces, comp_start
 
 
 def cull_candidates_native(bvh: BVH, center, axis, tan_half, radius, valid,

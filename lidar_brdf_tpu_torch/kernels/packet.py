@@ -35,7 +35,7 @@ import ctypes
 
 import torch
 
-from ..geom.intersect import BIG, EPSILON
+from ..geom.intersect import BIG, EPSILON, slab_test
 from ..utils.safemath import cross3, dot3
 from .cuda_build import CudaLibrary, check_tensor, raw_stream
 
@@ -236,12 +236,7 @@ def packet_traverse_plain(node_box, node_skip, node_face, tri_rows, origin,
         leaf = face >= 0
         oo, dd, ii = o[live], d[live], inv_d[live]
         tb, fb = t_best[live], f_best[live]
-        # slab test
-        t0 = (box[..., 0:3] - oo) * ii
-        t1 = (box[..., 3:6] - oo) * ii
-        t_near = torch.minimum(t0, t1).amax(dim=-1)         # (A, W)
-        t_far = torch.maximum(t0, t1).amin(dim=-1)
-        hit_ray = (t_far >= torch.clamp(t_near, min=0.0)) & (t_near < tb)
+        hit_ray = slab_test(oo, ii, box[..., 0:3], box[..., 3:6], tb)  # (A, W)
         # Moller-Trumbore on the leaf's row [v0, e1, e2]
         tri = tri_rows[torch.clamp(face, min=0).long()][:, None, :]
         v0, e1, e2 = tri[..., 0:3], tri[..., 3:6], tri[..., 6:9]

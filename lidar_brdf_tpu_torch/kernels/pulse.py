@@ -42,7 +42,8 @@ from ..geom.beamcull import (_collect_candidates, beams_are_narrow,
                              tile_beams, wald_rows_np)
 from ..geom.intersect import BIG
 from .cuda_build import CudaLibrary, check_tensor, raw_stream
-from .traverse import CAND_BLOCK, default_t_max, wald_blocks_plain
+from .traverse import (CAND_BLOCK, INT_MISS,  # noqa: F401  (JAX's name)
+                       default_t_max, wald_blocks_plain)
 
 LANES = 128          # bucket rows are padded to a multiple of this
 MAX_THREADS = 128    # K2 (csrc/pulse_traverse.cu): threads of a block,

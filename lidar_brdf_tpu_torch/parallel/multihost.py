@@ -19,6 +19,8 @@ import torch.distributed as dist
 
 from ..core.types import RayBundle, resolve_device
 
+RAY_AXIS = "rays"     # the JAX mesh's axis name; ranks split the rays
+
 if TYPE_CHECKING:
     from ..core.types import PointCloud
     from .shard import RayMesh

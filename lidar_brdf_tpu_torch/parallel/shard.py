@@ -142,6 +142,11 @@ def shard_traverse_data(data, mesh: RayMesh):
     return moved
 
 
+# the JAX package's name for the same step: tile buckets are one instance
+# of traverse data
+shard_buckets_put = shard_traverse_data
+
+
 def _check_rays(rays: RayBundle, mesh: RayMesh):
     if rays.origin.device != mesh.device:
         raise ValueError(f"rays on {rays.origin.device}, the rank's device "

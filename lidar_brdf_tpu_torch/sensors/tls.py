@@ -20,6 +20,8 @@ from ..core.types import RayBundle
 from ..utils import noise as noise_mod
 from ..utils.safemath import cross3, dot3
 
+UP = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32)   # footprint basis
+
 
 def _normalize(v, floor: float = 1e-12):
     n = torch.sqrt(dot3(v, v))[..., None]
@@ -102,8 +104,7 @@ def build_tls_rays(cfg: SensorConfig, noise_buf: torch.Tensor, *,
 
     # central ray + (R-1) destinations jittered on the footprint disc; TLS
     # rays share the origin (diverging beam)
-    up = torch.tensor([0.0, 1.0, 0.0], device=dev)
-    u, v = radius_axes(dest, up)
+    u, v = radius_axes(dest, UP.to(dev))
     ray_ids = torch.arange(1, R, dtype=torch.int64, device=dev)
     n1 = noise_mod.sample(noise_buf, idx[:, None],
                           noise_mod.PULSE_NOISE_OFFSET[0] + ray_ids[None, :])

@@ -74,9 +74,12 @@ def rsqrt(x):
     return 1.0 / torch.sqrt(x)
 
 
-def safe_norm(v, eps: float = 1e-24):
-    """|v| over the last axis with a finite gradient at v = 0."""
-    return torch.sqrt(dot3(v, v) + eps)
+def safe_norm(v, axis: int = -1, eps: float = 1e-24):
+    """|v| over ``axis`` with a finite gradient at v = 0.  An axis of
+    length 3 sums as `dot3` does, ((v0 v0 + v1 v1) + v2 v2)."""
+    w = torch.movedim(v, axis, -1)
+    s = dot3(w, w) if w.shape[-1] == 3 else (w * w).sum(dim=-1)
+    return torch.sqrt(s + eps)
 
 
 def safe_unit(v, eps: float = 1e-24):

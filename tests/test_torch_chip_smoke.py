@@ -65,6 +65,7 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys):
     assert "K2 interior padding, hand-built bucket" in out
     assert "K2 tail-padded ladders" in out
     assert "[card-vs-cpu] TLS L=2" in out and "[card-vs-cpu] ALS L=2" in out
+    assert "[card-vs-cpu] ALS L=2, use_culled=False" in out
     assert "[card-vs-cpu] water L=3" in out
     assert "[card-vs-cpu] ANALYTIC L=2, model ids 0-7" in out
     assert "[card-vs-cpu] OBJ water L=3" in out
@@ -118,7 +119,7 @@ def test_chip_smoke_water_and_packet_walk_on_cpu(monkeypatch, capsys):
     assert scene.num_faces == als[0].num_faces + 2 * 8 * 8
     assert cfg.bathymetric and cfg.max_returns == 3
     assert rays.num_pulses == 2048 and rays.rays_per_pulse == 10
-    launches, res, levels = chip_smoke.phase_water(water)
+    launches, res, levels, _ = chip_smoke.phase_water(water)
     assert res["bottom_returns"] > 0 and res["surface_returns"] > 0
     assert res["rays"] == 2048 * 10 and set(launches) == {"K1", "K2", "K4"}
     assert len(levels) == 2 and len(res["active_share"]) == 2
@@ -155,6 +156,69 @@ def test_chip_smoke_water_and_packet_walk_on_cpu(monkeypatch, capsys):
     assert "K4 fan over boxes, all rays, packets of 128" in out
     assert "K4 water_level2 rays, all rays" in out
     assert "bottom returns" in out and "bounce level 2" in out
+
+
+def test_chip_smoke_entry_points_and_no_cull_on_cpu(monkeypatch, capsys):
+    """Phase 12 at a small size: (a) `intersect_bvh`, `intersect_packed`,
+    `intersect_culled` and `CulledTraverser` against their plain versions
+    (both sides plain here) and the brute force; (b) the `als`, `water` and
+    `forward` cells with ``use_culled=False`` against culled clouds of the
+    same cells."""
+    from lidar_brdf_tpu_torch.runtime import simulate
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "TLS_PULSES", 2048)
+    monkeypatch.setattr(chip_smoke, "TLS_TRIS", 2000)
+    monkeypatch.setattr(chip_smoke, "ALS_PULSES", 2048)
+    monkeypatch.setattr(chip_smoke, "ALS_TRIS", 20_000)
+    monkeypatch.setattr(chip_smoke, "ALS_CHUNK", 1024)
+    monkeypatch.setattr(chip_smoke, "WATER_PULSES", 2048)
+    monkeypatch.setattr(chip_smoke, "WATER_WARM", 512)
+    monkeypatch.setattr(chip_smoke, "WATER_CELLS", 8)
+    monkeypatch.setattr(chip_smoke, "FORWARD_PULSES", 2048)
+    monkeypatch.setattr(chip_smoke, "FORWARD_CHUNK", 1024)
+    monkeypatch.setattr(simulate, "PULSE_MIN_FACES", 10_000)
+    tls = chip_smoke.tls_workload("cpu")
+    tt, og, dg, data, _ = chip_smoke.tls_chunk(tls)
+    entry = chip_smoke.phase_entry_points(tls, (tt, og, dg, data))
+    assert len(entry) == 3 * 3 + 2 * 3
+    for name, r in entry.items():
+        assert r["launches"] == 0 and r["hits"] > 0, name
+        assert (r["brute_ties"] is None) == ("tls rays" in name
+                                              or "ulled" in name), name
+    assert entry["intersect_bvh, grazing fan"]["brute_ties"] > 0
+    als = chip_smoke.als_workload("cpu")
+    water = chip_smoke.water_workload(als)
+    forward = chip_smoke.forward_workload()
+    assert forward[4].num_pulses == 2048 and forward[2].chunk_pulses == 1024
+    culled = {}
+    for cell, workload, kernel in (("als", als, "K2"), ("water", water, "K2"),
+                                   ("forward", forward, "K1")):
+        L = workload[2].max_returns
+        per_chunk = {kernel: 1, "K4": L - 1} if cell == "water" \
+            else {kernel: 1}
+        _, cloud, rec = chip_smoke.phase_forward(cell, workload, 512,
+                                                 per_chunk)
+        assert rec["peak_bytes"] is None
+        culled[cell] = (cloud, rec)
+    res = chip_smoke.phase_no_cull(als, water, forward, culled)
+    assert set(res) == {"als", "water", "forward"}
+    for cell, r in res.items():
+        assert r["cull_s"] < 0.5 and r["points"] > 0, cell
+        assert r["culled_points"] > 0 and r["culled_wall_s"] > 0, cell
+    a = res["als"]
+    assert a["common"] > 0.9 * a["culled_points"]
+    assert a["face_differs_share"] < 0.01 and a["max_ddist_same_face"] < 1e-3
+    # the ladder path's permuted noise draws: millimetres, not metres
+    assert a["max_dpos_same_face"] < 0.1
+    for cell in ("water", "forward"):
+        assert abs(res[cell]["points"] - res[cell]["culled_points"]) \
+            <= 0.01 * res[cell]["culled_points"], cell
+        assert 0 <= res[cell]["no_value_within_1e_5_share"] \
+            <= res[cell]["unmatched_intensity_share"] <= 1, cell
+    out = capsys.readouterr().out
+    assert "[entry] CulledTraverser, buckets, tls chunk" in out
+    assert "[entry] intersect_packed, tile 128, grazing fan" in out
+    assert "[no-cull] als" in out and "[no-cull] forward" in out
 
 
 def test_chip_smoke_k4_chunk_on_cpu(monkeypatch):
@@ -292,6 +356,12 @@ def test_chip_smoke_runtime_phase_on_cpu(monkeypatch, capsys):
     res = chip_smoke.phase_runtime(tls, als)
     line = res["forward_bench"]["line"]
     assert line["metric"] == "rays_per_s_forward_end_to_end_per_chip"
+    # the cold scan's cloud and record, for phase 12
+    cloud, cold = chip_smoke.bench_cold_scan(res["forward_bench"])
+    assert "cold_cloud" not in res["forward_bench"]
+    assert int(cloud.mask.sum()) == line["points"]
+    assert cold["peak_bytes"] is None and cold["cull_s"] > 0
+    assert cold["wall_s"] == line["wall_s_cold"]
     assert line["pulses"] == 4096 and line["points"] > 1000
     first, second = res["als_repeat"]
     assert second["cull_s"] < 0.01 * first["cull_s"]

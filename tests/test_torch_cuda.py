@@ -357,6 +357,63 @@ def test_packet_kernel_matches_plain(card, case, masked, width):
         kpk.packet_traverse(*packed, og, dg.cpu())
 
 
+@pytest.mark.parametrize("entry", ["intersect_bvh", "packed_1",
+                                   "packed_128"])
+@pytest.mark.parametrize("case", ["fan", "grazing"])
+def test_walk_entry_points_launch_k4_once(card, case, entry):
+    """`intersect_bvh` and `intersect_packed` (tile 1, 128): one K4 launch
+    a call, (t, face) bit-equal to the same call with the plain version,
+    faces equal to the brute force but at ties and barycentric thresholds
+    (`chip_smoke.entry_call`)."""
+    from lidar_brdf_tpu_torch.geom import packet as gp
+    from lidar_brdf_tpu_torch.geom.intersect import intersect_bvh
+    if case == "grazing":
+        scene, o, d = chip_smoke.grazing_fan()
+    else:
+        scene = synthetic.terrain_with_boxes(np.random.default_rng(1234),
+                                             num_boxes=6)
+        o, d = chip_smoke.fan_rays(64)
+    bvh = api.build_scene_bvh(scene)
+    scene = scene.to("cuda")
+    og, dg = torch.from_numpy(o).cuda(), torch.from_numpy(d).cuda()
+    if entry == "intersect_bvh":
+        call = lambda: intersect_bvh(scene, bvh, og, dg)
+    else:
+        nodes, rows = gp.pack_bvh(bvh, "cuda"), gp.pack_triangles(scene)
+        tile = int(entry.split("_")[1])
+        call = lambda: gp.intersect_packed(nodes, rows, og, dg, tile=tile)
+    r = chip_smoke.entry_call(f"{entry}, {case}", kpk.KERNEL, call,
+                              (scene, og, dg))
+    assert r["launches"] == 1 and r["hits"] > 100
+
+
+@pytest.mark.parametrize("kind", ["intersect_culled", "dense", "buckets"])
+@pytest.mark.parametrize("chunk", [8, 128])
+def test_culled_entry_points_launch_k1_once(card, kind, chunk):
+    """`intersect_culled` and `CulledTraverser` (dense, bucketed): one K1
+    launch a call, (t, face) bit-equal to the same call with
+    `tile_traverse_plain` (`chip_smoke.entry_call`)."""
+    from lidar_brdf_tpu_torch.geom import beamcull as bc
+    scene = synthetic.terrain_with_boxes(np.random.default_rng(1234),
+                                         num_boxes=6)
+    o, d = chip_smoke.fan_rays(64)
+    bvh = api.build_scene_bvh(scene)
+    ct = bc.CulledTraverser(scene, tile_rays=256, chunk=chunk, device="cuda")
+    og, dg = torch.from_numpy(o).cuda(), torch.from_numpy(d).cuda()
+    dense = ct.build_candidates(bvh, o, d)
+    if kind == "intersect_culled":
+        T = dense.shape[0]
+        cand = torch.from_numpy(dense).cuda()
+        call = lambda: bc.intersect_culled(ct.wald, cand,
+                                           og.view(T, 256, 3),
+                                           dg.view(T, 256, 3), chunk=chunk)
+    else:
+        data = dense if kind == "dense" else ct.prepare(bvh, o, d)
+        call = lambda: ct(og, dg, data)
+    r = chip_smoke.entry_call(f"{kind}, chunk {chunk}", tr.KERNEL, call)
+    assert r["launches"] == 1 and r["hits"] > 3000
+
+
 def test_water_simulator_card_matches_cpu(card):
     """`tests/test_water.py`'s bathymetric scan on the card and on the CPU
     (`chip_smoke.py` phase 5's water case): K1 level 0, K4 bounces."""

@@ -470,3 +470,108 @@ def test_async_ply_writer(tmp_path):
     with pytest.raises(OSError):
         w2.join()
     w2._pool.shutdown(wait=False)
+
+
+# two objects, a group, quads, a pentagon, v/vt/vn and negative ids
+_OBJ_TEXT = """# an OBJ scene for the native parser
+mtllib none.mtl
+v 0 0 0
+v 1 0 0
+v 1 1 0
+v 0 1 0
+vt 0 0
+vt 1 0
+vt 1 1
+vn 0 0 1
+o first
+usemtl a
+f 1/1/1 2/2/1 3/3/1 4
+f -4 -2 -1
+g second
+v 0 0 1.5
+v 2 0 1.5
+v 2 2 1.5
+v 1 3 1.5
+v 0 2 1.5
+usemtl a
+f 5 6 7 8 9
+f -5//1 -4//1 -3//1
+o third
+f 2 6 7
+"""
+
+
+def _obj_files(root, n):
+    """``n`` OBJ files of the text above, each with its positions shifted
+    by its index."""
+    paths = []
+    for k in range(n):
+        text = "\n".join(
+            "v " + " ".join(str(float(x) + k) for x in line.split()[1:])
+            if line.startswith("v ") else line
+            for line in _OBJ_TEXT.splitlines())
+        path = os.path.join(root, f"s{k}.obj")
+        with open(path, "w") as fh:
+            fh.write(text + "\n")
+        paths.append(path)
+    return paths
+
+
+def _python_parse(path):
+    """The JAX package's Python parser re-expressed as the native parse's
+    arrays: (triangle corner positions (F, 3, 3), component starts)."""
+    comps = jobj.parse_obj(path)
+    tris = np.concatenate([c.vertices[c.faces] for c in comps])
+    starts = np.cumsum([0] + [len(c.faces) for c in comps])[:-1]
+    return tris, starts
+
+
+def test_parse_obj_native_matches_the_python_parser(tmp_path):
+    """Positions exact, fan triangulation and component starts equal to
+    `lidar_brdf_tpu/io/obj.py::parse_obj`'s; None for a missing file."""
+    from lidar_brdf_tpu_torch.io import native
+    if native.get_lib() is None:
+        pytest.skip("no C++ toolchain to build the native helper")
+    path = _obj_files(str(tmp_path), 1)[0]
+    verts, faces, starts = native.parse_obj_native(path)
+    assert verts.dtype == np.float32 and faces.dtype == np.int32
+    assert starts.dtype == np.int64 and verts.shape == (9, 3)
+    tris, want_starts = _python_parse(path)
+    assert faces.shape == (len(tris), 3) == (8, 3)
+    np.testing.assert_array_equal(verts[faces], tris)
+    np.testing.assert_array_equal(starts, want_starts)
+    assert native.parse_obj_native(str(tmp_path / "missing.obj")) is None
+
+
+def test_parse_obj_native_threads_get_their_own_files(tmp_path):
+    """The C side keeps one parse between its two calls: two threads
+    parsing two files at once each get their own arrays."""
+    import sys
+    import threading
+    from lidar_brdf_tpu_torch.io import native
+    if native.get_lib() is None:
+        pytest.skip("no C++ toolchain to build the native helper")
+    paths = _obj_files(str(tmp_path), 2)
+    want = [native.parse_obj_native(p) for p in paths]
+    assert not np.array_equal(want[0][0], want[1][0])
+    bad, start = [], threading.Barrier(2)
+
+    def parse(k):
+        start.wait()
+        for _ in range(300):
+            got = native.parse_obj_native(paths[k])
+            if not all(np.array_equal(a, b) for a, b in zip(got, want[k])):
+                bad.append(k)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=parse, args=(k,)) for k in (0, 1)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert bad == []

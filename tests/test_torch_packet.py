@@ -301,6 +301,53 @@ def test_pack_and_wrapper_refuse_bad_inputs():
         kpk.packet_traverse(*[x.contiguous() for x in packed], o, o)
 
 
+def test_pack_helpers_bit_equal():
+    """`pack_bvh` and `pack_triangles` hold the JAX helpers' values, in the
+    layouts K4 reads; `pack_scene` is the two together."""
+    scene = jsyn.terrain_with_boxes(np.random.default_rng(3), num_boxes=4)
+    tree, ts, packed = _port(scene)
+    nodes = tpk.pack_bvh(convert.bvh_from_numpy(_np(tree)))
+    for got, want in zip(nodes, jpk.pack_bvh(tree)):
+        assert got.numpy().dtype == np.asarray(want).dtype
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert nodes[0].stride() == (8, 1)
+    assert nodes[1].data_ptr() == nodes[0].data_ptr() + 24
+    rows = tpk.pack_triangles(ts)
+    np.testing.assert_array_equal(rows.numpy(),
+                                  np.asarray(jpk.pack_triangles(scene)))
+    assert rows.stride() == (12, 1)
+    for a, b in zip(packed, (*nodes, rows)):
+        assert torch.equal(a, b)
+    assert tpk.DEFAULT_TILE == jpk.DEFAULT_TILE in kpk.WIDTHS
+
+
+@pytest.mark.parametrize("tile", [1, 128])
+@pytest.mark.parametrize("case", ["fan", "grazing"])
+def test_intersect_packed_matches_jax(case, tile):
+    """The tuple-input walk at ``tile`` against the JAX package's at the
+    same tile, under the rules of `_assert_hits_match`; a tile outside
+    K4's widths raises."""
+    scene, o, d = _case(case)
+    tree, ts, _ = _port(scene)
+    hj = jpk.intersect_packed(jpk.pack_bvh(tree), jpk.pack_triangles(scene),
+                              jnp.asarray(o), jnp.asarray(d), tile=tile)
+    nodes = tpk.pack_bvh(convert.bvh_from_numpy(_np(tree)))
+    rows = tpk.pack_triangles(ts)
+    ht = tpk.intersect_packed(nodes, rows, torch.from_numpy(o),
+                              torch.from_numpy(d), tile=tile)
+    n = _assert_hits_match(scene, np.asarray(hj.face), np.asarray(hj.t),
+                           ht.face.numpy(), ht.t.numpy(), o, d)
+    assert n <= 0.1 * o.shape[0]
+    assert int((ht.face >= 0).sum()) > 0.5 * o.shape[0]
+    if tile == 128:
+        hd = tpk.intersect_packed(nodes, rows, torch.from_numpy(o),
+                                  torch.from_numpy(d))
+        assert torch.equal(hd.face, ht.face) and torch.equal(hd.t, ht.t)
+    with pytest.raises(ValueError, match="width"):
+        tpk.intersect_packed(nodes, rows, torch.from_numpy(o),
+                             torch.from_numpy(d), tile=64)
+
+
 @pytest.mark.parametrize("name", ["base", "packet32", "prefetch",
                                   "min_blocks=0"])
 def test_variant_script_edits_apply(name, monkeypatch):

@@ -93,3 +93,44 @@ def test_regular_grid_matches_jax(seed):
     for x, z in np.random.default_rng(seed).uniform(-20, 20, (50, 2)):
         assert tgrid.cell_of(x, z) == jgrid.cell_of(x, z)
         assert tgrid.occupancy(x, z) == jgrid.occupancy(x, z)
+
+
+def test_constants_and_aliases_match_jax():
+    """`NO_HIT`, `Array`, `UP`, `RAY_AXIS` and `shard_buckets_put`: the JAX
+    package's values (exact), and `UP` is what the TLS rays use."""
+    from lidar_brdf_tpu.core import types as jtypes
+    from lidar_brdf_tpu.parallel import multihost as jmh
+    from lidar_brdf_tpu.sensors import tls as jtls
+    from lidar_brdf_tpu_torch.core import types as ttypes
+    from lidar_brdf_tpu_torch.parallel import multihost as tmh
+    from lidar_brdf_tpu_torch.parallel import shard as tshard
+    from lidar_brdf_tpu_torch.sensors import tls as ttls
+    assert ttypes.NO_HIT == jtypes.NO_HIT == -1
+    assert ttypes.NO_HIT.dtype == jtypes.NO_HIT.dtype == np.int32
+    assert ttypes.Array is torch.Tensor
+    assert ttls.UP.dtype == torch.float32
+    np.testing.assert_array_equal(ttls.UP.numpy(), np.asarray(jtls.UP))
+    assert tmh.RAY_AXIS == jmh.RAY_AXIS == "rays"
+    assert tshard.shard_buckets_put is tshard.shard_traverse_data
+
+
+@pytest.mark.parametrize("axis", [0, 1, -1])
+def test_safe_norm_axis_matches_jax(axis):
+    """`safe_norm` over any axis: bit-equal to the JAX function on an axis
+    of length 3 (the sum order of `dot3`), rtol 1e-6 on a longer one (a
+    sum of 5 squares in another order); finite gradient at 0."""
+    from lidar_brdf_tpu.utils import safemath as jsm
+    from lidar_brdf_tpu_torch.utils import safemath as tsm
+    rng = np.random.default_rng(5)
+    for shape in ((3, 7), (5, 3), (3, 3)):
+        v = rng.normal(size=shape).astype(np.float32)
+        v[:, 0] = 0.0
+        want = np.asarray(jsm.safe_norm(v, axis=axis))
+        got = tsm.safe_norm(torch.from_numpy(v), axis=axis).numpy()
+        if shape[axis] == 3:
+            np.testing.assert_array_equal(got, want)
+        else:
+            np.testing.assert_allclose(got, want, rtol=1e-6)
+    x = torch.zeros((3, 4), requires_grad=True)
+    tsm.safe_norm(x, axis=0).sum().backward()
+    assert bool(torch.isfinite(x.grad).all())
