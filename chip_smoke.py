@@ -9,10 +9,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 
 1. Card and build: prints the card's name and power limit, builds the CUDA
    tile kernel (K1), pulse-ladder kernel (K2), the bench's pre-flight
-   kernel (K3) and the packet-walk kernel (K4) from
-   `lidar_brdf_tpu_torch/kernels/csrc/` into `build/kernels/` (one nvcc
-   each, started together) and launches each once (K1, K2 and K4 on a
-   one-triangle input).
+   kernel (K3), the packet-walk kernel (K4) and the beam-cull kernel (K5)
+   from `lidar_brdf_tpu_torch/kernels/csrc/` into `build/kernels/` (one
+   nvcc each, started together) and launches each once (K1, K2 and K4 on
+   a one-triangle input, K5 on the one-node tree over it).
 2. Kernel vs plain version on the card: K3 equal bit for bit on the
    bench's (8, 128) tile, on 1M elements and on sizes that are no multiple
    of 4, timed beside `torch.addcmul` (CUDA events and host time per
@@ -25,22 +25,27 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    padded pulses, the planted tie (ladders of 64 and 128, groups of 8 and
    128 rays), whole blocks of padding inside hand-built ladders and
    tail-padded ladders, and one real `als` chunk of 131,072 pulses culled as
-   `Simulator._prep` does it (one launch per call).  Both timed with CUDA
+   `Simulator._prep` does it (one launch per call; the chunks are culled
+   on the card by K5).  Both timed with CUDA
    events on their real chunk; then K1, K2 and K4 (no cull, scan order)
    on the same pulses of both scenes (the traverser-choice figures; K2 on
    the `tls` chunk back to back and on a queue).
 3. The `tls` forward scan at full width through `api.simulate` (1,310,720
    rays over a ~40k-face city), warm, then timed; the launch counts are
-   reset just before the timed run: K1 once per chunk, K2 not.
+   reset just before the timed run: K1 once per chunk, K5 `LAUNCHES`
+   (3) times per chunk (the cull on the card), K2 not; the cull's host
+   reads are counted and printed.
 4. The `als` forward scan at full width through `api.simulate` (1,048,576
    pulses x 10 rays, 2 returns, over the 4,999,122-face terrain, in chunks
-   of 131,072), warm on one chunk, then timed: K2 once per chunk, K1 not.
+   of 131,072), warm on one chunk, then timed: K2 once per chunk, K5 3
+   times per chunk, K1 not.
 4b. The topo-bathymetric scan at full width through `api.simulate`: the
    `als` terrain under a water plane (5,007,314 faces), 532 nm,
    bathymetric, 3 returns, the `als` cell's 1,048,576 pulses (eight
    chunks of 131,072), warm on 8,192, then timed: K2 once per chunk (level 0), K4 twice (levels 1 and
-   2), K1 not; it must give bottom returns.  Then the `tls` scan through
-   `Simulator(use_culled=False)` (no host cull): K4 once per chunk, no K1.
+   2), K5 3 times per chunk, K1 not; it must give bottom returns.  Then
+   the `tls` scan through `Simulator(use_culled=False)` (no cull): K4 once
+   per chunk, no K1, no K5.
    The water chunk's bounce levels must hand the walk their active masks.
    K4 against its plain version, faces and t bit for bit and walks as
    long, on every ray and with a mask: a fan over boxes, the grazing fan
@@ -61,7 +66,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    step at full width (131,072 pulses x 10 rays over the ~40k-face city,
    L = 1, face pack built) and the `als` step over the 4,999,122-face
    terrain of phase 4 at 131,072 pulses (L = 2, no face pack; the flight's
-   pulse count cut so that the one host cull stays ~5 s).  Launch counts
+   pulse count cut so that the one cull stays ~5 s).  Launch counts
    are reset before each: K1 must launch once per `tls` step and K2 not, K2
    once per `als` step and K1 not.  Gradients w.r.t. the BRDF table, the ray
    origins and the vertices must be finite, each with a non-zero entry.
@@ -85,19 +90,23 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    seconds; equal clouds), the device time of `pack_compact` and of the
    analytic factor at the scan's size, a full-width ANALYTIC scan (as
    many points, finite non-negative intensities) and the `render-ortho`
-   and `render-overlays` commands; the CLI's host cull per wavelength (the
-   second wavelength from the ladder cache).  Runs before phase 8.
+   and `render-overlays` commands; the CLI's cull per wavelength (the
+   second wavelength from the ladder cache: K5 3 times per chunk of the
+   first only).  Runs before phase 8.
 10. The rest of the runtime, before phase 8: (a) the port's bench with
    ``BENCH_CONFIG=forward`` in process (1,048,576 pulses x 10 rays over the
    city in 8 chunks; warm, cold, cached with metrics, cached): K1 8 times
-   in each scan, the cached clouds equal to the cold one bit for bit, the
-   JSON line and the `stats=` split of a cold and a cached scan; (b) phase
-   4's `als` scan twice on one `Simulator`: the second's host cull under 1%
-   of the first's, K2 8 times in each, equal clouds, device memory, and
+   in each scan, K5 3 times per chunk in the warm and cold scans and not
+   in the cached ones, the cached clouds equal to the cold one bit for
+   bit, the JSON line and the `stats=` split of a cold and a cached scan;
+   (b) phase 4's `als` scan twice on one `Simulator`: K5 3 times per chunk
+   in the first and not launched in the second (every chunk from the
+   ladder cache), K2 8 times in each, equal clouds, device memory, and
    chunk 0's cached (permuted) slice and ladders against a fresh cull; (c)
    `Simulator.benchmark` on the `tls` workload, its report printed; (d)
    checkpoint/resume on the forward config cut to 2 chunks (state cut to 1
-   chunk, resumed by a new `Simulator`: K1 once, the uninterrupted cloud);
+   chunk, resumed by a new `Simulator`: K1 once, K5 3 times, the
+   uninterrupted cloud);
    (e) the three fit examples at their step counts (K4 once a step, finite
    falling losses, step-0 loss equal to the CPU port's to rtol 1e-5).
 11. Multi-rank scans and training steps on `torch.distributed`
@@ -106,7 +115,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    x 10 rays over the city) through `sharded_forward` (tile, packet) and a
    ``"full"`` `sharded_train_step`: the cloud equal to `simulate_chunk`'s
    bit for bit, gradients within phase 7's tolerance of a step with no
-   collective, K1 once per call; (b) 4 ranks over gloo sharing the card,
+   collective, K1 once per call, K5 3 times in each culled path's
+   preparation; (b) 4 ranks over gloo sharing the card,
    started as subprocesses by `parallel/worker.py::launch` (scenes handed
    over as one `.npz` each): the `tls` workload (K1 once per rank per
    forward and per step, K4 once per rank) and the `als` ladder path at
@@ -114,10 +124,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    forward and per step, one global `t_max`); every rank's PLY shards
    byte-equal to the parent's own shards, losses and gradients bit-equal
    across ranks and within phase 7's tolerance of the sum of the parent's
-   shards.  `[multirank]` lines: per rank wall, cull, forward and step
-   times, each all_reduce's time and bytes.
+   shards; K5 3 times in each rank's culled preparation.  `[multirank]`
+   lines: per rank wall, cull, forward and step times, each all_reduce's
+   time and bytes.
 12. The JAX package's last entry points on the card, and the scans with
-   no host cull, before phase 8: (a) `geom/intersect.py::intersect_bvh`
+   no cull, before phase 8: (a) `geom/intersect.py::intersect_bvh`
    and `geom/packet.py::intersect_packed` (tile 1 and 128) on the fan over
    boxes, the grazing fan and the `tls` rays in scan order, each call one
    launch of K4; `geom/beamcull.py::intersect_culled` and
@@ -132,6 +143,19 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    and each cloud against the culled cloud of its cell (`als` slot for
    slot, the others by counts and sorted intensities; printed figures,
    not gates).  `[entry]` and `[no-cull]` lines.
+13. K5, the beam cull, against its plain version, after phase 4b: counts,
+   offsets, faces and near distances bit for bit, then the buckets and
+   bounds (tiles) or the ladders, permutation and renumbered ladders
+   (pulses) built from either's lists, on a fan over boxes (tiles of 128,
+   pulses of 4), beams planted at 0, 0.95 and 1.05 times the slack beside
+   leaf boxes, the `tls` chunk (2,048 tiles), one `als` chunk (131,072
+   pulses) and the water scene's level-0 chunk; timed by CUDA events on
+   the `tls` and `als` chunks beside the port's host culler on the same
+   beams, the bound (the plain version's node tests and ternary searches
+   times the source's operations) and the longest list.  `[K5]` lines.
+   Each culled scan's point count and peak device memory are printed
+   beside the host cull's, as `PERF.md` section 5 records them
+   (`[points]`).
 8. Profiles, last so that they disturb no timed phase: K1's device time on
    the `tls` chunk, K2's on the `als` chunk (as the Simulator calls it, and
    with the wrapper's two output fills instead), and K3's and
@@ -148,7 +172,8 @@ level-2 rays, the `tls` rays and the `als` chunk's rays at every packet
 width, masked and not, beside both bounds; each prints one JSON line
 (launches per call, CUDA-event and profiler times).  `--water-scan` runs
 the topo-bathymetric scan of phase 4b alone, twice, and prints each
-run's wall, host cull and device seconds.  A copy of the script in the
+run's wall, cull and device seconds.  `--k5-chunk` builds the kernels and
+runs phase 13 without the water chunk.  A copy of the script in the
 root of another tree of the repo measures that tree's kernel or scan the
 same way (a tree whose K4 takes no mask: every ray, in its 128-ray
 tiles).
@@ -450,6 +475,7 @@ def phase_card_and_build():
     from concurrent.futures import ThreadPoolExecutor
     from lidar_brdf_tpu_torch.geom.beamcull import wald_rows_np
     from lidar_brdf_tpu_torch.kernels import cuda_build
+    from lidar_brdf_tpu_torch.kernels import cull
     from lidar_brdf_tpu_torch.kernels import packet as kpk
     from lidar_brdf_tpu_torch.kernels import pulse as pp
     from lidar_brdf_tpu_torch.kernels import traverse as tr
@@ -463,12 +489,12 @@ def phase_card_and_build():
     from lidar_brdf_tpu_torch.kernels import smoke
     # one nvcc per kernel source, started together
     libs = (("K1", tr.KERNEL), ("K2", pp.KERNEL), ("K3", smoke.KERNEL),
-            ("K4", kpk.KERNEL))
+            ("K4", kpk.KERNEL), ("K5", cull.KERNEL))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(libs)) as pool:
         for fut in [pool.submit(k.build, True) for _, k in libs]:
             fut.result()
-    log(f"[build] K1-K4 built in {time.perf_counter() - t0:.2f} s "
+    log(f"[build] K1-K5 built in {time.perf_counter() - t0:.2f} s "
         f"({cuda_build.NVCC_FLAGS})")
     for name, k in libs:
         log(f"[build] {name} {os.path.basename(k.source)}: "
@@ -512,8 +538,19 @@ def phase_card_and_build():
     torch.cuda.synchronize()
     if not (bool((f == 0).all()) and bool(((t - 50.0).abs() < 1e-5).all())):
         fail(f"K4 one-leaf launch gave faces {f.unique().tolist()}")
-    log("[build] K1 one-tile, K2 one-ladder, K3 one-tile and K4 one-leaf "
-        "launches ok")
+    # the same one-leaf tree: a beam along z meets it, one beside it not
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device="cuda")
+    lists = cull.beam_cull(nodes, f32([[0.0, 0.0, 0.0], [9.0, 0.0, 0.0]]),
+                           f32([[0.0, 0.0, 1.0]] * 2), f32([0.01, 0.01]),
+                           f32([0.1, 0.1]),
+                           torch.ones(2, dtype=torch.uint8, device="cuda"),
+                           100.0)
+    torch.cuda.synchronize()
+    if lists.counts.tolist() != [1, 0] or lists.faces.tolist() != [0]:
+        fail(f"K5 one-node launch gave counts {lists.counts.tolist()}, "
+             f"faces {lists.faces.tolist()}")
+    log("[build] K1 one-tile, K2 one-ladder, K3 one-tile, K4 one-leaf and "
+        "K5 one-node launches ok")
     return card
 
 
@@ -590,7 +627,7 @@ def bound(pairs, nbytes):
 def tls_chunk(tls):
     """The `tls` workload's one chunk, BSP-ordered and culled as
     `Simulator._prep` does it: (traverser, origins, directions, buckets,
-    host cull seconds)."""
+    cull seconds)."""
     from lidar_brdf_tpu_torch.runtime.simulate import Simulator, bsp_order
     scene, bvh, cfg, mats, rays = tls
     sim = Simulator(scene=scene, bvh=bvh, materials=mats, cfg=cfg,
@@ -691,7 +728,7 @@ def phase_kernel_vs_plain(tls):
             types.SimpleNamespace(wald=wald, t_max=100.0), o, d, [bucket],
             128))
 
-    # one real chunk of the tls workload: BSP order + host cull as the
+    # one real chunk of the tls workload: BSP order + cull as the
     # Simulator does it
     tr_, og, dg, data, cull_s = tls_chunk(tls)
     chunk = (tr_, og, dg, data)
@@ -699,7 +736,7 @@ def phase_kernel_vs_plain(tls):
     errs.append(compare_kernel("tls chunk", tr_, og, dg, data, R))
     sizes = [tuple(c.shape) for _, c, _ in data]
     real = [int((t < og.shape[0] // R).sum()) for t, _, _ in data]
-    log(f"[kernel] tls chunk: host cull {cull_s:.3f} s, {len(data)} buckets "
+    log(f"[kernel] tls chunk: cull {cull_s:.3f} s, {len(data)} buckets "
         f"(rows x candidates) {sizes}, real rows {real}")
     call = lambda: tr.tile_traverse(tr_.wald, og, dg, data, tr_.t_max, R)
     plain = lambda: tr.tile_traverse_plain(tr_.wald, og, dg, data,
@@ -864,7 +901,7 @@ def als_chunk(als):
 def tls_pulse_chunk(tls):
     """The `tls` workload's one chunk on the pulse ladders, culled and
     permuted as `Simulator._prep` does it (scan order): (traverser,
-    origins, directions, buckets, host cull seconds)."""
+    origins, directions, buckets, cull seconds)."""
     from lidar_brdf_tpu_torch.runtime.simulate import Simulator
     scene, bvh, cfg, mats, rays = tls
     sim = Simulator(scene=scene, bvh=bvh, materials=mats, cfg=cfg,
@@ -944,7 +981,7 @@ def phase_k2_vs_plain(als):
     real, padded, nbytes, uniq = k2_work(data, og.shape[0] // R, R)
     bound_ms, bound_by, ops_ms, bytes_ms = bound(real, nbytes)
     log(f"[kernel] als chunk ({n} pulses x {R} rays, "
-        f"{tr_.wald.shape[0]} faces): host cull {cull_s:.3f} s; K2 "
+        f"{tr_.wald.shape[0]} faces): cull {cull_s:.3f} s; K2 "
         f"{ms:.4f} / {ms2:.4f} ms (CUDA events on a queue of 20 calls, two "
         f"runs), back-to-back calls {call_ms:.4f} ms each, plain "
         f"{plain_ms:.4f} ms, launches per call {per_call}, uncovered groups "
@@ -1034,8 +1071,8 @@ def phase_traverser_choice(tls, als, k1, als_sim):
                       k2_buckets=[tuple(c.shape) for _, c in data2])
     for name, r in out.items():
         log(f"[choice] {name} ({r['faces']} faces, {r['pulses']} pulses): "
-            f"K1 {r['k1_ms']:.4f} ms + host cull {r['k1_cull_s']:.3f} s; "
-            f"K2 {r['k2_ms']:.4f} ms + host cull {r['k2_cull_s']:.3f} s; "
+            f"K1 {r['k1_ms']:.4f} ms + cull {r['k1_cull_s']:.3f} s; "
+            f"K2 {r['k2_ms']:.4f} ms + cull {r['k2_cull_s']:.3f} s; "
             f"K4 {r['k4_ms']:.4f} ms, no cull (pack {r['k4_pack_s']:.3f} s)")
     r = out["tls"]
     log(f"[choice] tls K2 (buckets {r['k2_buckets']}): "
@@ -1045,15 +1082,18 @@ def phase_traverser_choice(tls, als, k1, als_sim):
     return out
 
 
-KERNELS = ("K1", "K2", "K4")       # the traversal kernels of the scans
+KERNELS = ("K1", "K2", "K4", "K5")  # the kernels of the scans
 
 
 def traversal_libs() -> dict:
-    """The traversal kernels' `CudaLibrary` by id."""
+    """The scans' kernels' `CudaLibrary` by id: the traversals and the
+    beam cull."""
+    from lidar_brdf_tpu_torch.kernels import cull
     from lidar_brdf_tpu_torch.kernels import packet as kpk
     from lidar_brdf_tpu_torch.kernels import pulse as pp
     from lidar_brdf_tpu_torch.kernels import traverse as tr
-    return {"K1": tr.KERNEL, "K2": pp.KERNEL, "K4": kpk.KERNEL}
+    return {"K1": tr.KERNEL, "K2": pp.KERNEL, "K4": kpk.KERNEL,
+            "K5": cull.KERNEL}
 
 
 def phase_forward(name, workload, warm_pulses, per_chunk, **sim_kw):
@@ -1065,6 +1105,7 @@ def phase_forward(name, workload, warm_pulses, per_chunk, **sim_kw):
     have launched that often per chunk, every other one not."""
     import torch
     from lidar_brdf_tpu_torch import api
+    from lidar_brdf_tpu_torch.kernels import cull
     from lidar_brdf_tpu_torch.runtime.simulate import Simulator
     scene, bvh, cfg, mats, rays = workload
     n_rays = rays.num_pulses * rays.rays_per_pulse
@@ -1079,16 +1120,22 @@ def phase_forward(name, workload, warm_pulses, per_chunk, **sim_kw):
     t0 = time.perf_counter()
     scan(head(rays, warm_pulses))
     warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()          # what every scan's wall holds of it
+    Simulator(scene=scene, bvh=bvh, materials=mats, cfg=cfg, device=DEVICE,
+              **sim_kw)
+    setup_s = time.perf_counter() - t0
     stats = {}
     sync()
     base = peak_reset()
     libs = traversal_libs()
     for lib in libs.values():                   # main path starts here
         lib.launches = 0
+    reads = cull.READBACKS
     t0 = time.perf_counter()
     cloud = scan(rays, stats)
     wall = time.perf_counter() - t0
     launches = {k: lib.launches for k, lib in libs.items()}
+    reads = cull.READBACKS - reads
     memory = peak_read(base)
     m = cloud.mask
     n_pts = int(m.sum())
@@ -1098,10 +1145,11 @@ def phase_forward(name, workload, warm_pulses, per_chunk, **sim_kw):
         f"({int((cloud.return_number[m] == 1).sum())} second returns); "
         f"warm run ({warm_pulses} pulses) {warm_s:.3f} s, timed run "
         f"{wall:.3f} s = {n_rays / wall:.0f} rays/s wall-clock; order "
-        f"{stats['order_s']:.3f} s, host cull {stats['cull_s']:.3f} s, "
+        f"{stats['order_s']:.3f} s, cull {stats['cull_s']:.3f} s, "
         f"device {stats['device_s']:.3f} s, readback "
-        f"{stats['readback_s']:.3f} s; launches {launches}; device memory "
-        f"{fmt_memory(memory)}")
+        f"{stats['readback_s']:.3f} s; a Simulator's construction (in the "
+        f"wall, outside the split) {setup_s:.3f} s; launches {launches}; the "
+        f"cull's host reads {reads}; device memory {fmt_memory(memory)}")
     chunks = -(-rays.num_pulses // cfg.chunk_pulses)
     want = {k: per_chunk.get(k, 0) * chunks for k in KERNELS}
     if DEVICE == "cuda" and launches != want:
@@ -1115,7 +1163,9 @@ def phase_forward(name, workload, warm_pulses, per_chunk, **sim_kw):
         fail(f"{name} positions are not finite")
     return launches, cloud, dict(
         rays=n_rays, faces=scene.num_faces, points=n_pts, wall_s=wall,
-        rays_per_s=n_rays / wall, launches=launches, **memory, **stats)
+        rays_per_s=n_rays / wall, launches=launches, cull_readbacks=reads,
+        sim_setup_s=setup_s,
+        **memory, **stats)
 
 
 def peak_reset():
@@ -1434,7 +1484,7 @@ def phase_water(water):
     L = cfg.max_returns
     launches, cloud, res = phase_forward(
         "water", water, min(WATER_WARM, rays.num_pulses),
-        {"K2": 1, "K4": L - 1})
+        {"K2": 1, "K4": L - 1, "K5": k5_launches()})
     m = cloud.mask
     bottom = int((m & (cloud.asprs == 2) & (cloud.return_number >= 1)).sum())
     surface = int((m & (cloud.asprs == 9)).sum())
@@ -1627,14 +1677,312 @@ def water_scan(runs: int = 2) -> dict:
     (``python3 chip_smoke.py --water-scan``, from a copy of this script in
     the root of either tree): the workload built once, then ``runs`` times
     a warm run and a timed scan through `api.simulate` (`phase_forward`),
-    each with its wall, host cull and device seconds and its launches."""
+    each with its wall, cull and device seconds and its launches."""
     water = water_workload(als_workload(DEVICE))
     L, P = water[2].max_returns, water[4].num_pulses
     out = dict(source=os.path.dirname(os.path.abspath(__file__)), runs=[])
     for _ in range(runs):
         out["runs"].append(phase_forward(
-            "water", water, min(WATER_WARM, P), {"K2": 1, "K4": L - 1})[2])
+            "water", water, min(WATER_WARM, P),
+            {"K2": 1, "K4": L - 1, "K5": k5_launches()})[2])
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 13: K5, the beam cull on the card, against its plain version
+# ---------------------------------------------------------------------------
+
+# f32 operations of K5's walk, counted from `kernels/csrc/beam_cull.cu`: a
+# node test on its slab path (the box grown by the radius, 6; per axis the
+# guarded reciprocal, 2 sub, 2 mul and the min / max of t0, t1 into the
+# running bounds, 12; the accept, 4); a test that goes on to the ternary
+# search adds 24 steps (m1 and m2, 6; two gaps of 23: the point 6, the
+# clamp 6, 3 sub, the squares 5, sqrt, s tan and the difference; the
+# compare) and the last gap with the slack (27); a listed leaf adds its
+# near distance (31).  The sort of the lists is not counted.
+OPS_NODE = 46
+OPS_TERNARY = 24 * (6 + 2 * 23 + 1) + 27
+OPS_LEAF = 31
+K5_REPS = 5                     # K5 calls a CUDA-event timing
+SLACK_T_MAX = 120.0             # the reach of the planted-slack beams
+# The culled scans with the host cull, as PERF.md section 5 records them
+# (NVIDIA H100 80GB HBM3, 700.00 W): points, and peak device bytes above
+# those held before the scan (`forward`: its cold scan)
+HOST_CULL_POINTS = dict(tls=117_957, als=1_041_373, water=1_563_583,
+                        forward=943_660)
+HOST_CULL_PEAK = dict(tls=246_635_520, als=1_434_049_024,
+                      water=2_068_422_144, forward=228_982_784)
+
+
+def k5_launches() -> int:
+    """K5's launches a culled chunk (`kernels/cull.py::LAUNCHES`)."""
+    from lidar_brdf_tpu_torch.kernels import cull
+    return cull.LAUNCHES
+
+
+def cull_inputs(origin, direction, rays_per_beam):
+    """(float64 beams, the walk's f32 inputs) of the beams of
+    ``rays_per_beam`` consecutive rays, on the rays' device."""
+    from lidar_brdf_tpu_torch.geom import beamcull as bc
+    from lidar_brdf_tpu_torch.kernels import cull
+    beams = bc.tile_beams_torch(origin, direction, rays_per_beam)
+    return beams, cull.walk_inputs(beams)
+
+
+def planted_slack_beams(bvh, t_max: float = SLACK_T_MAX, device="cpu"):
+    """Beam 0 wide over the whole root box (it lists every leaf); then,
+    for the first six leaves, beams of zero cone along +x and radius 0.5
+    whose axis passes 0.5 + (0, 0.95, 1.05) times the slack (1e-4 + 1e-5
+    ``t_max``) above the leaf's box in z: the grown box's gap is 0, just
+    under the slack and just over it.  Returns (the walk's f32 / u8
+    tensors on ``device``, the leaves' node ids)."""
+    import numpy as np
+    import torch
+    from lidar_brdf_tpu_torch.core.types import as_numpy
+    lo = np.asarray(as_numpy(bvh.node_min), np.float64)
+    hi = np.asarray(as_numpy(bvh.node_max), np.float64)
+    leaves = np.nonzero(np.asarray(as_numpy(bvh.node_face)) >= 0)[0][:6]
+    slack = 1e-4 + 1e-5 * t_max
+    c, a = [0.5 * (lo[0] + hi[0])], [[0.0, -1.0, 0.0]]
+    tan, r = [4.0], [float(np.linalg.norm(hi[0] - lo[0]))]
+    for n in leaves:
+        mid = 0.5 * (lo[n] + hi[n])
+        for k in (0.0, 0.95, 1.05):
+            c.append([lo[n][0] - 1.0, mid[1], hi[n][2] + 0.5 + k * slack])
+            a.append([1.0, 0.0, 0.0])
+            tan.append(0.0)
+            r.append(0.5)
+    f32 = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32,
+                                 device=device)
+    return (f32(c), f32(a), f32(tan), f32(r),
+            torch.ones(len(c), dtype=torch.uint8, device=device)), leaves
+
+
+def k5_bound(stats, n_nodes, n_beams, total):
+    """(bound ms, "operations" or "bytes", ops ms, bytes ms, ops, bytes)
+    of one cull: the walk's f32 operations (`cull_plain`'s counts of node
+    tests, tests that reached the ternary search and listed leaves, times
+    OPS_*), and its bytes read once (node records, beams) and written once
+    (counts, offsets, faces and near distances)."""
+    ops = (stats["node_tests"] * OPS_NODE
+           + stats["ternary_tests"] * OPS_TERNARY + stats["leaves"] * OPS_LEAF)
+    nbytes = n_nodes * 32 + n_beams * 33 + n_beams * 4 + (n_beams + 1) * 8 \
+        + total * 8
+    ops_ms = ops / H100_F32_OPS_PER_S * 1e3
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes", ops_ms,
+            bytes_ms, ops, nbytes)
+
+
+def same_tensors(a, b) -> bool:
+    """Tensors (or nested tuples of them, and ints) equal bit for bit."""
+    import torch
+    if isinstance(a, torch.Tensor):
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        return a.shape == b.shape and torch.equal(a, b)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(map(same_tensors, a, b))
+    return a == b
+
+
+def compare_k5(name, nodes, ins, t_max, *, kind=None, beams=None,
+               face_box=None, pad_to=8, timed=False, host_bvh=None) -> dict:
+    """One K5 call (`kernels/cull.py::beam_cull`, `LAUNCHES` launches) and
+    the plain version on the same beams: counts, offsets, faces and near
+    distances bit-equal.  ``kind`` "tile" (with the f64 ``beams`` and the
+    ``face_box`` of `TileTraverser.face_boxes`) also holds the buckets and
+    bounds built from either's lists equal, "pulse" the ladders, the
+    permutation and the renumbered ladders.  With ``timed``: K5 by CUDA
+    events and by kernel (profiler), and the port's host culler on the
+    same beams (``host_bvh``).  Returns the record."""
+    import torch
+    from lidar_brdf_tpu_torch.io import native
+    from lidar_brdf_tpu_torch.kernels import cull
+    from lidar_brdf_tpu_torch.kernels import pulse as pp
+    from lidar_brdf_tpu_torch.kernels import traverse as tr
+    call = lambda: cull.beam_cull(nodes, *ins, t_max, pad_to)
+    before, reads = cull.KERNEL.launches, cull.READBACKS
+    got = call()
+    sync()
+    n = cull.KERNEL.launches - before
+    reads = cull.READBACKS - reads
+    if DEVICE == "cuda" and n != cull.LAUNCHES:
+        fail(f"K5 {name}: {n} launches in one call, not {cull.LAUNCHES}")
+    stats = {}
+    t0 = time.perf_counter()
+    plain = cull.cull_plain(nodes, *ins, t_max, stats=stats)
+    sync()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    for what, g, w in zip(("counts", "offsets", "faces", "near distances"),
+                          got[:4], plain):
+        if not same_tensors(g, w):
+            fail(f"K5 {name}: {what} differ from the plain version")
+    want = cull.lists_of(*plain, pad_to)
+    built = []
+    if kind == "tile":
+        T = got.counts.shape[0]
+        bk, bp = (tr.buckets_from_lists(x, T) for x in (got, want))
+        built = [("buckets", bk, bp), (
+            "bounds", tr.bucket_bounds_torch(face_box, bk, beams),
+            tr.bucket_bounds_torch(face_box, bp, beams))]
+    elif kind == "pulse":
+        P = got.counts.shape[0]
+        lk, lp = (pp.ladders_from_lists(x, P) for x in (got, want))
+        (perm_k, lay_k), (perm_p, lay_p) = (pp.permute_ladders_torch(x, P)
+                                            for x in (got, want))
+        built = [("ladders", lk, lp), ("permutation", perm_k, perm_p),
+                 ("layout", lay_k, lay_p),
+                 ("renumbered ladders", pp.renumber_ladders_torch(lk, perm_k),
+                  pp.renumber_ladders_torch(lp, perm_p))]
+    for what, g, w in built:
+        if not same_tensors(g, w):
+            fail(f"K5 {name}: the {what} built from K5's lists differ from "
+                 f"those built from the plain version's")
+    T, N = got.counts.shape[0], nodes[0].shape[0]
+    total = int(got.faces.shape[0])
+    longest = int(got.counts.max()) if T else 0
+    bound_ms, bound_by, ops_ms, bytes_ms, ops, nbytes = k5_bound(
+        stats, N, T, total)
+    rec = dict(beams=T, nodes=N, candidates=total, longest=longest,
+               launches=n, readbacks=reads, plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by=bound_by, bound_ops_ms=ops_ms,
+               bound_bytes_ms=bytes_ms, ops=ops, bytes=nbytes, **stats,
+               ternary_share=stats["ternary_tests"] / max(
+                   stats["node_tests"], 1))
+    what = " and ".join(w for w, *_ in built) or "CSR"
+    line = (f"[K5] {name}: {T} beams over {N} nodes, {total} candidates "
+            f"(longest list {longest}), {n} launches and {reads} host "
+            f"read(s) a call; lists, {what} bit-equal to the plain version; "
+            f"node tests "
+            f"{stats['node_tests']}, {rec['ternary_share']:.4f} of them to "
+            f"the ternary search")
+    if timed:
+        rec["ms"] = cuda_ms(call, K5_REPS)
+        rec["kernels"] = device_ms_by_kernel(call, 2)
+        if host_bvh is not None and native.get_lib() is not None:
+            arrays = [x.cpu().numpy() for x in ins]
+            t0 = time.perf_counter()
+            native.cull_candidates_native(host_bvh, *arrays, t_max)
+            rec["host_ms"] = (time.perf_counter() - t0) * 1e3
+        line += (f"; K5 {rec['ms']:.4f} ms a call (CUDA events, {K5_REPS} "
+                 f"calls), plain {plain_ms:.1f} ms, host culler "
+                 f"{rec.get('host_ms', float('nan')):.1f} ms, bound "
+                 f"{bound_ms:.4f} ms ({bound_by}: ops {ops_ms:.4f}, bytes "
+                 f"{bytes_ms:.4f}); by kernel " + ", ".join(
+                     f"{k} {v['ms']:.4f} ms" for k, v in
+                     rec["kernels"].items() if any(
+                         x in k for x in ("count_kernel", "fill_kernel",
+                                          "sort_kernel"))))
+    log(line)
+    return rec
+
+
+def k5_small_cases():
+    """(name, nodes, inputs, t_max, kind, beams, face_box, bvh) of the
+    small K5 inputs: tiles of 128 rays and pulses of 4 of a fan over boxes,
+    and the planted-slack beams over the same boxes and over a 20,000-face
+    terrain (its wide beam's list is sorted in device memory)."""
+    from lidar_brdf_tpu_torch import api
+    from lidar_brdf_tpu_torch.io import synthetic
+    from lidar_brdf_tpu_torch.kernels.traverse import TileTraverser
+    import numpy as np
+    import torch
+    boxes = synthetic.terrain_with_boxes(np.random.default_rng(1234),
+                                         num_boxes=6)
+    bvh = api.build_scene_bvh(boxes)
+    tt = TileTraverser(boxes, tile_rays=128, device=DEVICE)
+    nodes = tt.nodes(bvh)
+    o, d = (torch.from_numpy(x).to(DEVICE) for x in fan_rays(64))
+    out = []
+    for kind, R in (("tile", 128), ("pulse", 4)):
+        beams, ins = cull_inputs(o, d, R)
+        out.append((f"fan over boxes, beams of {R} rays", nodes, ins, 80.0,
+                    kind, beams, tt.face_boxes(bvh), bvh))
+    ins, _ = planted_slack_beams(bvh, SLACK_T_MAX, DEVICE)
+    out.append(("planted at the slack", nodes, ins, SLACK_T_MAX, None, None,
+                None, bvh))
+    rough = synthetic.rough_terrain(np.random.default_rng(3),
+                                    num_tris=20_000, half=30.0)
+    rbvh = api.build_scene_bvh(rough)
+    ins, _ = planted_slack_beams(rbvh, SLACK_T_MAX, DEVICE)
+    out.append(("planted at the slack, 20,000 faces",
+                TileTraverser(rough, tile_rays=128, device=DEVICE).nodes(rbvh),
+                ins, SLACK_T_MAX, None, None, None, rbvh))
+    return out
+
+
+def k5_chunk_inputs(workload, name):
+    """(name, nodes, inputs, t_max, kind, beams, face_box, bvh) of one
+    real chunk culled as `Simulator._prep` culls it: the `tls` chunk
+    (BSP-ordered tiles of 640 rays) or the first chunk of an `als` or
+    water scan (pulses of 10 rays, scan order)."""
+    from lidar_brdf_tpu_torch.runtime.simulate import Simulator, bsp_order
+    scene, bvh, cfg, mats, rays = workload
+    sim = Simulator(scene=scene, bvh=bvh, materials=mats, cfg=cfg,
+                    device=DEVICE)
+    tr_ = sim.traverser
+    n = min(cfg.chunk_pulses, rays.num_pulses)
+    if not sim.use_pulse:
+        import torch
+        order = torch.as_tensor(bsp_order(head(rays, n), sim.block_pulses),
+                                device=rays.origin.device)
+        o, d = (getattr(rays, k)[:n][order] for k in ("origin", "direction"))
+        R = tr_.tile_rays
+    else:
+        o, d = rays.origin[:n], rays.direction[:n]
+        R = tr_.kernel_rays
+    beams, ins = cull_inputs(o.reshape(-1, 3).contiguous(),
+                             d.reshape(-1, 3).contiguous(), R)
+    kind = "pulse" if sim.use_pulse else "tile"
+    return (name, tr_.nodes(bvh), ins, sim.t_max, kind, beams,
+            None if sim.use_pulse else tr_.face_boxes(bvh), bvh)
+
+
+def k5_chunk(tls=None, als=None) -> dict:
+    """K5 alone (``python3 chip_smoke.py --k5-chunk``): built, launched on
+    a one-node tree, held bit for bit against its plain version on the
+    small inputs and on the `tls` and `als` chunks, and timed on those two
+    beside the port's host culler and the bound."""
+    out = dict(source=os.path.dirname(os.path.abspath(__file__)))
+    for case in k5_small_cases():
+        out[case[0]] = compare_k5(*case[:4], kind=case[4], beams=case[5],
+                                  face_box=case[6])
+    for name, wl in (("tls chunk", tls or tls_workload(DEVICE)),
+                     ("als chunk", als or als_workload(DEVICE))):
+        case = k5_chunk_inputs(wl, name)
+        out[name] = compare_k5(*case[:4], kind=case[4], beams=case[5],
+                               face_box=case[6], timed=True,
+                               host_bvh=case[7])
+    return out
+
+
+def phase_k5_vs_plain(tls, als, water):
+    """13: K5 against its plain version bit for bit (lists, then the
+    buckets and bounds or ladders and permutation built from them) on a
+    fan over boxes, beams planted at the slack of a box, the `tls` chunk,
+    one `als` chunk and the water scene's level-0 chunk; timed by CUDA
+    events on the `tls` and `als` chunks beside the port's host culler and
+    the bound.  Returns K5's record for the kernels line."""
+    res = k5_chunk(tls, als)
+    case = k5_chunk_inputs(water, "water level-0 chunk")
+    res["water level-0 chunk"] = compare_k5(
+        *case[:4], kind=case[4], beams=case[5], face_box=case[6])
+    t, a = res["tls chunk"], res["als chunk"]
+    return dict(name="beam_cull", route="cuda",
+                source="lidar_brdf_tpu_torch/kernels/csrc/beam_cull.cu",
+                replaces="native/lidar_native.cpp:392 (lbt_cull, host C++; "
+                         "not a TPU kernel)",
+                launches=None, max_abs_err=0.0, ms=t["ms"],
+                plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                bound_by=t["bound_by"], library_ms=None,
+                launches_per_chunk=k5_launches(), host_ms=t.get("host_ms"),
+                als_ms=a["ms"], als_plain_ms=a["plain_ms"],
+                als_host_ms=a.get("host_ms"), als_bound_ms=a["bound_ms"],
+                als_bound_by=a["bound_by"], cases={
+                    k: {x: y for x, y in v.items() if x != "kernels"}
+                    for k, v in res.items() if isinstance(v, dict)})
 
 
 def water_over_ground():
@@ -1861,7 +2209,7 @@ def phase_card_vs_cpu():
         if DEVICE == "cuda" and pp.KERNEL.launches <= before:
             fail("the ALS card-vs-CPU run launched K2 no time")
         compare_clouds(f"ALS L={L}", *clouds)
-    # the same pulses with no host cull: the packet walk (K4) for every ray
+    # the same pulses with no cull: the packet walk (K4) for every ray
     before = kpk.KERNEL.launches
     clouds = both(scene, bvh, cfg, rays, use_culled=False)
     if DEVICE == "cuda" and kpk.KERNEL.launches <= before:
@@ -2145,7 +2493,7 @@ def phase_fwd_bwd(name, ws, kernel):
     full = split["full"]
     log(f"[fwd+bwd] {name}: {ws.rays.num_pulses} pulses x "
         f"{ws.rays.rays_per_pulse} rays, {ws.scene.num_faces} faces, L = "
-        f"{ws.cfg.max_returns}, host cull {ws.cull_s:.3f} s; loss {loss:.6e}, "
+        f"{ws.cfg.max_returns}, cull {ws.cull_s:.3f} s; loss {loss:.6e}, "
         f"max |g| {gmax}; full step {full['step_s'] * 1e3:.2f} ms = "
         f"{full['rays_per_s']:.0f} rays/s fwd+bwd; host syncs per step "
         f"{syncs}; launches in 1 warm + {STEP_ITERS} timed steps {launches}")
@@ -2235,7 +2583,7 @@ def grad_cases(kind):
 
 def compare_grads(what, scene, cfg, rays, kind):
     """The bench's loss and gradients on `DEVICE` and on the CPU, from the
-    same host cull: loss to rtol 1e-5, each gradient finite and within
+    same cull: loss to rtol 1e-5, each gradient finite and within
     atol 1e-4 * max|g| of the CPU's.  Returns max |dg| / max |g| each."""
     import numpy as np
     import torch
@@ -2431,13 +2779,14 @@ def phase_files(tls):
     res["cli_s"] = time.perf_counter() - t0
     launches = {k: lib.launches for k, lib in libs.items()}
     res["cli_cull_s"] = [r.get("cull_s") for r in cli_runs]
-    log(f"[files] CLI scans, host cull per wavelength "
+    log(f"[files] CLI scans, cull per wavelength "
         f"{dict(zip(FILES_WAVELENGTHS, res['cli_cull_s']))} s (the second "
         f"from the ladder cache)")
     if rc != 0:
         fail(f"the CLI simulate exited with {rc}")
     chunks = -(-rays.num_pulses // cfg.chunk_pulses)
-    want = {"K1": chunks * len(FILES_WAVELENGTHS), "K2": 0, "K4": 0}
+    want = {"K1": chunks * len(FILES_WAVELENGTHS), "K2": 0, "K4": 0,
+            "K5": chunks * k5_launches()}      # the second from the cache
     if DEVICE == "cuda" and launches != want:
         fail(f"the CLI scan launched {launches}: expected {want}")
     res["launches"] = launches
@@ -2670,9 +3019,10 @@ def runtime_forward_bench():
             else:
                 os.environ[k] = v
     chunks = -(-FORWARD_PULSES // FORWARD_CHUNK)
-    for name, n in launches.items():
+    for name, n in launches.items():     # cached scans cull nothing
+        culled = name in ("warm", "cold")
         expect_launches(f"the forward bench's {name} scan", n,
-                        {"K1": chunks})
+                        {"K1": chunks, "K5": culled * chunks * k5_launches()})
     for name in ("cached_metrics", "cached"):
         if not same_clouds(clouds["cold"], clouds[name]):
             fail(f"the forward bench's {name} cloud differs from the cold "
@@ -2694,10 +3044,11 @@ def runtime_forward_bench():
 
 
 def runtime_als_repeat(als):
-    """10b: phase 4's `als` scan twice on one `Simulator`: the second run
-    culls nothing (its ``cull_s`` under 1% of the first's), still launches
-    K2 once per chunk and gives the first run's cloud (a hit reuses
-    ladders, not results).  Then the pulse path's cached slice: chunk 0's
+    """10b: phase 4's `als` scan twice on one `Simulator`: the first run
+    culls every chunk (K5), the second none (K5 not launched: every chunk
+    from the ladder cache), both launch K2 once per chunk, and the second
+    gives the first run's cloud (a hit reuses ladders, not results).
+    Then the pulse path's cached slice: chunk 0's
     entry holds the permuted slice and the ladders a fresh cull of that
     chunk gives, under the key of its padded rays."""
     import torch
@@ -2717,7 +3068,8 @@ def runtime_als_repeat(als):
         cloud, launches = launch_counts(lambda: sim.run(rays, stats=stats))
         stats["wall_s"] = time.perf_counter() - t0
         expect_launches(f"the als scan's run {i + 1}", launches,
-                        {"K2": chunks})
+                        {"K2": chunks,
+                         "K5": chunks * k5_launches() if i == 0 else 0})
         if DEVICE == "cuda":
             stats["peak_bytes"] = torch.cuda.max_memory_allocated()
             stats["held_bytes"] = torch.cuda.memory_allocated() - held0
@@ -2727,9 +3079,6 @@ def runtime_als_repeat(als):
     if len(sim._ladder_cache) != chunks:
         fail(f"the als cache holds {len(sim._ladder_cache)} chunks, not "
              f"{chunks}")
-    if not runs[1]["cull_s"] < 0.01 * runs[0]["cull_s"]:
-        fail(f"the repeat als scan's cull_s {runs[1]['cull_s']:.4f} s is "
-             f"not under 1% of the first's {runs[0]['cull_s']:.4f} s")
     if not same_clouds(clouds[0], clouds[1]):
         fail("the repeat als scan's cloud differs from the first")
     n = cfg.chunk_pulses
@@ -2758,8 +3107,9 @@ def runtime_als_repeat(als):
             f"launches {r['launches']}; device memory peak "
             f"{r.get('peak_bytes')} B, held after "
             f"{r.get('held_bytes')} B")
-    log(f"[cache] als repeat: cull {runs[1]['cull_s']:.4f} s of "
-        f"{runs[0]['cull_s']:.3f} s; clouds equal; chunk 0's cached slice "
+    log(f"[cache] als repeat: K5 not launched, cull "
+        f"{runs[1]['cull_s']:.4f} s of {runs[0]['cull_s']:.3f} s; clouds "
+        f"equal; chunk 0's cached slice "
         f"is the {'permuted' if moved else 'unpermuted'} slice a fresh "
         f"cull gives, its ladders equal")
     return runs
@@ -2768,7 +3118,8 @@ def runtime_als_repeat(als):
 def runtime_benchmark(tls):
     """10c: `Simulator.benchmark` on the `tls` workload (BENCH_EXECS
     executions, the steady passes on its one chunk): K1 twice an execution
-    (FIND_COLLISION, TOTAL) and once a steady pass."""
+    (FIND_COLLISION, TOTAL) and once a steady pass, K5's cull once an
+    execution (TRAVERSE_PREP) and once a steady pass (the cache off)."""
     from lidar_brdf_tpu_torch.runtime.simulate import Simulator
     scene, bvh, cfg, mats, rays = tls
     sim = Simulator(scene=scene, bvh=bvh, materials=mats, cfg=cfg,
@@ -2778,7 +3129,8 @@ def runtime_benchmark(tls):
     steady = -(-min(2 * cfg.chunk_pulses, rays.num_pulses)
                // cfg.chunk_pulses)
     expect_launches("Simulator.benchmark", launches,
-                    {"K1": BENCH_EXECS * (2 + steady)})
+                    {"K1": BENCH_EXECS * (2 + steady),
+                     "K5": BENCH_EXECS * (1 + steady) * k5_launches()})
     for stage in ("RAY_BUILDING", "TRAVERSE_PREP", "FIND_COLLISION",
                   "REDUCE", "INTENSITY", "TOTAL", "READ"):
         if len(metrics.samples.get(stage, [])) != BENCH_EXECS:
@@ -2823,7 +3175,8 @@ def runtime_checkpoint():
     resumed, launches = launch_counts(
         lambda: simulator().run(rays, checkpoint_dir=ckdir))
     resumed_s = time.perf_counter() - t0
-    expect_launches("the resumed scan", launches, {"K1": 1})
+    expect_launches("the resumed scan", launches,
+                    {"K1": 1, "K5": k5_launches()})
     if not same_clouds(full.compact_host(), resumed.compact_host()):
         fail("the resumed scan's cloud differs from the uninterrupted one")
     shutil.rmtree(ckdir)
@@ -2892,6 +3245,12 @@ def phase_runtime(tls, als):
 PATH_KERNEL = {"tile": "K1", "ladder": "K2", "packet": "K4"}
 
 
+def prep_launches(path) -> dict:
+    """A rank's launches while it prepares ``path``: K5's cull of its one
+    chunk, none for the packet walk."""
+    return {} if path == "packet" else {"K5": k5_launches()}
+
+
 def bits_equal(a, b) -> bool:
     """Two f32 tensors equal bit for bit (a NaN equals the same NaN)."""
     import torch
@@ -2949,6 +3308,8 @@ def multirank_nccl(tls):
         dist.destroy_process_group()
     summary = res["summary"]["paths"]
     for path, s in summary.items():
+        expect_launches(f"the one-rank {path} cull", s["prep_launches"],
+                        prep_launches(path))
         expect_launches(f"the one-rank {path} forward", s["fwd_launches"],
                         {PATH_KERNEL[path]: 1})
     expect_launches("the one-rank tile step", summary["tile"]["step_launches"],
@@ -3014,6 +3375,9 @@ def check_ranks(name, ranks, refs, outdir):
             if not filecmp.cmp(mine, g["paths"][path]["ply"], shallow=False):
                 fail(f"{name}: rank {k}'s {path} PLY shard differs from "
                      f"the parent's shard {k}")
+            expect_launches(f"{name}: rank {k}'s {path} cull",
+                            g["paths"][path]["prep_launches"],
+                            prep_launches(path))
             expect_launches(f"{name}: rank {k}'s {path} forward",
                             g["paths"][path]["fwd_launches"],
                             {PATH_KERNEL[path]: 1})
@@ -3147,7 +3511,7 @@ def phase_multirank(tls, als):
 
 # ---------------------------------------------------------------------------
 # phase 12: the JAX package's last entry points on the card, and the scans
-# with no host cull end to end
+# with no cull end to end
 # ---------------------------------------------------------------------------
 
 def plain_call(fn):
@@ -3445,7 +3809,7 @@ def phase_no_cull(als, water, forward, culled) -> dict:
                          culled_peak_bytes=ref["peak_bytes"],
                          culled_cull_s=ref["cull_s"], **cmp)
         log(f"[no-cull] {cell}: wall {rec['wall_s']:.3f} s (culled "
-            f"{ref['wall_s']:.3f} s, of it host cull {ref['cull_s']:.3f} s); "
+            f"{ref['wall_s']:.3f} s, of it cull {ref['cull_s']:.3f} s); "
             f"peak device memory {rec['peak_bytes']} B (culled "
             f"{ref['peak_bytes']} B); against the culled cloud: "
             + ", ".join(f"{k} {v}" for k, v in cmp.items()))
@@ -3474,9 +3838,13 @@ def main() -> int:
     if sys.argv[1:] == ["--water-scan"]:
         log(json.dumps({"water_scan": water_scan()}))
         return 0
+    if sys.argv[1:] == ["--k5-chunk"]:
+        phase_card_and_build()
+        log(json.dumps({"k5_chunk": k5_chunk()}))
+        return 0
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]} (only --k1-chunk, "
-             f"--k2-chunk, --k4-chunk or --water-scan)")
+             f"--k2-chunk, --k4-chunk, --k5-chunk or --water-scan)")
     t_start = time.perf_counter()
     card = phase_card_and_build()
     t0 = time.perf_counter()
@@ -3490,18 +3858,24 @@ def main() -> int:
     als_sim, k2, k2_chunk_data = phase_k2_vs_plain(als)
     choice = phase_traverser_choice(tls, als, k1, als_sim)
     del als_sim
-    launches, _, tls_fwd = phase_forward("tls", tls, TLS_PULSES, {"K1": 1})
+    launches, _, tls_fwd = phase_forward("tls", tls, TLS_PULSES,
+                                         {"K1": 1, "K5": k5_launches()})
     k1["launches"] = launches["K1"]
-    launches, als_cloud, als_fwd = phase_forward("als", als, ALS_CHUNK,
-                                                 {"K2": 1})
+    k5_main = launches["K5"]
+    launches, als_cloud, als_fwd = phase_forward(
+        "als", als, ALS_CHUNK, {"K2": 1, "K5": k5_launches()})
     k2["launches"] = launches["K2"]
+    k5_als = launches["K5"]
     t0 = time.perf_counter()
     water = water_workload(als)
     log(f"[setup] water workload built in {time.perf_counter() - t0:.2f} s")
     water_launches, water_fwd, levels, water_cloud = phase_water(water)
+    k5 = phase_k5_vs_plain(tls, als, water)
+    k5.update(launches=k5_main, launches_als=k5_als,
+              launches_water=water_launches["K5"])
     _, _, tls_walk = phase_forward("tls, use_culled=False", tls, TLS_PULSES,
                                    {"K4": 1}, use_culled=False)
-    log(f"[tls] packet walk (K4, no host cull) {tls_walk['rays_per_s']:.0f} "
+    log(f"[tls] packet walk (K4, no cull) {tls_walk['rays_per_s']:.0f} "
         f"rays/s wall, device {tls_walk['device_s']:.3f} s; culled (K1) "
         f"{tls_fwd['rays_per_s']:.0f} rays/s, device "
         f"{tls_fwd['device_s']:.3f} s")
@@ -3546,6 +3920,31 @@ def main() -> int:
     del water, forward, als_cloud, water_cloud, forward_culled
     k4["launches_no_cull"] = {k: v["launches"]["K4"]
                               for k, v in no_cull.items()}
+    k5["launches_files"] = files["launches"]["K5"]
+    k5["launches_forward_bench"] = {
+        k: v["K5"] for k, v in runtime["forward_bench"]["launches"].items()}
+    k5["launches_als_repeat"] = [
+        r["launches"]["K5"] for r in runtime["als_repeat"]]
+    k5["launches_multirank"] = dict(
+        one_rank=nccl["tile"]["prep_launches"]["K5"],
+        per_rank=[[w[n]["paths"][p]["prep_launches"]["K5"]
+                   for n, p in (("tls", "tile"), ("als", "ladder"))]
+                  for w in gloo])
+    points = {"tls": tls_fwd["points"], "als": als_fwd["points"],
+              "water": water_fwd["points"],
+              "forward": runtime["forward_bench"]["line"]["points"]}
+    log("[points] culled scans, this run against the host cull's: " + ", "
+        .join(f"{k} {v} ({HOST_CULL_POINTS[k]}, "
+              f"{v - HOST_CULL_POINTS[k]:+d})" for k, v in points.items()))
+    peaks = {k: (m["peak_bytes"] - m["base_bytes"]
+                 if m["peak_bytes"] is not None else None)
+             for k, m in (("tls", tls_fwd), ("als", als_fwd),
+                          ("water", water_fwd),
+                          ("forward",
+                           runtime["forward_bench"]["memory"]["cold"]))}
+    log("[points] peak device bytes above those held, against the host "
+        "cull's: " + ", ".join(f"{k} {v} ({HOST_CULL_PEAK[k]})"
+                               for k, v in peaks.items()))
     log(f"[phase 12] took {time.perf_counter() - t0:.1f} s")
     phase_profiles(k1_chunk_data, k1, k3, k2_chunk_data, k2)
     log(json.dumps({"card": card, "tls_forward": tls_fwd,
@@ -3555,8 +3954,9 @@ def main() -> int:
                     "tls_packet_walk_forward": tls_walk,
                     "traverser_choice": choice, "fwd_bwd": training,
                     "entry_points": entry, "no_cull": no_cull,
+                    "points": points,
                     "seconds": time.perf_counter() - t_start}))
-    log(json.dumps({"kernels": [k1, k2, k3, k4]}))
+    log(json.dumps({"kernels": [k1, k2, k3, k4, k5]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

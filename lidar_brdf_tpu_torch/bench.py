@@ -12,9 +12,9 @@ intensity w.r.t. the BRDF table, the sensor ray origins and the scene
 vertices (face normals are recomputed from the vertices per hit, so the
 vertex gradient flows through hit re-evaluation and shading); each
 parameter then takes ``+= 1e-30 * grad``, as the JAX bench's training carry
-does.  The traversal is forward-only: the host culls once at set-up, and
-every step launches the tile kernel K1 (``tile`` configs) or the ladder
-kernel K2 (``als``) on the same candidates.
+does.  The traversal is forward-only: the rays are culled once at set-up,
+on the device (K5), and every step launches the tile kernel K1 (``tile``
+configs) or the ladder kernel K2 (``als``) on the same candidates.
 
 Before it builds a workload it runs the pre-flight kernel K3
 (`kernel_smoke`); a wrong result raises ``RuntimeError("cuda-kernel-smoke-
@@ -37,8 +37,8 @@ retry and watchdog, the JAX compile cache, ``BENCH_STATE_CACHE``,
 (`forward_main`, the counterpart of `bench.py::forward_main`): the
 ``tls`` scan at 1,048,576 pulses x 10 rays over the city, in chunks of
 ``BENCH_CHUNK`` pulses (default 131,072), through `Simulator.run` with
-its host cull, device work and readback; a cold scan (ladder cache off)
-and a cached one.  ``BENCH_FORWARD_PACKET=1`` takes the packet walk
+its cull on the device (K5), device work and readback; a cold scan
+(ladder cache off) and a cached one.  ``BENCH_FORWARD_PACKET=1`` takes the packet walk
 (``use_culled=False``: no cull, K4).  Its metric is
 ``rays_per_s_forward_end_to_end_per_chip``, the cached scan's rays/s.
 """
@@ -63,9 +63,7 @@ from .core.types import (MaterialTable, RayBundle, TriangleScene, as_numpy,
                          resolve_device)
 from .io import synthetic
 from .io.materials import MaterialLibrary
-from .kernels.pulse import (PulseLadderTraverser, build_pulse_ladders,
-                            permute_pulse_ladders, renumber_pulse_ladders,
-                            uncovered_groups)
+from .kernels.pulse import PulseLadderTraverser
 from .kernels.smoke import affine_smoke, affine_smoke_plain
 from .kernels.traverse import TileTraverser
 from .physics.returns import SimScalars
@@ -86,7 +84,7 @@ CONFIGS = {
     "alphaprime": dict(pulses=3600 * 364, rays_pulse=10, max_returns=2,
                        scene="city", num_tris=40_000, traverser="tile"),
     # a fresh forward scan end to end (`bench.py:126-132`): the
-    # Simulator's own host cull, chunking and readback
+    # Simulator's own cull, chunking and readback
     "forward": dict(pulses=1_048_576, rays_pulse=10, max_returns=1,
                     scene="city", num_tris=40_000, traverser="none"),
 }
@@ -208,12 +206,14 @@ class Workload:
 
 def cull(scene, bvh, cfg, rays: RayBundle, materials, kind: str,
          device="cuda") -> Workload:
-    """The bench's one host cull at set-up (bench.py:210-298), with
-    ``t_max = max_range * 1.2``.  Both kinds first take the BSP pulse order
-    in blocks of 640 // R pulses, as bench.py:228-231 does for every
-    traverser; then `TileTraverser.prepare` for ``kind="tile"``, or
-    ladders, the bucket-contiguous pulse order and `upload` for
-    ``kind="pulse"``."""
+    """The bench's one cull at set-up (bench.py:210-298), with ``t_max =
+    max_range * 1.2``.  Both kinds first take the BSP pulse order in blocks
+    of 640 // R pulses, as bench.py:228-231 does for every traverser; then
+    the rays are uploaded and culled on the device by K5:
+    `TileTraverser.prepare` for ``kind="tile"``, or
+    `PulseLadderTraverser.prepare_permuted` (ladders and the
+    bucket-contiguous pulse order) for ``kind="pulse"``.  ``cull_s`` is the
+    upload and the cull, to a synchronize."""
     dev = resolve_device(device)
     R = rays.rays_per_pulse
     t_max = float(cfg.max_range) * 1.2
@@ -224,28 +224,28 @@ def cull(scene, bvh, cfg, rays: RayBundle, materials, kind: str,
     order = bsp_order(rays, block)
     host = {k: as_numpy(getattr(rays, k))[order]
             for k in ("origin", "direction", "gps_time")}
-    t0 = time.perf_counter()
     if kind == "tile":
         tr = TileTraverser(scene, tile_rays=block * R, device=dev)
-        data = tr.prepare(bvh, host["origin"], host["direction"], t_max=t_max)
     elif kind == "pulse":
         tr = PulseLadderTraverser(scene, rays_per_pulse=R, device=dev)
-        tr.t_max = t_max
-        o2 = host["origin"].reshape(-1, 3)
-        raw = build_pulse_ladders(bvh, o2, host["direction"].reshape(-1, 3),
-                                  R, t_max=t_max)
-        perm, layout = permute_pulse_ladders(raw, rays.num_pulses)
-        host = {k: v[perm] for k, v in host.items()}
-        data = tr.upload(renumber_pulse_ladders(raw, perm),
-                         uncovered_groups(layout, rays.num_pulses))
     else:
         raise ValueError(f"unknown traverser kind {kind!r}")
+    t0 = time.perf_counter()
+    on_dev = RayBundle(**{k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                          for k, v in host.items()})
+    if kind == "tile":
+        data = tr.prepare(bvh, on_dev.origin, on_dev.direction, t_max=t_max)
+    else:
+        gperm, data = tr.prepare_permuted(bvh, on_dev.origin,
+                                          on_dev.direction, t_max=t_max)
+        on_dev = RayBundle(**{k: getattr(on_dev, k)[gperm]
+                              for k in ("origin", "direction", "gps_time")})
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
     cull_s = time.perf_counter() - t0
     return Workload(
         scene=scene.to(dev), materials=materials.to(dev), cfg=cfg,
-        rays=RayBundle(**{k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
-                          for k, v in host.items()}),
-        scalars=SimScalars.from_config(cfg, 0.0, dev),
+        rays=on_dev, scalars=SimScalars.from_config(cfg, 0.0, dev),
         noise=noise_mod.make_sim_noise(0, device=dev), traverser=tr,
         data=data, kind=kind, cull_s=cull_s)
 
@@ -480,7 +480,7 @@ def main() -> int:
         int(os.environ.get("BENCH_TRIS", spec["num_tris"])))
     ws = cull(scene, bvh, cfg, rays, mats, spec["traverser"], dev)
     log(f"# [{config}] workload built in {time.perf_counter() - t0:.1f}s "
-        f"(host cull {ws.cull_s:.1f}s; {scene.num_faces} faces, "
+        f"(cull {ws.cull_s:.3f}s; {scene.num_faces} faces, "
         f"{rays.num_pulses} pulses x {rays.rays_per_pulse} rays, "
         f"{cfg.max_returns} returns)")
     step, _ = make_step(ws, grads)

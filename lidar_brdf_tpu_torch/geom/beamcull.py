@@ -1,14 +1,20 @@
-"""Beam culling, host half (counterpart of `lidar_brdf_tpu/geom/beamcull.py`).
+"""Beam culling (counterpart of `lidar_brdf_tpu/geom/beamcull.py`).
 
 The reference walks a BVH per GPU thread with a 200-entry stack
 (`findBVHCollision-comp.glsl:94-137`).  The JAX package splits traversal in
 two, and the port keeps that split:
 
-1. HOST, once per ray chunk (this module, numpy + the native culler): group
-   coherent rays into tiles; bound each tile by a *beam* (origin bounding
-   sphere + direction cone); walk the threaded BVH for all tiles at once,
-   keeping every leaf whose AABB the beam can touch within range.  The test
-   is conservative (never rejects a reachable triangle).
+1. CULL, once per ray chunk: group coherent rays into tiles; bound each
+   tile by a *beam* (origin bounding sphere + direction cone); walk the
+   threaded BVH for every tile, keeping every leaf whose AABB the beam can
+   touch within range.  The test is conservative (never rejects a
+   reachable triangle).  The JAX package culls on the host (numpy or the
+   native C++ culler), and this module keeps its host functions
+   (`tile_beams`, `_collect_candidates`, `build_tile_candidates`,
+   `build_bucketed_candidates`); the port's `Simulator`, bench and
+   traversers cull on the rays' device instead: `tile_beams_torch` builds
+   the beams there and the CUDA kernel K5 (`kernels/cull.py`) walks the
+   tree.
 
 2. DEVICE (`kernels/traverse.py`): each ray tile is intersected against its
    candidate list of Wald rows (plane + two barycentric planes, 12 floats)
@@ -125,6 +131,75 @@ def beams_are_narrow(beams: TileBeams,
     return bool((beams.cos_half[beams.valid] >= min_cos_half).all())
 
 
+def _norm3(v: torch.Tensor) -> torch.Tensor:
+    """Euclidean length over the last axis of 3, the squares summed in
+    x, y, z order."""
+    return torch.sqrt((v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1])
+                      + v[..., 2] * v[..., 2])
+
+
+def tile_beams_torch(origin: torch.Tensor, direction: torch.Tensor,
+                     tile_rays: int) -> TileBeams:
+    """`tile_beams` over tensors, on their device: the same beams in
+    float64 (`TileBeams` of tensors).  Each operation is `tile_beams`'s;
+    the sums over a tile's rays and the dot products are taken in
+    PyTorch's order, so a value may differ from the host's in its last
+    float64 bit."""
+    o = origin.reshape(-1, tile_rays, 3).double()
+    d = direction.reshape(-1, tile_rays, 3).double()
+    dn = _norm3(d)
+    ok = dn > 1e-9
+    du = torch.where(ok[..., None],
+                     d / torch.clamp(dn, min=1e-30)[..., None],
+                     torch.zeros_like(d))
+    valid = ok.sum(dim=1) > 0
+    axis = du.sum(dim=1)
+    alen = _norm3(axis)
+    up = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float64, device=o.device)
+    axis = torch.where(alen[:, None] > 1e-12,
+                       axis / torch.clamp(alen, min=1e-30)[:, None], up)
+    cosd = (du[..., 0] * axis[:, None, 0] + du[..., 1] * axis[:, None, 1]) \
+        + du[..., 2] * axis[:, None, 2]
+    cos_half = torch.where(ok, cosd, torch.ones_like(cosd)).amin(dim=1)
+    cos_half = torch.clamp(cos_half, 1e-3, 1.0)
+    omin = torch.where(ok[..., None], o, torch.full_like(o, np.inf)).amin(1)
+    omax = torch.where(ok[..., None], o, torch.full_like(o, -np.inf)).amax(1)
+    omin = torch.where(valid[:, None], omin, torch.zeros_like(omin))
+    omax = torch.where(valid[:, None], omax, torch.zeros_like(omax))
+    center = (omin + omax) * 0.5
+    return TileBeams(center=center, radius=_norm3(omax - center), axis=axis,
+                     cos_half=cos_half, valid=valid)
+
+
+def narrow_flag(beams: TileBeams,
+                min_cos_half: float = MIN_COS_HALF) -> torch.Tensor:
+    """`beams_are_narrow` of tensor beams as a 0-d bool tensor on their
+    device (no host read)."""
+    return ((beams.cos_half >= min_cos_half) | ~beams.valid).all()
+
+
+def beam_tan_half(cos_half):
+    """Tangent of the cone half-angle from its cosine, as
+    `_collect_candidates` computes it (arrays or tensors)."""
+    if isinstance(cos_half, torch.Tensor):
+        return torch.sqrt(torch.clamp(1.0 - cos_half * cos_half, min=0.0)) \
+            / cos_half
+    return np.sqrt(np.maximum(1.0 - cos_half ** 2, 0.0)) / cos_half
+
+
+def cull_t_max_torch(root_min: torch.Tensor, root_max: torch.Tensor,
+                     beams: TileBeams) -> torch.Tensor:
+    """`_collect_candidates`' reach when the caller gives none, in float64
+    as there: the root box's diagonal, plus the farthest beam center's
+    distance from the box and the largest radius, plus 1 (0-d tensor)."""
+    lo, hi = root_min.double(), root_max.double()
+    c = beams.center
+    q = c - torch.minimum(torch.maximum(c, lo), hi)
+    diag = hi - lo
+    far = _norm3(q).amax() + beams.radius.amax()
+    return (_norm3(diag) + far) + 1.0
+
+
 def bsp_order_np(features: np.ndarray, block: int) -> np.ndarray:
     """Permutation grouping rows into contiguous blocks of ``block`` with
     small extent, by recursive median split along the widest feature axis.
@@ -218,8 +293,7 @@ def _collect_candidates(bvh: BVH, beams: TileBeams, t_max: float | None,
             beams.center - np.clip(beams.center, node_min[0], node_max[0]),
             axis=-1).max() + beams.radius.max()
         t_max = float(diag + far) + 1.0
-    tan_half = np.sqrt(np.maximum(1.0 - beams.cos_half ** 2, 0.0)) \
-        / beams.cos_half
+    tan_half = beam_tan_half(beams.cos_half)
 
     # native C++ culler (OpenMP over tiles); numpy frontier as fallback
     if use_native:
@@ -405,21 +479,24 @@ def intersect_culled(wald, cand, origin, direction, *,
 
 class CulledTraverser:
     """Scene-bound culled traverser with the JAX package's interface: the
-    host cull per call, then K1 on the device, through the
-    `kernels/traverse.py::TileTraverser` it wraps (the `Simulator`'s).
+    beam cull per call on the device (K5, `kernels/cull.py`), then K1,
+    through the `kernels/traverse.py::TileTraverser` it wraps (the
+    `Simulator`'s).
 
     Usage::
 
         tr = CulledTraverser(scene, tile_rays=512, device="cuda")
-        data = tr.build_candidates(bvh, origins, directions)   # host
-        hits = tr(origin, direction, data)                     # device
+        data = tr.prepare(bvh, origins, directions)            # K5
+        hits = tr(origin, direction, data)                     # K1
 
     ``traverse_data`` is either a dense (T, C) candidate array (from
-    `build_tile_candidates`: one bucket of every tile) or a tuple of
-    (tile_idx, cand) buckets (from `build_bucketed_candidates`,
-    `prepare`), numpy or tensors.  Each call launches K1 once on CUDA
-    tensors, with no early exit and t_max BIG; ties follow K1's blocks of
-    8 (the module's note).
+    `build_candidates` or `build_tile_candidates`: one bucket of every
+    tile) or a tuple of (tile_idx, cand) buckets (from `prepare` on the
+    device, `build_buckets` or `build_bucketed_candidates` on the host),
+    numpy or tensors.  The lists are those of the JAX package's native
+    culler (sorted by (dnear, face)), padded to ``chunk``.  Each call
+    launches K1 once on CUDA tensors, with no early exit and t_max BIG;
+    ties follow K1's blocks of 8 (the module's note).
     """
 
     def __init__(self, scene: TriangleScene, *,
@@ -437,24 +514,35 @@ class CulledTraverser:
 
     def build_candidates(self, bvh: BVH, origin, direction,
                          t_max: float | None = None) -> np.ndarray:
-        o, d = self._tiles._pad_np(origin, direction)
-        return build_tile_candidates(bvh, o, d, tile_rays=self.tile_rays,
-                                     t_max=t_max, pad_to=self.chunk)
-
-    def build_buckets(self, bvh: BVH, origin, direction,
-                      t_max: float | None = None):
-        o, d = self._tiles._pad_np(origin, direction)
-        return build_bucketed_candidates(
-            bvh, o, d, tile_rays=self.tile_rays, t_max=t_max,
-            pad_to=self.chunk)
-
-    def beams_ok(self, origin, direction) -> bool:
-        return self._tiles.beams_ok(origin, direction)
+        """`build_tile_candidates` (``pad_to`` = ``chunk``) of the device
+        cull, as a host array."""
+        from ..kernels.cull import list_rows, readback
+        lists, beams = self._tiles.cull(bvh, origin, direction, t_max,
+                                        pad_to=self.chunk)
+        T = beams.center.shape[0]
+        longest = readback(lists.counts.max()) if T else 0
+        width = max(-(-longest // self.chunk) * self.chunk, self.chunk)
+        ids = torch.arange(T, device=lists.counts.device)
+        return list_rows(lists, ids, width).cpu().numpy()
 
     def prepare(self, bvh: BVH, origin, direction,
                 t_max: float | None = None):
-        """One-call host prep: traverse_data for `__call__` (bucket tuple)."""
-        return self.build_buckets(bvh, origin, direction, t_max=t_max)
+        """The device cull for one call: a tuple of (tile_idx, cand)
+        buckets on the traverser's device (`build_bucketed_candidates`'
+        buckets, ``pad_to`` = ``chunk``)."""
+        from ..kernels.traverse import buckets_from_lists
+        lists, beams = self._tiles.cull(bvh, origin, direction, t_max,
+                                        pad_to=self.chunk)
+        return buckets_from_lists(lists, beams.center.shape[0])
+
+    def build_buckets(self, bvh: BVH, origin, direction,
+                      t_max: float | None = None):
+        """`prepare`'s buckets as host arrays."""
+        return tuple((t.cpu().numpy(), c.cpu().numpy())
+                     for t, c in self.prepare(bvh, origin, direction, t_max))
+
+    def beams_ok(self, origin, direction) -> bool:
+        return self._tiles.beams_ok(origin, direction)
 
     def __call__(self, origin, direction, traverse_data) -> Hit:
         put = lambda a: torch.as_tensor(a).to(

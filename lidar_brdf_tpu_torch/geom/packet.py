@@ -121,11 +121,14 @@ def intersect_packed(nodes, tris, origin, direction, *,
                                   direction, width=tile)
 
 
-def make_packet_traverser(scene: TriangleScene, bvh: BVH):
+def make_packet_traverser(scene: TriangleScene, bvh: BVH, nodes=None):
     """Pack once; returns ``traverse(origin, direction, active=None) ->
     Hit`` (`intersect_packed_scene`), the ``packet_fn`` contract of
-    `physics/returns.py::simulate_returns`."""
-    packed = pack_scene(scene, bvh)
+    `physics/returns.py::simulate_returns`.  ``nodes``: the BVH's node
+    records already on the scene's device (`pack_bvh`), to share one pack
+    with the cull; None packs them here."""
+    packed = (pack_scene(scene, bvh) if nodes is None else
+              PackedScene(*nodes, tri_rows=pack_triangles(scene)))
 
     def traverse(origin, direction, active=None):
         return intersect_packed_scene(packed, origin, direction,

@@ -1,10 +1,19 @@
-"""ctypes binding to the native C++ host runtime (`native/lidar_native.cpp`).
+"""ctypes binding to the port's native C++ host runtime
+(`lidar_brdf_tpu_torch/native/lidar_native.cpp`, the port's own copy of
+the JAX package's `native/lidar_native.cpp`).
 
-Modelled on `lidar_brdf_tpu/io/native.py`, with one difference: the library
-is compiled with g++ from the repository's source into the git-ignored
-`build/native/` directory and loaded from there, so the tracked
-`native/liblidar_native.so` is never written.  Every entry point returns
-None when no toolchain is available; callers then take their numpy path.
+Modelled on `lidar_brdf_tpu/io/native.py`, with two differences: the
+library is compiled with g++ from the port's copy into the git-ignored
+`build/native/` directory and loaded from there, and with
+``-ffp-contract=off``: no multiply-add is fused, so `lbt_cull`'s near
+distances, and with them the order of its lists, are those of the beam
+cull on the device (`kernels/cull.py`, K5, built with ``--fmad=false``)
+bit for bit, whatever CPU built the library.  The JAX package builds its
+own with contraction on.  Every entry point returns None when no
+toolchain is available; callers then take their numpy path.  The BVH
+build and the OBJ parse run here.  `Simulator`, the bench and the
+traversers cull on the device; only `cull_candidates_native` and the
+host functions that take ``use_native`` still run `lbt_cull`.
 """
 
 from __future__ import annotations
@@ -21,7 +30,8 @@ from ..core.types import BVH
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-_SRC = os.path.join(_REPO_ROOT, "native", "lidar_native.cpp")
+_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "native", "lidar_native.cpp")
 BUILD_DIR = os.path.join(_REPO_ROOT, "build", "native")
 _LIB = os.path.join(BUILD_DIR, "liblidar_native.so")
 
@@ -38,8 +48,8 @@ def _compile() -> bool:
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = ["g++", "-O3", "-march=native", "-fopenmp", "-shared", "-fPIC",
-           "-o", tmp, _SRC]
+    cmd = ["g++", "-O3", "-march=native", "-ffp-contract=off", "-fopenmp",
+           "-shared", "-fPIC", "-o", tmp, _SRC]
     try:
         for attempt in (cmd, [c for c in cmd if c != "-fopenmp"]):
             try:

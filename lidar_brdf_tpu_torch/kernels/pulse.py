@@ -5,10 +5,16 @@ JAX package takes on dense scenes scanned by structured pulses (the `als`
 workload's 5M-face terrain), where one 640-ray tile's beam would cover
 thousands of triangles but one pulse's narrow cone covers a handful.
 
-* Host half (`build_pulse_ladders`, `permute_pulse_ladders`): each pulse
-  group's bounding cone is culled against the BVH (`geom/beamcull.py` and
-  the native culler) into a near-to-far candidate ladder; ladders are
-  bucketed by padded size K = 8 * 2**k.  Bit-equal to the JAX package.
+* Cull half (`PulseLadderTraverser.prepare`, `prepare_permuted`): each
+  pulse group's bounding cone (`geom/beamcull.py::tile_beams_torch`) is
+  culled against the BVH on the rays' device by K5
+  (`kernels/cull.py::beam_cull`) into a near-to-far candidate ladder;
+  `ladders_from_lists` buckets the ladders by padded size K = 8 * 2**k,
+  `permute_ladders_torch` and `renumber_ladders_torch` give the JAX
+  package's bucket-contiguous pulse order.  The host functions
+  (`build_pulse_ladders`, `permute_pulse_ladders`,
+  `renumber_pulse_ladders`) are the JAX package's, bit-equal to it, and
+  the device ones are bit-equal to them on the same lists.
 * Device half (`pulse_traverse`): the nearest (t, face) of every ray of
   every group against the group's ladder, all buckets in one call.  On a
   CUDA tensor it launches `csrc/pulse_traverse.cu` once over the work list
@@ -42,6 +48,7 @@ from ..geom.beamcull import (_collect_candidates, beams_are_narrow,
                              tile_beams, wald_rows_np)
 from ..geom.intersect import BIG
 from .cuda_build import CudaLibrary, check_tensor, raw_stream
+from .cull import NodeCache, bucket_rows, cull_rays
 from .traverse import (CAND_BLOCK, INT_MISS,  # noqa: F401  (JAX's name)
                        default_t_max, wald_blocks_plain)
 
@@ -207,6 +214,40 @@ def renumber_pulse_ladders(buckets, perm: np.ndarray):
     return tuple((where[pidx], cand) for pidx, cand in buckets)
 
 
+def _rows(B: int) -> int:
+    return -(-B // LANES) * LANES
+
+
+def ladders_from_lists(lists, num_pulses: int):
+    """`build_pulse_ladders`' (pidx, cand) buckets from a cull's lists
+    (`kernels/cull.py::CullLists`, ``pad_to`` 8), on their device with no
+    host read: one bucket per padded size K in ascending order, its pulses
+    in ascending id, the rows padded to a multiple of 128 (dummy rows:
+    pidx = ``num_pulses``, no candidates)."""
+    return bucket_rows(lists, _rows, num_pulses)
+
+
+def permute_ladders_torch(lists, num_pulses: int):
+    """`permute_pulse_ladders` of the ladders `ladders_from_lists` makes,
+    on the lists' device: ``(perm, layout)``, ``perm`` (num_pulses,) i64
+    the pulses in bucket order (a stable order by padded size), those with
+    no candidate last."""
+    layout, start = [], 0
+    for _, B in lists.sizes:
+        layout.append((start, B, _rows(B)))
+        start += B
+    return lists.order, tuple(layout)
+
+
+def renumber_ladders_torch(buckets, perm: torch.Tensor):
+    """`renumber_pulse_ladders` on the buckets' device."""
+    P = perm.shape[0]
+    where = torch.empty(P + 1, dtype=torch.int32, device=perm.device)
+    where[perm] = torch.arange(P, dtype=torch.int32, device=perm.device)
+    where[P] = P
+    return tuple((where[pidx.long()], cand) for pidx, cand in buckets)
+
+
 # ---------------------------------------------------------------------------
 # device half
 # ---------------------------------------------------------------------------
@@ -337,8 +378,8 @@ class PulseLadderTraverser:
     Same traverse_fn interface as `TileTraverser`::
 
         tr = PulseLadderTraverser(scene, rays_per_pulse=10, device="cuda")
-        data = tr.prepare(bvh, origins, directions, t_max=...)   # host
-        hits = tr(origin, direction, data)                       # device
+        data = tr.prepare(bvh, origins, directions, t_max=...)   # K5
+        hits = tr(origin, direction, data)                       # K2
 
     ``group`` adjacent pulses share one candidate ladder (group = 1 is the
     exact per-pulse scheme); a ladder entity is ``kernel_rays =
@@ -354,6 +395,7 @@ class PulseLadderTraverser:
         self.wald = torch.from_numpy(wald_rows_np(
             as_numpy(scene.vertices), as_numpy(scene.faces))).to(self.device)
         self.t_max = None
+        self.nodes = NodeCache(self.device)
 
     @property
     def kernel_rays(self) -> int:
@@ -367,8 +409,7 @@ class PulseLadderTraverser:
         d = np.asarray(as_numpy(direction), np.float32).reshape(-1, 3)
         return beams_are_narrow(tile_beams(o, d, self.kernel_rays))
 
-    def _resolve_t_max(self, bvh: BVH, o: np.ndarray,
-                       t_max: float | None) -> float:
+    def _resolve_t_max(self, bvh: BVH, o, t_max: float | None) -> float:
         if t_max is None:
             t_max = default_t_max(bvh, o)
         self.t_max = float(t_max)
@@ -382,16 +423,52 @@ class PulseLadderTraverser:
         return PulseLadders(((put(p), put(c)) for p, c in buckets),
                             uncovered)
 
+    def cull(self, bvh: BVH, origin, direction, t_max: float, *,
+             narrow_only: bool = False):
+        """K5's lists (`kernels/cull.py::CullLists`) of the rays' pulse
+        groups on the traverser's device; with ``narrow_only``, None when
+        a group's cone is too wide to cull (one host read)."""
+        put = lambda a: torch.as_tensor(a).to(
+            self.device, torch.float32).reshape(-1, 3).contiguous()
+        res = cull_rays(self.nodes(bvh), put(origin), put(direction),
+                        self.kernel_rays, t_max, CAND_BLOCK,
+                        narrow_only=narrow_only)
+        return None if res is None else res[0]
+
     def prepare(self, bvh: BVH, origin, direction,
                 t_max: float | None = None):
-        """Host cull for one chunk: ((pidx, cand) per bucket) on the
+        """The cull for one chunk: ((pidx, cand) per bucket) on the
         traverser's device, in the rays' own order (so no uncovered range
         is named).  Sets ``self.t_max``."""
-        o = np.asarray(as_numpy(origin), np.float32).reshape(-1, 3)
-        d = np.asarray(as_numpy(direction), np.float32).reshape(-1, 3)
-        t_max = self._resolve_t_max(bvh, o, t_max)
-        return self.upload(build_pulse_ladders(bvh, o, d, self.kernel_rays,
-                                               t_max=t_max))
+        t_max = self._resolve_t_max(bvh, origin, t_max)
+        lists = self.cull(bvh, origin, direction, t_max)
+        return PulseLadders(ladders_from_lists(lists,
+                                               lists.counts.shape[0]))
+
+    def prepare_permuted(self, bvh: BVH, origin, direction,
+                         t_max: float | None = None, *,
+                         narrow_only: bool = False):
+        """The cull for one chunk in the JAX package's bucket-contiguous
+        order, all on the device: ``(gperm, ladders)``, ``gperm`` the
+        pulse permutation (a group's pulses stay together) to apply to the
+        rays, ``ladders`` a `PulseLadders` renumbered to it with the range
+        of groups in no bucket (the order `Simulator` and the bench scan
+        in).  With ``narrow_only``, None when a cone is too wide to cull.
+        Sets ``self.t_max``."""
+        t_max = self._resolve_t_max(bvh, origin, t_max)
+        lists = self.cull(bvh, origin, direction, t_max,
+                          narrow_only=narrow_only)
+        if lists is None:
+            return None
+        P = lists.counts.shape[0]
+        perm, layout = permute_ladders_torch(lists, P)
+        grp = self.group
+        gperm = perm if grp == 1 else (
+            perm[:, None] * grp
+            + torch.arange(grp, device=perm.device)[None, :]).reshape(-1)
+        return gperm, PulseLadders(
+            renumber_ladders_torch(ladders_from_lists(lists, P), perm),
+            uncovered_groups(layout, P))
 
     def prepare_sharded(self, bvh: BVH, origin, direction, mesh,
                         t_max: float | None = None) -> PulseLadders:

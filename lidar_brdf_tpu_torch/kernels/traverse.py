@@ -2,11 +2,14 @@
 
 Counterpart of `lidar_brdf_tpu/kernels/traverse_pallas.py`.
 
-* Host half (`TileTraverser.prepare`): BSP-ordered rays are cut into tiles
-  of ``tile_rays``; the beam cull (`geom/beamcull.py`) builds per-tile
-  candidate lists sorted near to far, grouped into power-of-two buckets;
-  `bucket_bounds` gives every block of 8 candidates a conservative lower
-  bound on the hit distance.
+* Cull half (`TileTraverser.prepare`): BSP-ordered rays are cut into tiles
+  of ``tile_rays``; each tile's beam (`geom/beamcull.py::tile_beams_torch`)
+  is culled on the rays' device by K5 (`kernels/cull.py::beam_cull`) into a
+  candidate list sorted near to far; `buckets_from_lists` groups the lists
+  into power-of-two buckets and `bucket_bounds_torch` gives every block of
+  8 candidates a conservative lower bound on the hit distance, as the host
+  functions `build_bucketed_candidates` and `TileTraverser.bucket_bounds`
+  do.
 * Device half (`tile_traverse`): the nearest (t, face) of every ray of
   every tile against the tile's candidates, all buckets in one call.  On a
   CUDA tensor it launches `csrc/tile_traverse.cu` once over the work list
@@ -24,10 +27,11 @@ import numpy as np
 import torch
 
 from ..core.types import BVH, Hit, TriangleScene, as_numpy, resolve_device
-from ..geom.beamcull import (beams_are_narrow, build_bucketed_candidates,
-                             tile_beams, wald_rows_np)
+from ..geom.beamcull import (_next_pow2, beams_are_narrow, tile_beams,
+                             wald_rows_np)
 from ..geom.intersect import BIG, EPSILON
 from .cuda_build import CudaLibrary, check_tensor, raw_stream
+from .cull import NodeCache, bucket_rows, cull_rays, readback
 
 LANES = 128          # tile_rays granularity: one K1 unit of 128 rays,
 GROUPS = 4           # K1 (csrc/tile_traverse.cu): units of a block,
@@ -242,22 +246,81 @@ def wald_t_m_plain(wald, o, d, ids, tm):
 def default_t_max(bvh: BVH, origin) -> float:
     """The kernels' far bound when the caller gives none: the scene's
     diagonal, plus the farthest origin's distance from the scene's box,
-    plus 1 (the JAX package's rule, in float32 as there)."""
-    nmin = np.asarray(bvh.node_min)[0]
-    nmax = np.asarray(bvh.node_max)[0]
-    o = np.asarray(as_numpy(origin), np.float32).reshape(-1, 3)
-    far = np.linalg.norm(o - np.clip(o, nmin, nmax), axis=-1).max()
+    plus 1 (the JAX package's rule, in float32 as there).  Origins in a
+    tensor stay on its device: only the farthest distance is read back
+    (`kernels/cull.py::readback`)."""
+    nmin = np.asarray(as_numpy(bvh.node_min), np.float32)[0]
+    nmax = np.asarray(as_numpy(bvh.node_max), np.float32)[0]
+    if isinstance(origin, torch.Tensor):
+        o = origin.detach().reshape(-1, 3).float()
+        lo, hi = (torch.from_numpy(x).to(o.device) for x in (nmin, nmax))
+        q = o - torch.minimum(torch.maximum(o, lo), hi)
+        far = np.float32(readback(torch.sqrt(
+            (q[:, 0] * q[:, 0] + q[:, 1] * q[:, 1]) + q[:, 2] * q[:, 2]).max()))
+    else:
+        o = np.asarray(origin, np.float32).reshape(-1, 3)
+        far = np.linalg.norm(o - np.clip(o, nmin, nmax), axis=-1).max()
     return float(np.linalg.norm(nmax - nmin) + far + 1.0)
 
 
+def buckets_from_lists(lists, n_tiles: int):
+    """`geom/beamcull.py::build_bucketed_candidates`'s (tidx, cand) buckets
+    from a cull's lists (`kernels/cull.py::CullLists`, made with the
+    buckets' ``pad_to``), on their device with no host read: one bucket per
+    padded size in ascending order, its tiles in ascending id, the rows
+    rounded up to a power of two (dummy rows: tidx = ``n_tiles``, no
+    candidates)."""
+    return bucket_rows(lists, _next_pow2, n_tiles)
+
+
+def bucket_bounds_torch(face_box: torch.Tensor, buckets, beams) -> tuple:
+    """`TileTraverser.bucket_bounds` on the buckets' device: per block of 8
+    candidates, the axis-projected near distance of the faces' boxes minus
+    the tile's origin radius, made a monotone suffix minimum, in float64
+    and rounded to f32.  ``face_box`` (F, 6) f64 [min max] of each face's
+    leaf (`TileTraverser.face_boxes`); ``beams`` the tiles' float64
+    `TileBeams` of tensors."""
+    T = beams.center.shape[0]
+    out = []
+    for tidx, cand in buckets:
+        B, C = cand.shape
+        t = torch.clamp(tidx.long(), max=T - 1)
+        c, a = beams.center[t][:, None, :], beams.axis[t][:, None, :]
+        real = cand >= 0
+        box = face_box[torch.clamp(cand.long(), min=0)]
+        zero = torch.zeros((), dtype=torch.float64, device=cand.device)
+        proj, slack = [], []
+        for i in range(3):
+            mid = torch.where(real, (box[..., i] + box[..., 3 + i]) * 0.5,
+                              zero)
+            ext = torch.where(real, (box[..., 3 + i] - box[..., i]) * 0.5,
+                              zero)
+            proj.append((mid - c[..., i]) * a[..., i])
+            slack.append(ext * torch.abs(a[..., i]))
+        d_near = torch.maximum(
+            ((proj[0] + proj[1]) + proj[2]) - ((slack[0] + slack[1])
+                                               + slack[2])
+            - beams.radius[t][:, None], zero)
+        d_near = torch.where(real, d_near, torch.full_like(d_near, np.inf))
+        bnd = d_near.reshape(B, C // CAND_BLOCK, CAND_BLOCK).amin(dim=2)
+        bnd = torch.flip(torch.cummin(torch.flip(bnd, [1]), dim=1).values,
+                         [1])
+        out.append(bnd.to(torch.float32).contiguous())
+    return tuple(out)
+
+
 class TileTraverser:
-    """Scene-bound tile traverser: host prep + device call.
+    """Scene-bound tile traverser: the cull on the device, then K1.
 
     Usage::
 
         tr = TileTraverser(scene, tile_rays=640, device="cuda")
-        data = tr.prepare(bvh, origins_np, directions_np)   # host, per chunk
-        hits = tr(origin, direction, data)                  # device
+        data = tr.prepare(bvh, origins, directions)   # K5, per chunk
+        hits = tr(origin, direction, data)             # K1
+
+    The BVH's node records are packed on the device once per BVH
+    (``nodes``) and kept; a `Simulator` hands the same pack to its packet
+    walk.
     """
 
     def __init__(self, scene: TriangleScene, *, tile_rays: int = 640,
@@ -269,6 +332,8 @@ class TileTraverser:
         self.wald = torch.from_numpy(wald_rows_np(
             as_numpy(scene.vertices), as_numpy(scene.faces))).to(self.device)
         self.t_max = None
+        self.nodes = NodeCache(self.device)
+        self._face_box = (None, None)
 
     def _pad_np(self, origin, direction):
         o = np.asarray(as_numpy(origin), np.float32).reshape(-1, 3)
@@ -279,18 +344,60 @@ class TileTraverser:
             d = np.concatenate([d, np.zeros((pad, 3), np.float32)])
         return o, d
 
+    def _pad(self, origin, direction):
+        """Rays as (N, 3) f32 tensors on the traverser's device, padded
+        with zero-direction rays to whole tiles."""
+        put = lambda a: torch.as_tensor(a).to(
+            self.device, torch.float32).reshape(-1, 3)
+        o, d = put(origin), put(direction)
+        pad = (-o.shape[0]) % self.tile_rays
+        if pad:
+            o = torch.cat([o, o.new_zeros((pad, 3))])
+            d = torch.cat([d, d.new_zeros((pad, 3))])
+        return o.contiguous(), d.contiguous()
+
     def beams_ok(self, origin, direction) -> bool:
         o, d = self._pad_np(origin, direction)
         return beams_are_narrow(tile_beams(o, d, self.tile_rays))
 
+    def face_boxes(self, bvh: BVH) -> torch.Tensor:
+        """(F, 6) f64 [min max] of each face's leaf box, from the node
+        records on the device (kept per BVH): `bucket_bounds`' boxes."""
+        if self._face_box[0] is not bvh:
+            box, _, face = self.nodes(bvh)
+            F = self.wald.shape[0]
+            idx = torch.where(face >= 0, face.long(),
+                              torch.full_like(face, F, dtype=torch.int64))
+            fb = torch.zeros((F + 1, 6), dtype=torch.float64,
+                             device=self.device)
+            fb[idx] = box.double()          # internal nodes land in row F
+            self._face_box = (bvh, fb[:F])
+        return self._face_box[1]
+
+    def cull(self, bvh: BVH, origin, direction, t_max: float | None = None,
+             *, pad_to: int = CAND_BLOCK, narrow_only: bool = False):
+        """(lists, beams) of the rays' tiles on the device: K5's
+        `CullLists` (padded sizes of ``pad_to``) and the float64 beams.
+        ``t_max`` None is `_collect_candidates`' rule (one host read).
+        With ``narrow_only``, None when a tile's beam is too wide to cull
+        (`beams_are_narrow`; one host read)."""
+        o, d = self._pad(origin, direction)
+        return cull_rays(self.nodes(bvh), o, d, self.tile_rays, t_max,
+                         pad_to, narrow_only=narrow_only)
+
     def build_buckets(self, bvh: BVH, origin, direction,
                       t_max: float | None = None):
-        o, d = self._pad_np(origin, direction)
-        return build_bucketed_candidates(bvh, o, d, tile_rays=self.tile_rays,
-                                         t_max=t_max, pad_to=CAND_BLOCK)
+        """The (tidx, cand) buckets of `prepare` as host arrays (the JAX
+        package's interface; the same values as
+        `build_bucketed_candidates` with ``pad_to=8``)."""
+        lists, beams = self.cull(bvh, origin, direction, t_max)
+        return tuple((t.cpu().numpy(), c.cpu().numpy()) for t, c in
+                     buckets_from_lists(lists, beams.center.shape[0]))
 
     def bucket_bounds(self, bvh: BVH, buckets, origin, direction) -> tuple:
-        """Per-candidate-block lower distance bounds (B, C//8) per bucket.
+        """Per-candidate-block lower distance bounds (B, C//8) per bucket,
+        on the host (the JAX package's interface; `bucket_bounds_torch` is
+        the device version `prepare` takes).
 
         Bound: axis-projected near distance of the face AABB minus the tile
         origin radius (conservative: any hit on that face has ray-t >= it),
@@ -325,26 +432,22 @@ class TileTraverser:
         return tuple(out)
 
     def prepare(self, bvh: BVH, origin, direction,
-                t_max: float | None = None):
-        """Host prep for one chunk: ((tidx, cand, bnd) per bucket) on the
-        traverser's device.  Sets ``self.t_max``."""
-        return self.pack_buckets(
-            bvh, self.build_buckets(bvh, origin, direction, t_max=t_max),
-            origin, direction, t_max)
-
-    def pack_buckets(self, bvh: BVH, buckets, origin, direction,
-                     t_max: float | None = None):
-        """Host (tidx, cand) buckets of `build_buckets` -> ((tidx, cand,
-        bnd) per bucket) on the traverser's device, with the kernel's
-        ``t_max`` (None: resolved from ``origin``).  Sets ``self.t_max``."""
-        if t_max is None:
-            t_max = default_t_max(bvh, origin)
-        self.t_max = float(t_max)
-        bounds = self.bucket_bounds(bvh, buckets, origin, direction)
-        put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(
-            self.device, non_blocking=True)
-        return tuple((put(t), put(c), put(b))
-                     for (t, c), b in zip(buckets, bounds))
+                t_max: float | None = None, *, narrow_only: bool = False):
+        """The cull for one chunk on the traverser's device: ((tidx, cand,
+        bnd) per bucket), from K5's lists (`cull`, `buckets_from_lists`,
+        `bucket_bounds_torch`).  Sets ``self.t_max`` (None: resolved from
+        ``origin``, `default_t_max`).  With ``narrow_only``, None when a
+        tile's beam is too wide to cull."""
+        res = self.cull(bvh, origin, direction, t_max,
+                        narrow_only=narrow_only)
+        if res is None:
+            return None
+        lists, beams = res
+        buckets = buckets_from_lists(lists, beams.center.shape[0])
+        bounds = bucket_bounds_torch(self.face_boxes(bvh), buckets, beams)
+        self.t_max = float(default_t_max(bvh, origin) if t_max is None
+                           else t_max)
+        return tuple((t, c, b) for (t, c), b in zip(buckets, bounds))
 
     def __call__(self, origin, direction, traverse_data) -> Hit:
         shape = origin.shape[:-1]

@@ -20,7 +20,7 @@ Properties of the reference that the port keeps:
   0, so every shard draws its noise from ray index 0, not from its global
   offset (JAX `shard.py:142-146`);
 * two ``t_max`` rules: the tile path resolves it per shard (the cull of the
-  shard's own rays, `build_sharded_buckets`), the ladder path over every
+  shard's own rays, `TileTraverser.prepare`), the ladder path over every
   rank's pulses (`PulseLadderTraverser.prepare_sharded`, a MAX over ranks);
 * the face-pack gate ``F <= P * L`` sees the rank's own ``P``.
 """
@@ -112,24 +112,24 @@ def replicate(tree, mesh: RayMesh):
 def build_sharded_buckets(traverser, bvh, rays: RayBundle,
                           t_max: float | None = None):
     """The host (tidx, cand) buckets of a tile traverser for this rank's
-    ``rays`` (tile ids local to the shard); ``t_max`` None is resolved from
-    the shard's own rays, as each JAX shard's cull resolves it."""
+    ``rays`` (tile ids local to the shard), culled on the traverser's
+    device; ``t_max`` None is resolved from the shard's own rays, as each
+    JAX shard's cull resolves it."""
     return traverser.build_buckets(bvh, rays.origin, rays.direction,
                                    t_max=t_max)
 
 
 def build_sharded_traverse_data(traverser, bvh, rays: RayBundle,
                                 mesh: RayMesh, t_max: float | None = None):
-    """This rank's traverse data on the traverser's device: the ladders of
-    ``prepare_sharded`` for a traverser that has it
-    (`PulseLadderTraverser`), else the tile buckets of
-    `build_sharded_buckets` with their bounds (`TileTraverser`)."""
+    """This rank's traverse data on the traverser's device, culled there
+    (K5): the ladders of ``prepare_sharded`` for a traverser that has it
+    (`PulseLadderTraverser`), else the tile buckets and bounds of its
+    ``prepare`` (`TileTraverser`; ``t_max`` None is resolved from the
+    shard's own rays)."""
     if hasattr(traverser, "prepare_sharded"):
         return traverser.prepare_sharded(bvh, rays.origin, rays.direction,
                                          mesh, t_max=t_max)
-    return traverser.pack_buckets(
-        bvh, build_sharded_buckets(traverser, bvh, rays, t_max),
-        rays.origin, rays.direction, t_max)
+    return traverser.prepare(bvh, rays.origin, rays.direction, t_max=t_max)
 
 
 def shard_traverse_data(data, mesh: RayMesh):

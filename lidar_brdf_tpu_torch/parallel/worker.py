@@ -44,7 +44,7 @@ from ..core.config import LiDARType, SensorConfig, ShadingMode
 from ..core.types import RayBundle, as_numpy, resolve_device
 from ..geom.packet import make_packet_traverser
 from ..io import native
-from ..kernels import packet, pulse, traverse
+from ..kernels import cull, packet, pulse, traverse
 from ..kernels.pulse import PulseLadderTraverser
 from ..kernels.traverse import TileTraverser, default_t_max
 from ..physics.returns import SimScalars
@@ -72,7 +72,8 @@ WORKLOADS = {
 }
 TILE_PULSES = 64             # pulses of a K1 tile (the bench's block)
 LEAVES = ("refractive_index", "roughness", "brdf_table", "reflectivity_f0")
-KERNELS = {"K1": traverse.KERNEL, "K2": pulse.KERNEL, "K4": packet.KERNEL}
+KERNELS = {"K1": traverse.KERNEL, "K2": pulse.KERNEL, "K4": packet.KERNEL,
+           "K5": cull.KERNEL}
 
 
 def write_replicated(path: str, scene, bvh, materials) -> None:
@@ -222,6 +223,8 @@ def run_workload(name: str, mesh, replicated, total: int, lo: int, hi: int,
                steps={}, traverse={})
     summary = dict(lo=lo, hi=hi, total=total, paths={})
     for path in spec["paths"]:
+        for lib in KERNELS.values():
+            lib.launches = 0
         t0 = time.perf_counter()
         if path == "packet":
             fn, data, pk = None, None, make_packet_traverser(scene, bvh)
@@ -234,15 +237,17 @@ def run_workload(name: str, mesh, replicated, total: int, lo: int, hi: int,
                     fn, bvh, rays, mesh,
                     t_max=t_max if path == "ladder" else None), mesh)
             pk = None
+        _sync(dev)
         prep_s = time.perf_counter() - t0
+        prep_launches = {k: lib.launches for k, lib in KERNELS.items()}
         res["traverse"][path] = (fn, data, pk)
         fwd = shard.sharded_forward(mesh, cfg, traverse_fn=fn, packet_fn=pk)
         cloud, launches, first_ms, ms = _timed(
             lambda: fwd(scene, materials, rays, noise, scalars, data), dev)
         res["clouds"][path] = cloud
         summary["paths"][path] = dict(
-            prep_s=prep_s, fwd_first_ms=first_ms, fwd_ms=ms,
-            fwd_launches=launches,
+            prep_s=prep_s, prep_launches=prep_launches,
+            fwd_first_ms=first_ms, fwd_ms=ms, fwd_launches=launches,
             points=int(cloud.mask.sum()),
             t_max=None if fn is None else fn.t_max)
     for path, grad_params in spec["steps"]:

@@ -21,7 +21,7 @@ from dataclasses import dataclass, field
 import torch
 
 # Stage names mirror the reference's PipelineMetrics enum
-# (`PipelineMetrics.h:19-30`); TRAVERSE_PREP is the host cull, which has no
+# (`PipelineMetrics.h:19-30`); TRAVERSE_PREP is the beam cull, which has no
 # reference counterpart (the reference traverses per ray on the GPU).
 STAGES = ["RAY_BUILDING", "TRAVERSE_PREP", "FIND_COLLISION", "REDUCE",
           "INTENSITY", "READ", "WRITE", "TOTAL"]

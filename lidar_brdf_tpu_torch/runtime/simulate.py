@@ -1,11 +1,12 @@
 """Simulation orchestrator (counterpart of `lidar_brdf_tpu/runtime/simulate.py`).
 
 `simulate_chunk` maps one chunk of pulses to a dense PointCloud on the
-compute device; `Simulator.run` streams power-of-two chunks, culls chunk
-i+1 on a worker thread while chunk i runs on the device, reads each chunk
-back (compacted on the card: the count, then the valid rows) and
-concatenates the clouds on the host (the reference's `arePendingRays`
-batching, RayBuilder.cpp:248-262).  Repeat scans of the same rays reuse
+compute device; `Simulator.run` streams power-of-two chunks, slices
+chunk i+1 on a worker thread while chunk i runs on the device, uploads
+each chunk and culls it on the device (K5), reads each chunk back
+(compacted on the card: the count, then the valid rows) and concatenates
+the clouds on the host (the reference's `arePendingRays` batching,
+RayBuilder.cpp:248-262).  Repeat scans of the same rays reuse
 culled ladders and buckets kept on the device, the BSP order and the
 per-chunk point counts; `Simulator.benchmark` times the stages.
 """
@@ -28,9 +29,7 @@ from ..core.types import (BVH, MaterialTable, PointCloud, RayBundle,
                           concat_pointclouds, pack_compact, resolve_device,
                           unpack_compact)
 from ..geom.packet import make_packet_traverser
-from ..kernels.pulse import (PulseLadderTraverser, build_pulse_ladders,
-                             permute_pulse_ladders, renumber_pulse_ladders,
-                             uncovered_groups)
+from ..kernels.pulse import PulseLadderTraverser
 from ..kernels.traverse import TileTraverser
 from ..physics.returns import (SimScalars, final_winner_origins,
                                simulate_returns)
@@ -215,27 +214,32 @@ def _to_host(t: torch.Tensor) -> torch.Tensor:
 class Simulator:
     """Bind scene + config; stream chunks of pulses through the device.
 
-    Three traversals.  With the host cull (``use_culled``, the default),
-    two, chosen by `pick_pulse_ladders` (``use_pulse``):
+    Three traversals.  With the beam cull (``use_culled``, the default),
+    two, chosen by `pick_pulse_ladders` (``use_pulse``).  Each chunk is
+    uploaded first and culled on the device by the CUDA kernel K5
+    (`kernels/cull.py`; its plain version on ``cpu``):
 
     * tile path (scenes of up to 100k faces): pulses are BSP-reordered into
-      coherent 640-ray tiles, the host culls per-chunk candidate buckets,
-      and the CUDA tile kernel K1 (its plain version on ``cpu``) intersects
+      coherent 640-ray tiles, culled into per-chunk candidate buckets, and
+      the CUDA tile kernel K1 (its plain version on ``cpu``) intersects
       them;
-    * pulse path (larger scenes): no reorder; the host culls each pulse
-      group's cone into a candidate ladder (`kernels/pulse.py`) and the
-      CUDA ladder kernel K2 (its plain version on ``cpu``) intersects them.
+    * pulse path (larger scenes): no reorder; each pulse group's cone is
+      culled into a candidate ladder (`kernels/pulse.py`) and the CUDA
+      ladder kernel K2 (its plain version on ``cpu``) intersects them.
       Each chunk's pulses are put in bucket-contiguous order
-      (`permute_pulse_ladders`) before upload, so every pulse sits in the
-      slot, and draws the noise, it has in the JAX package's `Simulator`.
+      (`PulseLadderTraverser.prepare_permuted`) on the device, so every
+      pulse sits in the slot, and draws the noise, it has in the JAX
+      package's `Simulator`.
 
     The third is the packet walk over the whole tree (`geom/packet.py`, the
     CUDA kernel K4 on the card): every chunk with ``use_culled=False`` (no
-    reorder, no host cull), a chunk whose tile beams or pulse cones are too
+    reorder, no cull), a chunk whose tile beams or pulse cones are too
     wide to cull, and the refracted bounce levels of water scenes and of
     bathymetric mode (level 0 stays culled: the hybrid).  The scene is
-    packed for it once, at its first use.  ``traverse_fn(origin,
-    direction) -> Hit``, a caller's traversal, replaces all three: no
+    packed for it once, at its first use; the BVH's node records are one
+    pack on the device, shared by the cull and the walk.
+    ``traverse_fn(origin, direction) -> Hit``, a caller's traversal,
+    replaces all three: no
     reorder, no cull, every level on it.  ``reorder`` (None = auto: on the
     culled tile path) BSP-orders the pulses; ``noise_buf`` overrides the
     sim-noise buffer (tests pass the JAX one).
@@ -335,9 +339,13 @@ class Simulator:
 
     def packet_walk(self):
         """The packet walk over the scene (`make_packet_traverser`): packed
-        at the first call, then kept in ``packet_fn``."""
+        at the first call (the node records the culled traverser's, when
+        there is one), then kept in ``packet_fn``."""
         if self.packet_fn is None:
-            self.packet_fn = make_packet_traverser(self.scene, self.bvh)
+            nodes = (None if self.traverser is None
+                     else self.traverser.nodes(self.bvh))
+            self.packet_fn = make_packet_traverser(self.scene, self.bvh,
+                                                   nodes=nodes)
         return self.packet_fn
 
     def run_chunk(self, rays: RayBundle, base_ray_index: int, traverse_data,
@@ -359,86 +367,88 @@ class Simulator:
             traverse_fn=fn, traverse_data=traverse_data,
             packet_fn=self.packet_walk() if walk else None)
 
-    def _cull(self, sl: dict):
-        """(slice, traverse data) of a padded host slice: the data is None
+    def _cull(self, dev: RayBundle):
+        """(rays, traverse data) of a chunk's device rays: the data is None
         for the packet walk (no cull, or tile beams or pulse cones too wide
-        to cull); the pulse path returns the slice permuted."""
-        o, d = sl["origin"], sl["direction"]
-        if not (self.use_culled and self.traverser.beams_ok(o, d)):
-            return sl, None
-        if self.use_pulse:
-            return self._prep_pulse(sl)
-        return sl, self.traverser.prepare(self.bvh, o, d, t_max=self.t_max)
+        to cull); the pulse path returns the rays permuted on the device
+        (`PulseLadderTraverser.prepare_permuted`, as the JAX package's
+        `_prep_slice` orders them, runtime/simulate.py:741-768: it needs
+        that order to replace TPU scatter by slices; K2 writes through
+        ``pidx``, so here it only keeps every pulse in the JAX package's
+        slot)."""
+        if not self.use_culled:
+            return dev, None
+        o, d = dev.origin, dev.direction
+        if not self.use_pulse:
+            return dev, self.traverser.prepare(self.bvh, o, d,
+                                               t_max=self.t_max,
+                                               narrow_only=True)
+        res = self.traverser.prepare_permuted(self.bvh, o, d,
+                                              t_max=self.t_max,
+                                              narrow_only=True)
+        if res is None:
+            return dev, None
+        gperm, data = res
+        return RayBundle(**{k: getattr(dev, k)[gperm] for k in
+                            ("origin", "direction", "gps_time")}), data
 
     def _upload(self, sl: dict) -> RayBundle:
-        """A host slice as the chunk's device RayBundle.  Called on the
-        worker thread: the copies queue on the default stream, the one
-        the chunks run on."""
+        """A host slice as the chunk's device RayBundle."""
         return RayBundle(**{k: torch.from_numpy(np.ascontiguousarray(v)).to(
             self.device, non_blocking=True) for k, v in sl.items()})
 
-    def _prep(self, rays: dict, lo: int, hi: int, chunk: int, metrics=None):
-        """Host cull for one padded chunk (worker thread: numpy and the
-        native OpenMP culler release the GIL).  Returns the chunk's device
-        RayBundle, its traverse data (None for the packet walk: without
-        the cull, or where the chunk's tile beams or pulse cones are too
-        wide to cull) and the seconds taken.  With ``metrics`` the cull
-        and upload are a TRAVERSE_PREP stage."""
-        t0 = time.perf_counter()
-        sl = _pad_slice(rays, lo, hi, chunk)
+    def _prep_slice(self, sl: dict, metrics=None):
+        """Upload a padded host slice and cull it on the device: (device
+        rays, traverse data; None for the packet walk).  The card's work is
+        waited for, so that the time taken is the cull's alone.  With
+        ``metrics`` it is a TRAVERSE_PREP stage."""
         stage = (metrics.stage("TRAVERSE_PREP")
                  if metrics is not None and self.use_culled
                  else contextlib.nullcontext())
         with stage:
-            sl, data = self._cull(sl)
-            dev = self._upload(sl)
+            dev, data = self._cull(self._upload(sl))
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        return dev, data
+
+    def _prep(self, rays: dict, lo: int, hi: int, chunk: int, metrics=None):
+        """Upload and cull one padded chunk: its device RayBundle, its
+        traverse data (None for the packet walk: without the cull, or where
+        the chunk's tile beams or pulse cones are too wide to cull) and
+        the seconds taken."""
+        t0 = time.perf_counter()
+        dev, data = self._prep_slice(_pad_slice(rays, lo, hi, chunk),
+                                     metrics)
         return dev, data, time.perf_counter() - t0
 
-    def _prep_cached(self, rays: dict, lo: int, hi: int, chunk: int,
-                     key: str | None, metrics=None):
-        """`_prep` through the ladder cache: (device rays, data, cull
-        seconds, key seconds).  ``key`` (the tile path's ``run_key:lo:hi:
-        chunk``) is looked up before the slice is cut; without one the
-        padded slice is hashed (the pulse path).  Only culled chunks are
-        cached (JAX runtime/simulate.py:709-783)."""
-        t0 = time.perf_counter()
+    def _host_slice(self, rays: dict, lo: int, hi: int, chunk: int,
+                    key: str | None):
+        """The host half of a chunk's prep (the worker thread): (padded
+        slice, ladder-cache key, seconds hashing).  ``key`` (the tile
+        path's ``run_key:lo:hi:chunk``) is kept; without one the padded
+        slice is hashed (the pulse path).  No key without the cache."""
+        sl = _pad_slice(rays, lo, hi, chunk)
         if not (self.cache_ladders and self.use_culled):
-            return (*self._prep(rays, lo, hi, chunk, metrics), 0.0)
-        cache = self._ladder_cache
-        key_s = 0.0
-        if key is None:
-            sl = _pad_slice(rays, lo, hi, chunk)
-            key = self._chunk_key(sl["origin"], sl["direction"])
-            key_s = time.perf_counter() - t0
-        hit = cache.get(key)
-        if hit is not None:
-            return (*hit, time.perf_counter() - t0 - key_s, key_s)
-        dev, data, _ = self._prep(rays, lo, hi, chunk, metrics)
-        if data is not None:
-            _put(cache, key, (dev, data), self.cache_ladders_max)
-        return dev, data, time.perf_counter() - t0 - key_s, key_s
+            return sl, None, 0.0
+        if key is not None:
+            return sl, key, 0.0
+        t0 = time.perf_counter()
+        key = self._chunk_key(sl["origin"], sl["direction"])
+        return sl, key, time.perf_counter() - t0
 
-    def _prep_pulse(self, sl: dict):
-        """Pulse-path cull of a padded host slice, as the JAX package's
-        `_prep_slice` does it (runtime/simulate.py:741-768): ladders, then
-        the bucket-contiguous pulse order, expanded by the group and applied
-        to the slice before upload.  The JAX package needs that order to
-        replace TPU scatter by slices (`PermutedLayout`, one executable per
-        layout); K2 writes through ``pidx``, so here it only keeps every
-        pulse in the JAX package's slot, and the buckets are renumbered to
-        the new order instead."""
-        tr = self.traverser
-        R = tr.kernel_rays
-        o2 = sl["origin"].reshape(-1, 3)
-        raw = build_pulse_ladders(self.bvh, o2, sl["direction"].reshape(-1, 3),
-                                  R, t_max=self.t_max)
-        perm, layout = permute_pulse_ladders(raw, o2.shape[0] // R)
-        grp = tr.group
-        gperm = perm if grp == 1 else (
-            (perm[:, None] * grp + np.arange(grp)[None, :]).reshape(-1))
-        sl = {k: v[gperm] for k, v in sl.items()}
-        return sl, tr.upload(renumber_pulse_ladders(raw, perm),
-                             uncovered_groups(layout, perm.shape[0]))
+    def _prep_cached(self, sl: dict, key: str | None, metrics=None):
+        """`_prep_slice` through the ladder cache: (device rays, data, cull
+        seconds).  A hit skips the upload and the cull; only culled chunks
+        are cached (JAX runtime/simulate.py:709-783)."""
+        t0 = time.perf_counter()
+        hit = None if key is None else self._ladder_cache.get(key)
+        if hit is not None:
+            return (*hit, time.perf_counter() - t0)
+        dev, data = self._prep_slice(sl, metrics)
+        if data is not None and key is not None:
+            _put(self._ladder_cache, key, (dev, data),
+                 self.cache_ladders_max)
+        return dev, data, time.perf_counter() - t0
 
     def _chunk_key(self, origin: np.ndarray, direction: np.ndarray) -> str:
         """Content key of rays (the scene and BVH are bound to this
@@ -477,8 +487,9 @@ class Simulator:
         re-binds the material tables for this run (the reference's
         per-wavelength re-bind, `LiDARSimulation.cpp:303,428-437`).
         ``stats``, when given, accumulates seconds of host gather, BSP
-        reorder and ray-content keys (``order_s``), host cull and upload
-        (``cull_s``; a ladder-cache hit culls nothing), device work
+        reorder and ray-content keys (``order_s``), the slice's upload and
+        cull on the device, to a synchronize (``cull_s``; a ladder-cache
+        hit culls nothing), device work
         (``device_s``, host clock to a synchronize; with
         ``compact_readback`` the packing too, and a count hint's queued
         copy), readback (``readback_s``) and the bytes read back
@@ -520,17 +531,17 @@ class Simulator:
 
         def prep(lo, hi):
             key = None if run_key is None else f"{run_key}:{lo}:{hi}:{chunk}"
-            return pool.submit(self._prep_cached, host, lo, hi, chunk, key,
-                               metrics)
+            return pool.submit(self._host_slice, host, lo, hi, chunk, key)
 
         with ThreadPoolExecutor(max_workers=1) as pool:
             fut = prep(*spans[0][1:]) if spans else None
             for k, (ci, lo, hi) in enumerate(spans):
-                sl, data, cull_s, key_s = fut.result()
-                timing["cull_s"] += cull_s
+                sl, key, key_s = fut.result()
                 timing["order_s"] += key_s
-                if k + 1 < len(spans):       # cull the next chunk meanwhile
+                if k + 1 < len(spans):       # slice the next chunk meanwhile
                     fut = prep(*spans[k + 1][1:])
+                sl, data, cull_s = self._prep_cached(sl, key, metrics)
+                timing["cull_s"] += cull_s
                 hint_key = None if run_key is None else (run_key, lo, hi)
                 stage = (metrics.stage("TOTAL") if metrics is not None
                          else contextlib.nullcontext())
@@ -584,7 +595,8 @@ class Simulator:
 
         On the first ``cfg.chunk_pulses`` pulses, ``num_execs`` times:
         RAY_BUILDING (the slice, BSP-ordered with ``reorder``),
-        TRAVERSE_PREP (the host cull; with the cull only), FIND_COLLISION
+        TRAVERSE_PREP (the cull on the device; with the cull only),
+        FIND_COLLISION
         (the culled traverser, else the packet walk), REDUCE
         (`simulate_returns` on those hits) and INTENSITY (`shade_records`;
         both skipped on water and bathymetric scans, whose bounce levels
@@ -607,10 +619,10 @@ class Simulator:
                     order = bsp_order(RayBundle(**sl), self.block_pulses)
                     sl = {k: v[order] for k, v in sl.items()}
             data = None
-            if self.use_culled:
-                with metrics.stage("TRAVERSE_PREP"):
-                    sl, data = self._cull(sl)
             rs = self._upload(sl)
+            if self.use_culled:
+                with metrics.stage("TRAVERSE_PREP", sync=rs.origin):
+                    rs, data = self._cull(rs)
             with metrics.stage("FIND_COLLISION") as m:
                 if data is not None:
                     hits = self.traverser(rs.origin, rs.direction, data)

@@ -199,8 +199,7 @@ def test_culled_traverser_is_bit_equal_to_the_tile_traverser(case):
     _, _, tscene, ttree, o, d = case
     ttr = tbc.CulledTraverser(tscene, tile_rays=TILE, chunk=8, device="cpu")
     buckets = ttr.prepare(ttree, o, d)
-    dev = tuple((torch.from_numpy(t), torch.from_numpy(c),
-                 torch.zeros((c.shape[0], c.shape[1] // 8)))
+    dev = tuple((t, c, torch.zeros((c.shape[0], c.shape[1] // 8)))
                 for t, c in buckets)
     want_t, want_f = ktr.tile_traverse_plain(
         ttr.wald, torch.from_numpy(o), torch.from_numpy(d), dev, BIG, TILE)

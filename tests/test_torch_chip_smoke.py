@@ -121,7 +121,8 @@ def test_chip_smoke_water_and_packet_walk_on_cpu(monkeypatch, capsys):
     assert rays.num_pulses == 2048 and rays.rays_per_pulse == 10
     launches, res, levels, _ = chip_smoke.phase_water(water)
     assert res["bottom_returns"] > 0 and res["surface_returns"] > 0
-    assert res["rays"] == 2048 * 10 and set(launches) == {"K1", "K2", "K4"}
+    assert res["rays"] == 2048 * 10 and set(launches) == {"K1", "K2", "K4",
+                                                          "K5"}
     assert len(levels) == 2 and len(res["active_share"]) == 2
     for packed, o1, d1, a1 in levels:
         assert o1.shape == d1.shape == (1024 * 10, 3)
@@ -221,6 +222,46 @@ def test_chip_smoke_entry_points_and_no_cull_on_cpu(monkeypatch, capsys):
     assert "[no-cull] als" in out and "[no-cull] forward" in out
 
 
+def test_chip_smoke_k5_phase_on_cpu(monkeypatch, capsys):
+    """Phase 13 at a small size: the beam cull's lists, buckets, bounds,
+    ladders and permutation against the plain version (here both plain)
+    on the small inputs, the `tls` chunk, an `als` chunk and the water
+    chunk, with the bound and the host culler's time."""
+    from lidar_brdf_tpu_torch.runtime import simulate
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "TLS_PULSES", 2048)
+    monkeypatch.setattr(chip_smoke, "TLS_TRIS", 2000)
+    monkeypatch.setattr(chip_smoke, "ALS_PULSES", 2048)
+    monkeypatch.setattr(chip_smoke, "ALS_TRIS", 20_000)
+    monkeypatch.setattr(chip_smoke, "ALS_CHUNK", 1024)
+    monkeypatch.setattr(chip_smoke, "WATER_PULSES", 2048)
+    monkeypatch.setattr(chip_smoke, "WATER_CELLS", 8)
+    monkeypatch.setattr(chip_smoke, "K5_REPS", 1)
+    monkeypatch.setattr(simulate, "PULSE_MIN_FACES", 10_000)
+    tls = chip_smoke.tls_workload("cpu")
+    als = chip_smoke.als_workload("cpu")
+    k5 = chip_smoke.phase_k5_vs_plain(tls, als, chip_smoke.water_workload(als))
+    for key in ("name", "route", "source", "replaces", "max_abs_err", "ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms"):
+        assert key in k5
+    assert k5["route"] == "cuda" and k5["library_ms"] is None
+    assert k5["bound_by"] == "operations" and k5["bound_ms"] > 0
+    cases = k5["cases"]
+    assert cases["tls chunk"]["beams"] == 2048 * 10 // 640
+    assert cases["als chunk"]["beams"] == 1024
+    assert cases["water level-0 chunk"]["beams"] == 1024
+    for name in ("tls chunk", "als chunk"):
+        r = cases[name]
+        assert r["host_ms"] > 0 and 0 < r["ternary_share"] < 1
+        assert r["readbacks"] == 1 and r["longest"] > 0
+    big = cases["planted at the slack, 20,000 faces"]
+    assert big["longest"] == 20_000
+    out = capsys.readouterr().out
+    assert "[K5] fan over boxes, beams of 128 rays" in out
+    assert "buckets and bounds bit-equal" in out
+    assert "ladders and permutation and layout and renumbered ladders" in out
+
+
 def test_chip_smoke_k4_chunk_on_cpu(monkeypatch):
     """`--k4-chunk` at a small size: the water levels, the `tls` and the
     `als` rays at every packet width, masked and not, with both bounds; no
@@ -270,7 +311,7 @@ def test_chip_smoke_water_scan_on_cpu(monkeypatch):
     assert len(out["runs"]) == 2
     for r in out["runs"]:
         assert r["rays"] == 512 * 10 and r["points"] > 0
-        assert r["launches"] == {"K1": 0, "K2": 0, "K4": 0}
+        assert r["launches"] == {"K1": 0, "K2": 0, "K4": 0, "K5": 0}
         for key in ("wall_s", "cull_s", "device_s", "readback_s"):
             assert r[key] >= 0
     assert out["runs"][0]["points"] == out["runs"][1]["points"]

@@ -1,5 +1,6 @@
 """The CUDA kernels (K1 tiles, K2 pulse ladders, K3 the bench's pre-flight,
-K4 the packet walk) on the card vs their plain PyTorch versions, the
+K4 the packet walk, K5 the beam cull) on the card vs their plain PyTorch
+versions, the
 water and packet-walk scans, the compacted readback, the CLI on an OBJ
 directory and the fwd+bwd step's gradients on the card vs the CPU (the
 card's clouds are compacted, so clouds are compared after
@@ -11,8 +12,9 @@ runs on its own, without `tests/conftest.py` (which imports JAX):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Faces must be equal and t equal to rtol 1e-6 where a face is hit; K3 and
-K4 equal bit for bit.  Gradients: loss to rtol 1e-5, each gradient within
+Faces must be equal and t equal to rtol 1e-6 where a face is hit; K3, K4
+and K5 (lists, near distances, and the buckets, bounds and ladders built
+from them) equal bit for bit.  Gradients: loss to rtol 1e-5, each gradient within
 atol 1e-4 * max|g| (the card's scatter-add order is not fixed).
 """
 
@@ -559,3 +561,63 @@ def test_step_grads_card_match_cpu(card, kind):
     for what, scene, cfg, rays in chip_smoke.grad_cases(kind):
         errs = chip_smoke.compare_grads(what, scene, cfg, rays, kind)
         assert set(errs) == {"brdf_table", "origin", "vertices"}
+
+
+@pytest.mark.parametrize("case", range(4))
+def test_beam_cull_matches_plain(card, case):
+    """K5 on the fan over boxes (tiles of 128 rays, pulses of 4) and on
+    beams planted at the slack of leaf boxes (a wide beam's list of 20,000
+    faces sorted in device memory): `LAUNCHES` launches a call, everything
+    bit-equal to `cull_plain` (`chip_smoke.compare_k5`)."""
+    name, nodes, ins, t_max, kind, beams, face_box, _ = \
+        chip_smoke.k5_small_cases()[case]
+    rec = chip_smoke.compare_k5(name, nodes, ins, t_max, kind=kind,
+                                beams=beams, face_box=face_box)
+    assert rec["launches"] == 3 and rec["candidates"] > 0
+
+
+def test_beam_cull_of_no_beams_launches_nothing(card):
+    """No beams: empty lists, the plain version's shapes, and no launch
+    counted (the entry points launch nothing then)."""
+    from lidar_brdf_tpu_torch.kernels import cull
+    name, nodes, ins, t_max, *_ = chip_smoke.k5_small_cases()[0]
+    none = [x[:0] for x in ins]
+    cull.KERNEL.launches = 0
+    got = cull.beam_cull(nodes, *none, t_max)
+    assert cull.KERNEL.launches == 0
+    want = cull.beam_cull([x.cpu() for x in nodes], *(x.cpu() for x in none),
+                          t_max)
+    for g, w in zip(got[:5], want[:5]):
+        assert g.is_cuda and g.dtype == w.dtype
+        assert torch.equal(g.cpu(), w)
+    assert got.sizes == want.sizes == ()
+
+
+@pytest.mark.parametrize("use_pulse", [False, True])
+def test_culled_scan_launches_k5_per_chunk(card, use_pulse):
+    """A culled scan culls each chunk on the card: K5 `LAUNCHES` times a
+    chunk, none on a repeat from the ladder cache, and the cloud of the
+    CPU's plain cull."""
+    from lidar_brdf_tpu_torch.kernels import cull
+    scene = synthetic.rough_terrain(np.random.default_rng(5), num_tris=4000,
+                                    half=30.0)
+    cfg = SensorConfig(lidar_type=LiDARType.AERIAL_ZIGZAG,
+                       als_position=(0.0, 40.0, 0.0), max_range=200.0,
+                       rays_per_pulse=4, max_returns=1, chunk_pulses=128)
+    rays = api.build_rays(cfg, scene, device="cpu")
+    rays = type(rays)(origin=rays.origin[:512],
+                      direction=rays.direction[:512],
+                      gps_time=rays.gps_time[:512])
+    bvh = api.build_scene_bvh(scene)
+    mats = api.MaterialLibrary.default().table_at(1064)
+    sim = Simulator(scene=scene, bvh=bvh, cfg=cfg, device="cuda",
+                    materials=mats, use_pulse=use_pulse)
+    on_card = rays.to("cuda")
+    cull.KERNEL.launches = 0
+    card = sim.run(on_card)
+    assert cull.KERNEL.launches == 4 * cull.LAUNCHES
+    sim.run(on_card)
+    assert cull.KERNEL.launches == 4 * cull.LAUNCHES
+    cpu = Simulator(scene=scene, bvh=bvh, cfg=cfg, device="cpu",
+                    materials=mats, use_pulse=use_pulse).run(rays)
+    chip_smoke.compare_clouds(f"culled, use_pulse={use_pulse}", card, cpu)

@@ -99,9 +99,18 @@ def test_material_table_bit_equal():
     assert tmat.MATERIAL_NAMES == jmat.MATERIAL_NAMES
 
 
-def _beamcull_host_half(rng):
+def _beamcull_host_half(rng, use_native):
     """Wald rows, tile beams, BSP order, buckets and bounds from both
-    packages' host halves on the same scene and fan of rays."""
+    packages' host halves on the same scene and fan of rays.
+
+    The JAX traverser's `prepare` is held against two things of the port:
+    its host functions (`build_bucketed_candidates` with ``use_native`` as
+    given, and `TileTraverser.bucket_bounds`), bit for bit, and its
+    traverser's `prepare`, which culls on the device (here the plain
+    version of K5).  Through the native culler that one is bit-equal too;
+    the numpy culler orders a tile's list by centroid projection where the
+    native and device culls order it by near distance, so then the same
+    tiles must get the same face sets."""
     scene = jsyn.terrain_with_boxes(rng, num_boxes=6)
     tree = jbvh.build_bvh(np.asarray(scene.vertices), np.asarray(scene.faces))
     ttree = convert.bvh_from_numpy(_np(tree))
@@ -119,17 +128,36 @@ def _beamcull_host_half(rng):
     np.testing.assert_array_equal(jcull.bsp_order_np(feat, 32),
                                   tcull.bsp_order_np(feat, 32))
 
-    # buckets + bounds through both traversers' prepare()
+    # buckets + bounds through the JAX traverser's prepare() and the
+    # port's host functions
     jt = PallasCulledTraverser(scene, tile_rays=128, interpret=True)
     tt = TileTraverser(convert.scene_from_numpy(_np(scene)), tile_rays=128,
                        device="cpu")
     jdata = jt.prepare(tree, o, d, t_max=500.0)
-    tdata = tt.prepare(ttree, o, d, t_max=500.0)
-    assert len(jdata) == len(tdata) >= 1
-    for (jt_, jc, jb), (tt_, tc, tb) in zip(jdata, tdata):
+    buckets = tcull.build_bucketed_candidates(
+        ttree, *tt._pad_np(o, d), tile_rays=128, t_max=500.0, pad_to=8,
+        use_native=use_native)
+    bounds = tt.bucket_bounds(ttree, buckets, o, d)
+    host = [tuple(torch.from_numpy(x) for x in (t, c, b))
+            for (t, c), b in zip(buckets, bounds)]
+    assert len(jdata) == len(host) >= 1
+    for (jt_, jc, jb), (tt_, tc, tb) in zip(jdata, host):
         np.testing.assert_array_equal(np.asarray(jt_), tt_.numpy())
         np.testing.assert_array_equal(np.asarray(jc), tc.numpy())
         np.testing.assert_array_equal(np.asarray(jb), tb.numpy())
+
+    # the port traverser's prepare(): its cull on the device
+    tdata = tt.prepare(ttree, o, d, t_max=500.0)
+    assert len(jdata) == len(tdata)
+    for (jt_, jc, jb), (tt_, tc, tb) in zip(jdata, tdata):
+        np.testing.assert_array_equal(np.asarray(jt_), tt_.numpy())
+        if use_native:
+            np.testing.assert_array_equal(np.asarray(jc), tc.numpy())
+            np.testing.assert_array_equal(np.asarray(jb), tb.numpy())
+        else:
+            assert tc.shape == jc.shape and tb.shape == jb.shape
+            np.testing.assert_array_equal(np.sort(np.asarray(jc), axis=1),
+                                          np.sort(tc.numpy(), axis=1))
     assert jt.t_max == tt.t_max
 
 
@@ -147,7 +175,7 @@ def test_beamcull_host_half_bit_equal(rng, monkeypatch):
     from lidar_brdf_tpu_torch.io import native as tnative
     monkeypatch.setenv("LIDAR_BRDF_TPU_NO_NATIVE", "1")
     monkeypatch.setattr(tnative, "get_lib", lambda: None)
-    _beamcull_host_half(rng)
+    _beamcull_host_half(rng, use_native=False)
 
 
 def test_beamcull_host_half_native_bit_equal(rng, monkeypatch):
@@ -160,7 +188,7 @@ def test_beamcull_host_half_native_bit_equal(rng, monkeypatch):
     monkeypatch.delenv("LIDAR_BRDF_TPU_NO_NATIVE", raising=False)
     monkeypatch.setattr(jnative, "_lib", tnative.get_lib())
     monkeypatch.setattr(jnative, "_tried", True)
-    _beamcull_host_half(rng)
+    _beamcull_host_half(rng, use_native=True)
 
 
 def test_numpy_cull_bit_equal(rng, monkeypatch):

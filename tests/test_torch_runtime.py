@@ -224,15 +224,15 @@ def test_metrics_aggregation(tmp_path):
 
 @pytest.fixture
 def spy_cull(monkeypatch):
-    """Counts host culls: `TileTraverser.prepare` and the pulse path's
-    `build_pulse_ladders`."""
+    """Counts culls: `TileTraverser.prepare` and the pulse path's
+    `PulseLadderTraverser.prepare_permuted`."""
     calls = []
     prepare = tsim.TileTraverser.prepare
-    ladders = tsim.build_pulse_ladders
+    ladders = tsim.PulseLadderTraverser.prepare_permuted
     monkeypatch.setattr(tsim.TileTraverser, "prepare",
                         lambda *a, **k: calls.append("tile")
                         or prepare(*a, **k))
-    monkeypatch.setattr(tsim, "build_pulse_ladders",
+    monkeypatch.setattr(tsim.PulseLadderTraverser, "prepare_permuted",
                         lambda *a, **k: calls.append("pulse")
                         or ladders(*a, **k))
     return calls

@@ -374,10 +374,16 @@ def _als_case():
     return scene, build_scene_bvh(scene), rays
 
 
-def test_ladder_t_max_is_the_global_one_on_an_als_flight():
+def test_ladder_t_max_is_the_global_one_on_an_als_flight(monkeypatch):
     """On a flight the shards' own far distances differ; every rank's
     ladders take JAX's one ``t_max`` over all pulses (the MAX over the
-    ranks), and are JAX's per-shard ladders."""
+    ranks), and are JAX's per-shard ladders.  The JAX package culls with
+    the port's native library (no fused multiply-adds: the arithmetic of
+    the port's cull on the device, whose lists it must equal in order)."""
+    from lidar_brdf_tpu.io import native as jnative
+    monkeypatch.delenv("LIDAR_BRDF_TPU_NO_NATIVE", raising=False)
+    monkeypatch.setattr(jnative, "_lib", tnative.get_lib())
+    monkeypatch.setattr(jnative, "_tried", True)
     scene, bvh, rays = _als_case()
     o = np.asarray(rays.origin).reshape(-1, 3)
     d = np.asarray(rays.direction).reshape(-1, 3)
