@@ -148,11 +148,17 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    bounds (tiles) or the ladders, permutation and renumbered ladders
    (pulses) built from either's lists, on a fan over boxes (tiles of 128,
    pulses of 4), beams planted at 0, 0.95 and 1.05 times the slack beside
-   leaf boxes, the `tls` chunk (2,048 tiles), one `als` chunk (131,072
-   pulses) and the water scene's level-0 chunk; timed by CUDA events on
-   the `tls` and `als` chunks beside the port's host culler on the same
-   beams, the bound (the plain version's node tests and ternary searches
-   times the source's operations) and the longest list.  `[K5]` lines.
+   leaf boxes (a wide beam's 20,000-face list over the scratch's capacity:
+   walked again, sorted in device memory), a chain too deep for shared
+   stacks, each on its scheduled path (`kernels/cull.py::schedule`), then
+   a thread a beam where a group was scheduled and the overflow path
+   forced on both; the `tls` chunk (2,048 tiles), one `als` chunk
+   (131,072 pulses) and the water scene's level-0 chunk, with the beams
+   over capacity of each; timed by CUDA events and by launch (profiler)
+   on those three chunks, beside the port's host culler on the same beams
+   (`tls`, `als`), the bound (the plain version's node tests and ternary
+   searches times the source's operations) and the longest list.  `[K5]`
+   lines.
    Each culled scan's point count and peak device memory are printed
    beside the host cull's, as `PERF.md` section 5 records them
    (`[points]`).
@@ -173,7 +179,9 @@ width, masked and not, beside both bounds; each prints one JSON line
 (launches per call, CUDA-event and profiler times).  `--water-scan` runs
 the topo-bathymetric scan of phase 4b alone, twice, and prints each
 run's wall, cull and device seconds.  `--k5-chunk` builds the kernels and
-runs phase 13 without the water chunk.  A copy of the script in the
+runs phase 13 without the water chunk; a copy of the script in the root
+of an older tree (one whose `beam_cull` takes no ``lanes``, ``capacity``
+or ``depth``) skips the forced paths and times that tree's K5.  A copy of the script in the
 root of another tree of the repo measures that tree's kernel or scan the
 same way (a tree whose K4 takes no mask: every ray, in its 128-ray
 tiles).
@@ -1705,6 +1713,7 @@ OPS_TERNARY = 24 * (6 + 2 * 23 + 1) + 27
 OPS_LEAF = 31
 K5_REPS = 5                     # K5 calls a CUDA-event timing
 SLACK_T_MAX = 120.0             # the reach of the planted-slack beams
+CHAIN_DEPTH = 120               # a tree too deep for K5's shared stacks
 # The culled scans with the host cull, as PERF.md section 5 records them
 # (NVIDIA H100 80GB HBM3, 700.00 W): points, and peak device bytes above
 # those held before the scan (`forward`: its cold scan)
@@ -1787,22 +1796,41 @@ def same_tensors(a, b) -> bool:
     return a == b
 
 
+K5_KERNELS = ("walk_", "place_", "sort_kernel", "count_kernel",
+              "fill_kernel")   # K5's kernels by name (and the parent's)
+
+
+def k5_options(**opts) -> dict:
+    """The keywords of `beam_cull` that this tree's `kernels/cull.py`
+    takes (an older tree's takes none of ``lanes``, ``capacity``,
+    ``depth``)."""
+    import inspect
+    from lidar_brdf_tpu_torch.kernels import cull
+    params = inspect.signature(cull.beam_cull).parameters
+    return {k: v for k, v in opts.items() if k in params and v is not None}
+
+
 def compare_k5(name, nodes, ins, t_max, *, kind=None, beams=None,
-               face_box=None, pad_to=8, timed=False, host_bvh=None) -> dict:
+               face_box=None, pad_to=8, timed=False, host_bvh=None,
+               lanes=None, capacity=None) -> dict:
     """One K5 call (`kernels/cull.py::beam_cull`, `LAUNCHES` launches) and
     the plain version on the same beams: counts, offsets, faces and near
     distances bit-equal.  ``kind`` "tile" (with the f64 ``beams`` and the
     ``face_box`` of `TileTraverser.face_boxes`) also holds the buckets and
     bounds built from either's lists equal, "pulse" the ladders, the
-    permutation and the renumbered ladders.  With ``timed``: K5 by CUDA
-    events and by kernel (profiler), and the port's host culler on the
-    same beams (``host_bvh``).  Returns the record."""
+    permutation and the renumbered ladders.  ``lanes`` and ``capacity``
+    override `cull.schedule`'s (a path or the overflow path forced).  With
+    ``timed``: K5 by CUDA events and by kernel (profiler), and the port's
+    host culler on the same beams (``host_bvh``).  Returns the record."""
     import torch
     from lidar_brdf_tpu_torch.io import native
     from lidar_brdf_tpu_torch.kernels import cull
     from lidar_brdf_tpu_torch.kernels import pulse as pp
     from lidar_brdf_tpu_torch.kernels import traverse as tr
-    call = lambda: cull.beam_cull(nodes, *ins, t_max, pad_to)
+    depth = (cull.tree_depth(nodes[1], nodes[2])
+             if hasattr(cull, "tree_depth") else None)
+    opts = k5_options(lanes=lanes, capacity=capacity, depth=depth)
+    call = lambda: cull.beam_cull(nodes, *ins, t_max, pad_to, **opts)
     before, reads = cull.KERNEL.launches, cull.READBACKS
     got = call()
     sync()
@@ -1845,17 +1873,23 @@ def compare_k5(name, nodes, ins, t_max, *, kind=None, beams=None,
     longest = int(got.counts.max()) if T else 0
     bound_ms, bound_by, ops_ms, bytes_ms, ops, nbytes = k5_bound(
         stats, N, T, total)
+    path = (cull.schedule(T) if hasattr(cull, "schedule") else (1, None))
     rec = dict(beams=T, nodes=N, candidates=total, longest=longest,
                launches=n, readbacks=reads, plain_ms=plain_ms,
                bound_ms=bound_ms, bound_by=bound_by, bound_ops_ms=ops_ms,
                bound_bytes_ms=bytes_ms, ops=ops, bytes=nbytes, **stats,
                ternary_share=stats["ternary_tests"] / max(
-                   stats["node_tests"], 1))
+                   stats["node_tests"], 1),
+               lanes=opts.get("lanes", path[0]),
+               capacity=opts.get("capacity", path[1]), depth=depth,
+               overflow=getattr(got, "overflow", None))
     what = " and ".join(w for w, *_ in built) or "CSR"
-    line = (f"[K5] {name}: {T} beams over {N} nodes, {total} candidates "
-            f"(longest list {longest}), {n} launches and {reads} host "
-            f"read(s) a call; lists, {what} bit-equal to the plain version; "
-            f"node tests "
+    line = (f"[K5] {name}: {T} beams over {N} nodes (depth {depth}), "
+            f"{total} candidates (longest list {longest}), {rec['lanes']} "
+            f"lane(s) a beam, capacity {rec['capacity']}, "
+            f"{rec['overflow']} beam(s) over it, {n} launches and {reads} "
+            f"host read(s) a call; lists, {what} bit-equal to the plain "
+            f"version; node tests "
             f"{stats['node_tests']}, {rec['ternary_share']:.4f} of them to "
             f"the ternary search")
     if timed:
@@ -1866,24 +1900,59 @@ def compare_k5(name, nodes, ins, t_max, *, kind=None, beams=None,
             t0 = time.perf_counter()
             native.cull_candidates_native(host_bvh, *arrays, t_max)
             rec["host_ms"] = (time.perf_counter() - t0) * 1e3
+        rec["launch_ms"] = {k: v["ms_per_launch"]
+                            for k, v in rec["kernels"].items()
+                            if any(x in k for x in K5_KERNELS)}
         line += (f"; K5 {rec['ms']:.4f} ms a call (CUDA events, {K5_REPS} "
                  f"calls), plain {plain_ms:.1f} ms, host culler "
                  f"{rec.get('host_ms', float('nan')):.1f} ms, bound "
                  f"{bound_ms:.4f} ms ({bound_by}: ops {ops_ms:.4f}, bytes "
-                 f"{bytes_ms:.4f}); by kernel " + ", ".join(
-                     f"{k} {v['ms']:.4f} ms" for k, v in
-                     rec["kernels"].items() if any(
-                         x in k for x in ("count_kernel", "fill_kernel",
-                                          "sort_kernel"))))
+                 f"{bytes_ms:.4f}); by launch " + ", ".join(
+                     f"{k} {v:.4f} ms" for k, v in rec["launch_ms"].items()))
     log(line)
     return rec
 
 
+def chain_tree(depth: int, device=None):
+    """(node views, walk inputs) of a threaded BVH as deep as a tree of
+    2 ``depth`` + 1 nodes can be: internal node 2k has the leaf 2k + 1
+    (face k, a unit box at x = k) and the rest of the chain as children,
+    the last leaf is 2 ``depth``; its group stacks do not fit shared
+    memory.  Beams along +x from x = -1, each a little higher and wider
+    than the last (the first ten list every leaf within reach), on
+    ``device`` (None: `DEVICE`)."""
+    import torch
+    from lidar_brdf_tpu_torch.kernels import packet as kpk
+    N = 2 * depth + 1
+    box = torch.zeros((N, 6), dtype=torch.float32)
+    skip = torch.full((N,), N, dtype=torch.int32)
+    face = torch.full((N,), -1, dtype=torch.int32)
+    for k in range(depth + 1):
+        leaf = min(2 * k + 1, N - 1)
+        box[leaf] = torch.tensor([k, 0.0, 0.0, k + 1.0, 1.0, 1.0])
+        face[leaf] = k
+        if leaf < N - 1:
+            skip[leaf] = leaf + 1
+            box[2 * k] = torch.tensor([k, 0.0, 0.0, depth + 1.0, 1.0, 1.0])
+    device = device or DEVICE
+    nodes = kpk.node_records(box.to(device), skip.to(device),
+                             face.to(device))
+    T = 16
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=device)
+    ins = (f32([[-1.0, 0.5, 0.5 + 0.05 * t] for t in range(T)]),
+           f32([[1.0, 0.0, 0.0]] * T), f32([0.002 * t for t in range(T)]),
+           f32([0.1] * T), torch.ones(T, dtype=torch.uint8, device=device))
+    return nodes, ins
+
+
 def k5_small_cases():
-    """(name, nodes, inputs, t_max, kind, beams, face_box, bvh) of the
-    small K5 inputs: tiles of 128 rays and pulses of 4 of a fan over boxes,
-    and the planted-slack beams over the same boxes and over a 20,000-face
-    terrain (its wide beam's list is sorted in device memory)."""
+    """(name, nodes, inputs, t_max, kind, beams, face_box, bvh, options)
+    of the small K5 inputs: tiles of 128 rays and pulses of 4 of a fan
+    over boxes, and the planted-slack beams over the same boxes and over a
+    20,000-face terrain (its wide beam's list, over the scratch's
+    capacity, is walked again and sorted in device memory), each on the
+    path `cull.schedule` gives it; then the other path and the overflow
+    path forced (``options``: `compare_k5`'s ``lanes``, ``capacity``)."""
     from lidar_brdf_tpu_torch import api
     from lidar_brdf_tpu_torch.io import synthetic
     from lidar_brdf_tpu_torch.kernels.traverse import TileTraverser
@@ -1899,23 +1968,33 @@ def k5_small_cases():
     for kind, R in (("tile", 128), ("pulse", 4)):
         beams, ins = cull_inputs(o, d, R)
         out.append((f"fan over boxes, beams of {R} rays", nodes, ins, 80.0,
-                    kind, beams, tt.face_boxes(bvh), bvh))
+                    kind, beams, tt.face_boxes(bvh), bvh, {}))
     ins, _ = planted_slack_beams(bvh, SLACK_T_MAX, DEVICE)
     out.append(("planted at the slack", nodes, ins, SLACK_T_MAX, None, None,
-                None, bvh))
+                None, bvh, {}))
     rough = synthetic.rough_terrain(np.random.default_rng(3),
                                     num_tris=20_000, half=30.0)
     rbvh = api.build_scene_bvh(rough)
-    ins, _ = planted_slack_beams(rbvh, SLACK_T_MAX, DEVICE)
-    out.append(("planted at the slack, 20,000 faces",
-                TileTraverser(rough, tile_rays=128, device=DEVICE).nodes(rbvh),
-                ins, SLACK_T_MAX, None, None, None, rbvh))
+    rnodes = TileTraverser(rough, tile_rays=128, device=DEVICE).nodes(rbvh)
+    rins, _ = planted_slack_beams(rbvh, SLACK_T_MAX, DEVICE)
+    out.append(("planted at the slack, 20,000 faces", rnodes, rins,
+                SLACK_T_MAX, None, None, None, rbvh, {}))
+    out.append((f"a chain of depth {CHAIN_DEPTH}", *chain_tree(CHAIN_DEPTH),
+                SLACK_T_MAX, None, None, None, None, {}))
+    forced = [(0, "a thread a beam", dict(lanes=1)),
+              (1, "a thread a beam", dict(lanes=1)),
+              (0, "capacity 4", dict(capacity=4)),
+              (1, "a thread a beam, capacity 2", dict(lanes=1, capacity=2)),
+              (3, "a thread a beam", dict(lanes=1))]
+    for i, what, opts in forced:
+        case = out[i]
+        out.append((f"{case[0]}, {what}", *case[1:8], opts))
     return out
 
 
 def k5_chunk_inputs(workload, name):
-    """(name, nodes, inputs, t_max, kind, beams, face_box, bvh) of one
-    real chunk culled as `Simulator._prep` culls it: the `tls` chunk
+    """(name, nodes, inputs, t_max, kind, beams, face_box, bvh, options)
+    of one real chunk culled as `Simulator._prep` culls it: the `tls` chunk
     (BSP-ordered tiles of 640 rays) or the first chunk of an `als` or
     water scan (pulses of 10 rays, scan order)."""
     from lidar_brdf_tpu_torch.runtime.simulate import Simulator, bsp_order
@@ -1937,18 +2016,21 @@ def k5_chunk_inputs(workload, name):
                              d.reshape(-1, 3).contiguous(), R)
     kind = "pulse" if sim.use_pulse else "tile"
     return (name, tr_.nodes(bvh), ins, sim.t_max, kind, beams,
-            None if sim.use_pulse else tr_.face_boxes(bvh), bvh)
+            None if sim.use_pulse else tr_.face_boxes(bvh), bvh, {})
 
 
 def k5_chunk(tls=None, als=None) -> dict:
     """K5 alone (``python3 chip_smoke.py --k5-chunk``): built, launched on
     a one-node tree, held bit for bit against its plain version on the
-    small inputs and on the `tls` and `als` chunks, and timed on those two
-    beside the port's host culler and the bound."""
+    small inputs (each path, and the overflow path, where this tree's
+    `beam_cull` can be told) and on the `tls` and `als` chunks, and timed
+    on those two beside the port's host culler and the bound."""
     out = dict(source=os.path.dirname(os.path.abspath(__file__)))
     for case in k5_small_cases():
+        if case[8] and not k5_options(**case[8]):
+            continue                       # an older tree: no such path
         out[case[0]] = compare_k5(*case[:4], kind=case[4], beams=case[5],
-                                  face_box=case[6])
+                                  face_box=case[6], **case[8])
     for name, wl in (("tls chunk", tls or tls_workload(DEVICE)),
                      ("als chunk", als or als_workload(DEVICE))):
         case = k5_chunk_inputs(wl, name)
@@ -1961,14 +2043,16 @@ def k5_chunk(tls=None, als=None) -> dict:
 def phase_k5_vs_plain(tls, als, water):
     """13: K5 against its plain version bit for bit (lists, then the
     buckets and bounds or ladders and permutation built from them) on a
-    fan over boxes, beams planted at the slack of a box, the `tls` chunk,
-    one `als` chunk and the water scene's level-0 chunk; timed by CUDA
-    events on the `tls` and `als` chunks beside the port's host culler and
-    the bound.  Returns K5's record for the kernels line."""
+    fan over boxes, beams planted at the slack of a box (on both paths and
+    the overflow path), the `tls` chunk, one `als` chunk and the water
+    scene's level-0 chunk; timed by CUDA events and by launch on the `tls`
+    and `als` chunks beside the port's host culler and the bound.  Returns
+    K5's record for the kernels line."""
     res = k5_chunk(tls, als)
     case = k5_chunk_inputs(water, "water level-0 chunk")
     res["water level-0 chunk"] = compare_k5(
-        *case[:4], kind=case[4], beams=case[5], face_box=case[6])
+        *case[:4], kind=case[4], beams=case[5], face_box=case[6],
+        timed=True)
     t, a = res["tls chunk"], res["als chunk"]
     return dict(name="beam_cull", route="cuda",
                 source="lidar_brdf_tpu_torch/kernels/csrc/beam_cull.cu",
@@ -1978,11 +2062,17 @@ def phase_k5_vs_plain(tls, als, water):
                 plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
                 bound_by=t["bound_by"], library_ms=None,
                 launches_per_chunk=k5_launches(), host_ms=t.get("host_ms"),
-                als_ms=a["ms"], als_plain_ms=a["plain_ms"],
+                launch_ms=t.get("launch_ms"), als_ms=a["ms"],
+                als_launch_ms=a.get("launch_ms"), als_plain_ms=a["plain_ms"],
                 als_host_ms=a.get("host_ms"), als_bound_ms=a["bound_ms"],
-                als_bound_by=a["bound_by"], cases={
-                    k: {x: y for x, y in v.items() if x != "kernels"}
-                    for k, v in res.items() if isinstance(v, dict)})
+                als_bound_by=a["bound_by"],
+                water_ms=res["water level-0 chunk"]["ms"],
+                water_launch_ms=res["water level-0 chunk"].get("launch_ms"),
+                overflow={
+                    k: res[k]["overflow"] for k in
+                    ("tls chunk", "als chunk", "water level-0 chunk")},
+                cases={k: {x: y for x, y in v.items() if x != "kernels"}
+                       for k, v in res.items() if isinstance(v, dict)})
 
 
 def water_over_ground():

@@ -12,17 +12,23 @@ list sorted by (dnear, face) as the host's `std::sort` of the pairs sorts
 it.  The result is CSR (`CullLists`).
 
 `beam_cull` on CUDA tensors launches `csrc/beam_cull.cu` (built with nvcc
-at first use into `build/kernels/`, loaded with ctypes): a count pass, an
-exclusive scan of the counts (`torch.cumsum`), then a fill pass that also
-sorts each list: `LAUNCHES` launches a call.  On CPU tensors it runs
-`cull_plain`, the same walk as a frontier over (beam, node) pairs in torch
-f32, every operation written out per component in the host's order.  It
-never falls back from one to the other.
+at first use into `build/kernels/`, loaded with ctypes): one walk of each
+beam into a scratch of ``capacity`` entries a beam, an exclusive scan of
+the counts (`torch.cumsum`), then a place pass that copies each list to
+its CSR offset (walking again the beams whose lists did not fit) and a
+sort of the long lists: `LAUNCHES` launches a call, whatever the data.
+`schedule` picks the walk's lanes a beam (a block of 128 lanes a beam for
+few beams, one thread a beam where the beams alone fill the card) and the
+capacity from the number of beams.  On CPU tensors it runs `cull_plain`,
+the same walk as a frontier over (beam, node) pairs in torch f32, every
+operation written out per component in the host's order, through a
+scratch of the same capacity.  It never falls back from one to the other.
 
-Between the count and the fill the wrapper reads back one small vector:
-the total (to allocate the lists) and how many beams fall in each padded
-list size (``pad_to << k``), which fixes the shapes of the buckets and
-ladders built from the lists (`kernels/traverse.py::buckets_from_lists`,
+Between the walk and the place pass the wrapper reads back one small
+vector: the total (to allocate the lists), how many beams are over
+capacity, and how many beams fall in each padded list size (``pad_to <<
+k``), which fixes the shapes of the buckets and ladders built from the
+lists (`kernels/traverse.py::buckets_from_lists`,
 `kernels/pulse.py::ladders_from_lists`).  `readback` counts these reads
 (`READBACKS`), and so the narrowness flag's.
 """
@@ -36,7 +42,16 @@ import torch
 
 from .cuda_build import CudaLibrary, check_tensor, raw_stream
 
-LAUNCHES = 3          # K5 launches a `beam_cull` call: count, fill, sort
+LAUNCHES = 3          # K5 launches a `beam_cull` call: walk, place, sort
+GROUP_LANES = 128     # lanes a beam where the beams are few (a block)
+GROUP_BEAMS = 8192    # at most this many beams take GROUP_LANES lanes each
+SCRATCH_ENTRIES = 1 << 22  # scratch entries a call aims at (32 MB)
+CAP_MIN, CAP_MAX = 16, 1024  # scratch entries a beam
+BLOCK = 128           # threads a block of the walk and place kernels
+# lanes a beam the walk is written for; the source builds 1 and
+# GROUP_LANES, `scripts/k5_variants.py` the others
+LANES = (1, 2, 4, 8, 16, 32, 64, 128, 256)
+STACK_SMEM = 48 * 1024  # shared bytes a block's group stacks may take
 SIZE_CLASSES = 40     # padded list sizes pad_to << k for k < 39; 39: none
 NO_LIST = SIZE_CLASSES - 1
 ITERS = 24            # ternary-search steps of the beam/box test
@@ -46,14 +61,14 @@ READBACKS = 0         # host reads of cull results (`readback`)
 
 def _declare(lib):
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    beams = [vp, ci, vp, vp, vp, vp, vp, ci, cf]
-    lib.lbt_beam_cull_count.argtypes = beams + [vp, vp]
-    lib.lbt_beam_cull_count.restype = ci
-    lib.lbt_beam_cull_fill.argtypes = beams + [vp, vp, vp, vp]
-    lib.lbt_beam_cull_fill.restype = ci
+    beams = [vp, ci, vp, vp, vp, vp, vp, ci, cf, ci, ci, ci, vp]
+    lib.lbt_beam_cull_walk.argtypes = beams + [vp, vp, vp, vp]
+    lib.lbt_beam_cull_walk.restype = ci
+    lib.lbt_beam_cull_place.argtypes = beams + [vp, vp, vp, vp, vp, vp, vp]
+    lib.lbt_beam_cull_place.restype = ci
 
 
-KERNEL = CudaLibrary("beam_cull.cu", _declare, "lbt_beam_cull_count")
+KERNEL = CudaLibrary("beam_cull.cu", _declare, "lbt_beam_cull_walk")
 
 
 class CullLists(NamedTuple):
@@ -64,24 +79,75 @@ class CullLists(NamedTuple):
     dnear: torch.Tensor     # (total,) f32 conservative near distances
     order: torch.Tensor     # (T,) i64 beams by padded size, stable; empty last
     sizes: tuple            # ((padded size, beams), ...) ascending, host ints
+    overflow: int = 0       # beams whose lists were over the scratch's capacity
 
 
 class NodeCache:
     """A BVH's node records on one device (`geom/packet.py::pack_bvh`),
     packed at the first call for that BVH and kept: ``cache(bvh)`` gives
-    the (box, skip, face) views that K5 and K4 read."""
+    the (box, skip, face) views that K5 and K4 read, and ``cache.depth``
+    the tree's depth (`tree_depth`, which sizes K5's stacks)."""
 
     def __init__(self, device):
         self.device = device
         self._bvh = None
         self._nodes = None
+        self.depth = None
 
     def __call__(self, bvh):
         if self._bvh is not bvh:
             from ..geom.packet import pack_bvh
             self._nodes = pack_bvh(bvh, self.device)
+            self.depth = tree_depth(self._nodes[1], self._nodes[2])
             self._bvh = bvh
         return self._nodes
+
+
+def tree_depth(skip: torch.Tensor, face: torch.Tensor) -> int:
+    """The depth of a threaded BVH (the root at depth 0; -1 for no nodes),
+    whose internal node n has the children n + 1 and ``skip[n + 1]`` (when
+    that is a node), as `cull_plain` and K5 expand them: one level at a
+    time, one host read a level."""
+    N = face.shape[0]
+    level = torch.zeros(min(N, 1), dtype=torch.int64, device=face.device)
+    depth = -1
+    while level.numel():
+        depth += 1
+        inner = level[face[level] < 0] + 1
+        right = skip[inner].long()
+        level = torch.cat([inner, right[right < N]])
+    return depth
+
+
+def schedule(n_beams: int) -> tuple:
+    """(lanes a beam, scratch entries a beam) of a call on ``n_beams``
+    beams: `GROUP_LANES` lanes a beam for up to `GROUP_BEAMS` beams (a
+    `tls` chunk's 2,048 tiles: 2,048 blocks), else one thread a beam (an
+    `als` chunk's 131,072 pulses fill the card alone); a capacity that
+    keeps the scratch near `SCRATCH_ENTRIES`, a power of two within
+    [`CAP_MIN`, `CAP_MAX`] (1,024 on the `tls` chunk, whose longest list is
+    684; 32 on the `als` chunk, longest 10)."""
+    lanes = GROUP_LANES if n_beams <= GROUP_BEAMS else 1
+    fit = SCRATCH_ENTRIES // max(n_beams, 1)
+    cap = 1 << max(fit.bit_length() - 1, 0)
+    return lanes, min(max(cap, CAP_MIN), CAP_MAX)
+
+
+def stack_entries(lanes: int, depth: int) -> int:
+    """Stack entries a group of ``lanes`` lanes needs on a tree of
+    ``depth``: each round pops up to ``lanes`` nodes from the top and
+    pushes at most two children of each, so of a push batch at most
+    ``lanes`` stay below the next, and the batches left hold nodes one
+    level deeper each: at most ``lanes`` a level and 2 ``lanes`` on top."""
+    return lanes * (max(depth, 0) + 2)
+
+
+def stacks_in_shared(lanes: int, depth: int) -> bool:
+    """Whether a block's group stacks fit `STACK_SMEM` (else the wrapper
+    gives them device memory): a block holds `BLOCK` // ``lanes`` groups
+    of up to a warp, or one wider group."""
+    groups = BLOCK // lanes if lanes <= 32 else 1
+    return groups * stack_entries(lanes, depth) * 4 <= STACK_SMEM
 
 
 def readback(x: torch.Tensor) -> list:
@@ -114,20 +180,25 @@ def size_classes(counts: torch.Tensor, pad_to: int) -> torch.Tensor:
     return torch.where(c > 0, k, torch.full_like(k, NO_LIST))
 
 
-def _summary(counts: torch.Tensor, offsets: torch.Tensor, pad_to: int):
-    """(total, sizes, order) of the counts: one read from the device."""
+def _summary(counts: torch.Tensor, offsets: torch.Tensor, pad_to: int,
+             capacity: int | None = None):
+    """(total, sizes, order, beams over ``capacity``) of the counts: one
+    read from the device."""
     key = size_classes(counts, pad_to)
-    hist = torch.zeros(SIZE_CLASSES, dtype=torch.int64, device=key.device)
+    hist = torch.zeros(SIZE_CLASSES + 1, dtype=torch.int64,
+                       device=key.device)     # the last: beams over capacity
     hist.scatter_add_(0, key, torch.ones_like(key))
+    if capacity is not None:
+        hist[-1] = (counts > capacity).sum()
     total, *hist = readback(torch.cat([offsets[-1:], hist]))
     sizes = tuple((pad_to << k, b) for k, b in enumerate(hist[:NO_LIST])
                   if b)
-    return int(total), sizes, torch.argsort(key, stable=True)
+    return int(total), sizes, torch.argsort(key, stable=True), hist[-1]
 
 
 def lists_of(counts, offsets, faces, dnear, pad_to: int = 8) -> CullLists:
     """`CullLists` of CSR lists (`cull_plain`'s), sized for ``pad_to``."""
-    _, sizes, order = _summary(counts, offsets, pad_to)
+    _, sizes, order, _ = _summary(counts, offsets, pad_to)
     return CullLists(counts, offsets, faces, dnear, order, sizes)
 
 
@@ -159,7 +230,9 @@ def _validate(box, skip, face, center, axis, tan_half, radius, valid):
 
 
 def beam_cull(nodes, center, axis, tan_half, radius, valid, t_max: float,
-              pad_to: int = 8) -> CullLists:
+              pad_to: int = 8, *, depth: int | None = None,
+              lanes: int | None = None,
+              capacity: int | None = None) -> CullLists:
     """Candidate lists of beams over a threaded BVH.
 
     ``nodes``: (box (N, 6) f32, skip (N,) i32, face (N,) i32), the views of
@@ -167,19 +240,31 @@ def beam_cull(nodes, center, axis, tan_half, radius, valid, t_max: float,
     ``center``/``axis`` (T, 3) f32, ``tan_half``/``radius`` (T,) f32,
     ``valid`` (T,) u8, on the same device; ``t_max`` the reach (rounded to
     f32 as the host's binding rounds it).  ``pad_to``: the list padding the
-    caller's buckets take (sizes and order of `CullLists`).  CUDA tensors
-    launch K5 `LAUNCHES` times (none for no beams); CPU tensors take
-    `cull_plain`.
+    caller's buckets take (sizes and order of `CullLists`).  ``depth``: the
+    tree's (`NodeCache.depth`; None: `tree_depth`, one host read a level).
+    ``lanes`` and ``capacity`` override `schedule`'s.  CUDA tensors launch
+    K5 `LAUNCHES` times (none for no beams); CPU tensors take `cull_plain`
+    through a scratch of ``capacity``.
     """
     box, skip, face = nodes
+    T = center.shape[0]
+    auto_lanes, auto_cap = schedule(T)
+    lanes = auto_lanes if lanes is None else int(lanes)
+    capacity = auto_cap if capacity is None else int(capacity)
+    if lanes not in LANES or capacity < 1:
+        raise ValueError(f"lanes must be one of {LANES} and capacity "
+                         f"positive")
     if center.device.type == "cpu":
-        return lists_of(*cull_plain(nodes, center, axis, tan_half, radius,
-                                    valid, t_max), pad_to)
+        counts, offsets, faces, dnear = cull_plain(
+            nodes, center, axis, tan_half, radius, valid, t_max,
+            capacity=capacity)
+        _, sizes, order, over = _summary(counts, offsets, pad_to, capacity)
+        return CullLists(counts, offsets, faces, dnear, order, sizes, over)
     if not center.is_cuda:
         raise ValueError(f"unsupported device {center.device}")
     _validate(box, skip, face, center, axis, tan_half, radius, valid)
     dev = center.device
-    T, N = center.shape[0], box.shape[0]
+    N = box.shape[0]
     if T == 0:      # the entry points launch nothing for no beams
         empty = lambda dt: torch.zeros(0, dtype=dt, device=dev)
         return CullLists(empty(torch.int32),
@@ -187,31 +272,45 @@ def beam_cull(nodes, center, axis, tan_half, radius, valid, t_max: float,
                          empty(torch.int32), empty(torch.float32),
                          empty(torch.int64), ())
     stream = raw_stream(center.get_device())
+    i32 = lambda n: torch.empty(n, dtype=torch.int32, device=dev)
+    stack_cap, gstack = 0, None
+    if lanes > 1:
+        if depth is None:
+            depth = tree_depth(skip, face)
+        stack_cap = stack_entries(lanes, depth)
+        if not stacks_in_shared(lanes, depth):
+            gstack = i32(T * stack_cap)
     beams = (box.data_ptr(), N, center.data_ptr(), axis.data_ptr(),
              tan_half.data_ptr(), radius.data_ptr(), valid.data_ptr(), T,
-             float(t_max))
-    counts = torch.empty(T, dtype=torch.int32, device=dev)
-    KERNEL.check(KERNEL.launcher()(*beams, counts.data_ptr(), stream),
-                 "beam_cull count")
+             float(t_max), lanes, capacity, stack_cap,
+             0 if gstack is None else gstack.data_ptr())
+    counts = i32(T)
+    sfaces = i32(T * capacity)
+    sdnear = torch.empty(T * capacity, dtype=torch.float32, device=dev)
+    KERNEL.check(KERNEL.launcher()(*beams, counts.data_ptr(),
+                                   sfaces.data_ptr(), sdnear.data_ptr(),
+                                   stream), "beam_cull walk")
     KERNEL.launches += 1
     offsets = torch.zeros(T + 1, dtype=torch.int64, device=dev)
     torch.cumsum(counts, 0, out=offsets[1:])
-    total, sizes, order = _summary(counts, offsets, pad_to)
-    faces = torch.empty(total, dtype=torch.int32, device=dev)
+    total, sizes, order, over = _summary(counts, offsets, pad_to, capacity)
+    faces = i32(total)
     dnear = torch.empty(total, dtype=torch.float32, device=dev)
-    KERNEL.check(KERNEL.lib.lbt_beam_cull_fill(
-        *beams, offsets.data_ptr(), faces.data_ptr(), dnear.data_ptr(),
-        stream), "beam_cull fill")
+    KERNEL.check(KERNEL.lib.lbt_beam_cull_place(
+        *beams, counts.data_ptr(), sfaces.data_ptr(), sdnear.data_ptr(),
+        offsets.data_ptr(), faces.data_ptr(), dnear.data_ptr(), stream),
+        "beam_cull place")
     KERNEL.launches += 2
-    return CullLists(counts, offsets, faces, dnear, order, sizes)
+    return CullLists(counts, offsets, faces, dnear, order, sizes, over)
 
 
 def cull_rays(nodes, origin, direction, rays_per_beam: int,
               t_max: float | None, pad_to: int = 8, *,
-              narrow_only: bool = False):
+              narrow_only: bool = False, depth: int | None = None):
     """(lists, beams) of the beams of ``rays_per_beam`` consecutive rays,
     ``origin``/``direction`` (N, 3) f32 on the nodes' device: the float64
-    beams (`geom/beamcull.py::tile_beams_torch`), then `beam_cull`.
+    beams (`geom/beamcull.py::tile_beams_torch`), then `beam_cull` (on a
+    tree of ``depth``).
     ``t_max`` None is `_collect_candidates`' rule (one host read).  With
     ``narrow_only``, None when a beam is too wide to cull
     (`beams_are_narrow`; one host read)."""
@@ -223,7 +322,8 @@ def cull_rays(nodes, origin, direction, rays_per_beam: int,
     if t_max is None:
         box = nodes[0]
         t_max = readback(cull_t_max_torch(box[0, :3], box[0, 3:], beams))
-    return beam_cull(nodes, *walk_inputs(beams), t_max, pad_to), beams
+    return beam_cull(nodes, *walk_inputs(beams), t_max, pad_to,
+                     depth=depth), beams
 
 
 def list_rows(lists: CullLists, ids: torch.Tensor, size: int) -> torch.Tensor:
@@ -340,30 +440,27 @@ def _near_plain(c, a, r, box, k: _F32):
     return _max(dn, k.zero)
 
 
-def cull_plain(nodes, center, axis, tan_half, radius, valid, t_max: float,
-               stats: dict | None = None):
-    """Plain PyTorch version of K5: (counts (T,) i32, offsets (T + 1,) i64,
-    faces (total,) i32, dnear (total,) f32), bit-equal to the kernel.
-
-    A frontier over (beam, node) pairs from the root: each pair is tested
-    (`_overlap_plain`, at most `PLAIN_PAIRS` at a time), a leaf that passes
-    joins its beam's list with its near distance, an internal node that
-    passes gives its two children (node + 1 and that child's skip link).
-    The lists are then sorted by (beam, dnear, face).  ``stats``, when
-    given, gets the node tests, those that reached the ternary search and
-    the leaves listed (the work the kernel's bound counts).
-    """
+def _frontier(nodes, center, axis, tan_half, radius, valid, t_max: float,
+              k: _F32, stats: dict | None = None):
+    """(beam, face, dnear) of every listed leaf of the valid beams, in the
+    frontier's order: each (beam, node) pair is tested
+    (`_overlap_plain`, at most `PLAIN_PAIRS` at a time), a leaf that
+    passes joins its beam's list with its near distance, an internal node
+    that passes gives its two children (node + 1 and that child's skip
+    link).  ``stats`` gets the node tests and those that reached the
+    ternary search."""
     box, skip, face = nodes
     dev = center.device
-    k = _F32(dev)
     tm = torch.tensor(float(t_max), dtype=torch.float32, device=dev)
-    T, N = center.shape[0], face.shape[0]
+    N = face.shape[0]
     ct, at = center.t(), axis.t()
     pair_t = torch.nonzero(valid.bool())[:, 0]
     pair_n = torch.zeros_like(pair_t)
     if N == 0:
         pair_t = pair_n = pair_t[:0]
-    out_t, out_f, out_d = [], [], []
+    out_t = [pair_t[:0]]
+    out_f = [torch.zeros(0, dtype=torch.int32, device=dev)]
+    out_d = [torch.zeros(0, dtype=torch.float32, device=dev)]
     n_tests = n_ternary = 0
     while pair_t.numel():
         hit = torch.empty(pair_t.shape, dtype=torch.bool, device=dev)
@@ -388,21 +485,70 @@ def cull_plain(nodes, center, axis, tan_half, radius, valid, t_max: float,
         more = right < N
         pair_t = torch.cat([it, it[more]])
         pair_n = torch.cat([left, right[more]])
-    beam = torch.cat(out_t) if out_t else torch.zeros(0, dtype=torch.int64,
-                                                      device=dev)
-    fcs = torch.cat(out_f) if out_f else torch.zeros(0, dtype=torch.int32,
-                                                     device=dev)
-    dn = torch.cat(out_d) if out_d else torch.zeros(0, dtype=torch.float32,
-                                                    device=dev)
+    if stats is not None:
+        stats["node_tests"] = stats.get("node_tests", 0) + n_tests
+        stats["ternary_tests"] = stats.get("ternary_tests", 0) + n_ternary
+    return torch.cat(out_t), torch.cat(out_f), torch.cat(out_d)
+
+
+def _through_scratch(beam, fcs, dn, counts, capacity: int, rewalk):
+    """K5's place pass on the walk's entries: each beam's first
+    ``capacity`` entries in walk order are what its scratch holds
+    ((T, capacity) faces and near distances); a beam of at most
+    ``capacity`` is copied from there, one over it is walked again
+    (``rewalk(mask)``: (beam, face, dnear) of the beams ``mask`` names).
+    Returns the entries placed, unsorted."""
+    T = counts.shape[0]
+    dev = beam.device
+    by_beam = torch.argsort(beam, stable=True)
+    start = torch.zeros(T + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(counts.long(), 0, out=start[1:])
+    pos = torch.arange(beam.numel(), device=dev) - start[beam[by_beam]]
+    kept = by_beam[pos < capacity]
+    slot = pos[pos < capacity]
+    sf = torch.full((T, capacity), -1, dtype=torch.int32, device=dev)
+    sd = torch.zeros((T, capacity), dtype=torch.float32, device=dev)
+    sf[beam[kept], slot] = fcs[kept]
+    sd[beam[kept], slot] = dn[kept]
+    fits = counts.long() <= capacity
+    col = torch.arange(capacity, device=dev)
+    take = fits[:, None] & (col[None, :] < counts.long()[:, None])
+    rows = torch.arange(T, device=dev)[:, None].expand(T, capacity)
+    rt, rf, rd = rewalk(~fits)
+    return (torch.cat([rows[take], rt]), torch.cat([sf[take], rf]),
+            torch.cat([sd[take], rd]))
+
+
+def cull_plain(nodes, center, axis, tan_half, radius, valid, t_max: float,
+               stats: dict | None = None, capacity: int | None = None):
+    """Plain PyTorch version of K5: (counts (T,) i32, offsets (T + 1,) i64,
+    faces (total,) i32, dnear (total,) f32), bit-equal to the kernel.
+
+    The walk is a frontier over (beam, node) pairs from the root
+    (`_frontier`); with ``capacity``, its entries then go through K5's
+    scratch of that many entries a beam (`_through_scratch`: the beams
+    over it walked again), which gives the same lists.  The lists are then
+    sorted by (beam, dnear, face).  ``stats``, when given, gets the node
+    tests, those that reached the ternary search and the leaves listed of
+    the first walk (the work the kernel's bound counts).
+    """
+    k = _F32(center.device)
+    T = center.shape[0]
+    walk = lambda ok: _frontier(nodes, center, axis, tan_half, radius, ok,
+                                t_max, k, stats)
+    beam, fcs, dn = walk(valid)
+    counts = torch.bincount(beam, minlength=T).to(torch.int32)
+    if stats is not None:
+        stats["leaves"] = stats.get("leaves", 0) + int(beam.numel())
+    if capacity is not None:
+        beam, fcs, dn = _through_scratch(
+            beam, fcs, dn, counts, capacity,
+            lambda over: _frontier(nodes, center, axis, tan_half, radius,
+                                   valid.bool() & over, t_max, k))
     # (beam, dnear, face) order; -0 and +0 compare equal, as in the host
     idx = torch.argsort(fcs, stable=True)
     idx = idx[torch.argsort((dn + k.zero)[idx], stable=True)]
     idx = idx[torch.argsort(beam[idx], stable=True)]
-    counts = torch.bincount(beam, minlength=T).to(torch.int32)
-    offsets = torch.zeros(T + 1, dtype=torch.int64, device=dev)
+    offsets = torch.zeros(T + 1, dtype=torch.int64, device=center.device)
     torch.cumsum(counts, 0, out=offsets[1:])
-    if stats is not None:
-        stats["node_tests"] = stats.get("node_tests", 0) + n_tests
-        stats["ternary_tests"] = stats.get("ternary_tests", 0) + n_ternary
-        stats["leaves"] = stats.get("leaves", 0) + int(beam.numel())
     return counts, offsets, fcs[idx].contiguous(), dn[idx].contiguous()

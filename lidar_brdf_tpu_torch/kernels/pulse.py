@@ -430,9 +430,10 @@ class PulseLadderTraverser:
         a group's cone is too wide to cull (one host read)."""
         put = lambda a: torch.as_tensor(a).to(
             self.device, torch.float32).reshape(-1, 3).contiguous()
-        res = cull_rays(self.nodes(bvh), put(origin), put(direction),
+        nodes = self.nodes(bvh)
+        res = cull_rays(nodes, put(origin), put(direction),
                         self.kernel_rays, t_max, CAND_BLOCK,
-                        narrow_only=narrow_only)
+                        narrow_only=narrow_only, depth=self.nodes.depth)
         return None if res is None else res[0]
 
     def prepare(self, bvh: BVH, origin, direction,

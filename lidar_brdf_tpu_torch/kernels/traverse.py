@@ -382,8 +382,9 @@ class TileTraverser:
         With ``narrow_only``, None when a tile's beam is too wide to cull
         (`beams_are_narrow`; one host read)."""
         o, d = self._pad(origin, direction)
-        return cull_rays(self.nodes(bvh), o, d, self.tile_rays, t_max,
-                         pad_to, narrow_only=narrow_only)
+        nodes = self.nodes(bvh)
+        return cull_rays(nodes, o, d, self.tile_rays, t_max, pad_to,
+                         narrow_only=narrow_only, depth=self.nodes.depth)
 
     def build_buckets(self, bvh: BVH, origin, direction,
                       t_max: float | None = None):

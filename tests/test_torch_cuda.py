@@ -563,17 +563,25 @@ def test_step_grads_card_match_cpu(card, kind):
         assert set(errs) == {"brdf_table", "origin", "vertices"}
 
 
-@pytest.mark.parametrize("case", range(4))
+@pytest.mark.parametrize("case", range(10))
 def test_beam_cull_matches_plain(card, case):
-    """K5 on the fan over boxes (tiles of 128 rays, pulses of 4) and on
-    beams planted at the slack of leaf boxes (a wide beam's list of 20,000
-    faces sorted in device memory): `LAUNCHES` launches a call, everything
-    bit-equal to `cull_plain` (`chip_smoke.compare_k5`)."""
-    name, nodes, ins, t_max, kind, beams, face_box, _ = \
-        chip_smoke.k5_small_cases()[case]
+    """K5 on the fan over boxes (tiles of 128 rays, pulses of 4), on beams
+    planted at the slack of leaf boxes (a wide beam's list of 20,000 faces,
+    over the scratch's capacity, walked again and sorted in device memory)
+    and on a chain too deep for shared stacks, each on its scheduled path;
+    then a thread a beam where a warp was scheduled, and the overflow path
+    forced on both: `LAUNCHES` launches a call, everything bit-equal to
+    `cull_plain` (`chip_smoke.compare_k5`)."""
+    from lidar_brdf_tpu_torch.kernels import cull
+    cases = chip_smoke.k5_small_cases()
+    assert len(cases) == 10
+    name, nodes, ins, t_max, kind, beams, face_box, _, opts = cases[case]
     rec = chip_smoke.compare_k5(name, nodes, ins, t_max, kind=kind,
-                                beams=beams, face_box=face_box)
-    assert rec["launches"] == 3 and rec["candidates"] > 0
+                                beams=beams, face_box=face_box, **opts)
+    assert rec["launches"] == cull.LAUNCHES and rec["candidates"] > 0
+    assert rec["lanes"] == opts.get("lanes", cull.schedule(rec["beams"])[0])
+    if "capacity" in opts or rec["longest"] > rec["capacity"]:
+        assert rec["overflow"] > 0
 
 
 def test_beam_cull_of_no_beams_launches_nothing(card):

@@ -444,3 +444,174 @@ def test_sharded_prepare_culls_on_the_device(native_cull_raises):
         assert len(data) >= 1
     assert len(native_cull_raises) == 2
     assert math.isfinite(tr.t_max)
+
+
+# ---------------------------------------------------------------------------
+# K5's schedule, scratch and stacks (the wrapper's torch steps, on the CPU)
+# ---------------------------------------------------------------------------
+
+def test_schedule_takes_a_warp_for_few_beams_a_thread_for_many():
+    """`cull.schedule`: a block a beam up to `GROUP_BEAMS` beams, one
+    thread a beam above; the capacity a power of two in [CAP_MIN, CAP_MAX] that
+    keeps the scratch near `SCRATCH_ENTRIES`."""
+    assert cull.schedule(2048) == (128, 1024)         # a `tls` chunk
+    assert cull.schedule(131072) == (1, 32)           # an `als` chunk
+    assert cull.schedule(cull.GROUP_BEAMS)[0] == cull.GROUP_LANES
+    assert cull.schedule(cull.GROUP_BEAMS + 1)[0] == 1
+    for T in (0, 1, 19, 1000, 4097, 8192, 8193, 50_000, 1 << 20):
+        lanes, cap = cull.schedule(T)
+        assert cap & (cap - 1) == 0
+        assert cull.CAP_MIN <= cap <= cull.CAP_MAX
+        assert T * cap <= max(cull.SCRATCH_ENTRIES, T * cull.CAP_MIN)
+        assert cap == cull.CAP_MAX or 2 * cap * T > cull.SCRATCH_ENTRIES
+
+
+@pytest.mark.parametrize("kind", ["tile", "pulse"])
+def test_lists_through_a_small_scratch_match_plain(scene_case, kind):
+    """`beam_cull` on the CPU through a scratch of a forced small capacity
+    (some beams over it, walked again) gives `cull_plain`'s CSR bit for
+    bit, the same sizes and order, and counts the beams over capacity in
+    its one read."""
+    name, scene, tree, ttree, nodes = scene_case
+    o, d, R = _rays(kind, seed=30 + len(name))
+    beams = tbc.tile_beams_torch(torch.from_numpy(o), torch.from_numpy(d), R)
+    ins = cull.walk_inputs(beams)
+    want = cull.cull_plain(nodes, *ins, T_MAX)
+    longest = int(want[0].max())
+    assert longest > 2
+    for cap in (1, 2, longest - 1, longest):
+        before = cull.READBACKS
+        got = cull.beam_cull(nodes, *ins, T_MAX, capacity=cap)
+        assert cull.READBACKS - before == 1
+        for g, w in zip(got[:4], want):
+            assert chip_smoke.same_tensors(g, w)
+        assert got.overflow == int((want[0] > cap).sum())
+        assert (got.overflow > 0) == (cap < longest)
+        ref = cull.lists_of(*want)
+        assert got.sizes == ref.sizes and torch.equal(got.order, ref.order)
+
+
+def test_scratch_copies_short_lists_and_rewalks_long_ones():
+    """`_through_scratch` on hand-made entries: a beam within capacity is
+    taken from its scratch row (its first entries in walk order), a beam
+    over it only from the second walk."""
+    beam = torch.tensor([2, 0, 2, 2, 0])
+    fcs = torch.tensor([7, 3, 5, 9, 1], dtype=torch.int32)
+    dn = torch.tensor([0.5, 0.1, 0.2, 0.3, 0.4])
+    counts = torch.tensor([2, 0, 3], dtype=torch.int32)
+    asked = []
+
+    def rewalk(mask):
+        asked.append(mask.tolist())
+        return (torch.tensor([2, 2, 2]),
+                torch.tensor([70, 50, 90], dtype=torch.int32),
+                torch.tensor([5.0, 2.0, 3.0]))
+
+    b, f, d = cull._through_scratch(beam, fcs, dn, counts, 2, rewalk)
+    assert asked == [[False, False, True]]
+    assert b.tolist() == [0, 0, 2, 2, 2]
+    assert f.tolist() == [3, 1, 70, 50, 90]
+    assert d.tolist() == pytest.approx([0.1, 0.4, 5.0, 2.0, 3.0])
+
+
+def _depth_by_parents(skip, face):
+    """Each node's depth from its parent's, in pre-order (a parent comes
+    before its children), children as `cull_plain` expands them."""
+    N = face.shape[0]
+    depth = np.full(N, -1)
+    if N:
+        depth[0] = 0
+    for n in range(N):
+        if face[n] < 0:
+            for c in (n + 1, skip[n + 1]):
+                if c < N:
+                    depth[c] = depth[n] + 1
+    return int(depth.max()) if N else -1
+
+
+def _group_walk(passes, skip, face, G):
+    """K5's group walk of one beam on the host (``passes[node]``: the
+    beam's test of the node): each round pops up to G nodes from the top,
+    appends the leaves that pass and pushes both children of each internal
+    node that passes, lanes in order.  Returns (faces listed, the most
+    nodes the stack held)."""
+    N = face.shape[0]
+    stack, listed, most = [0], [], 1
+    while stack:
+        take = stack[-G:][::-1]           # lane i pops stack[sp - 1 - i]
+        del stack[-G:]
+        pushed = []
+        for node in take:
+            if not passes[node]:
+                continue
+            if face[node] >= 0:
+                listed.append(int(face[node]))
+            else:
+                pushed.append(node + 1)
+                if skip[node + 1] < N:
+                    pushed.append(int(skip[node + 1]))
+        stack += pushed
+        most = max(most, len(stack))
+    return listed, most
+
+
+def test_tree_depth_and_group_stacks_bound(scene_case):
+    """`tree_depth` on the city, terrain and water trees equals the depth
+    found from the parents; K5's group walk of every lane count, on the
+    wide beam over the whole scene (every node passes) and on the scans'
+    tile beams, lists the plain version's faces and never holds more than
+    `stack_entries(lanes, depth)` nodes; the trees' stacks fit shared
+    memory, a chain of depth 120's do not."""
+    name, scene, tree, ttree, nodes = scene_case
+    box, skip, face = nodes
+    depth = cull.tree_depth(skip, face)
+    sk, fc = skip.numpy(), face.numpy()
+    assert depth == _depth_by_parents(sk, fc) > 0
+    assert all(cull.stacks_in_shared(g, depth) for g in (1, 4, 32, 128))
+    chain, _ = chip_smoke.chain_tree(chip_smoke.CHAIN_DEPTH, "cpu")
+    assert cull.tree_depth(chain[1], chain[2]) == chip_smoke.CHAIN_DEPTH
+    assert not cull.stacks_in_shared(32, chip_smoke.CHAIN_DEPTH)
+    wide, _ = chip_smoke.planted_slack_beams(ttree, T_MAX)
+    o, d, R = _rays("tile", seed=40)
+    tiles = cull.walk_inputs(tbc.tile_beams_torch(
+        torch.from_numpy(o), torch.from_numpy(d), R))
+    k = cull._F32("cpu")
+    tm = torch.tensor(T_MAX, dtype=torch.float32)
+    N = fc.shape[0]
+    for ins, beams in ((wide, [0]), (tiles, [0, 3, 5])):
+        counts, offsets, faces, _ = cull.cull_plain(nodes, *ins, T_MAX)
+        for t in beams:
+            c, a, tan, r = (x[t:t + 1] for x in ins[:4])
+            passes, _ = cull._overlap_plain(
+                c.t().expand(3, N), a.t().expand(3, N), tan.expand(N),
+                r.expand(N), box, tm, k)
+            want = sorted(faces[offsets[t]:offsets[t + 1]].tolist())
+            for G in (1, 2, 4, 8, 16, 32, 128):
+                listed, most = _group_walk(passes.numpy(), sk, fc, G)
+                assert sorted(listed) == want
+                assert most <= cull.stack_entries(G, depth)
+
+
+VARIANTS = ["base", "thread", "lanes=2", "lanes=32", "lanes=64",
+            "lanes=256", "unpostponed", "postponed=16"]
+
+
+@pytest.mark.parametrize("name", VARIANTS)
+def test_k5_variant_script_edits_apply(name, monkeypatch):
+    """`scripts/k5_variants.py` makes each variant by a text change of K5's
+    source: every change still finds its text there, as often as the
+    variant expects."""
+    import importlib
+    import pathlib
+    monkeypatch.syspath_prepend(
+        str(pathlib.Path(__file__).parent.parent / "scripts"))
+    mod = importlib.import_module("k5_variants")
+    base = open(cull.KERNEL.source).read()
+    out = mod.source(name, base)
+    assert (out == base) == (name in ("base", "thread"))
+    if name.startswith("lanes="):
+        assert f"launch<{name[6:]}>" in out
+    if name == "unpostponed":
+        assert "__ballot_sync(FULL, wait)" not in out
+    if name.startswith("postponed="):
+        assert f"POSTPONE = {name[10:]};" in out
