@@ -162,6 +162,20 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    Each culled scan's point count and peak device memory are printed
    beside the host cull's, as `PERF.md` section 5 records them
    (`[points]`).
+14. The multi-card scaling evidence (`lidar_brdf_tpu_torch/
+   bench_scaling.py`), before phase 8: each rank's share of the `tls` and
+   `als` fwd+bwd steps (`multihost.pulse_range`) at 1, 2, 4 and 8 ranks,
+   every share stepped on the card one after another through the port's
+   bench (the `als` terrain of phase 4 shared): K1 (`tls`) or K2 (`als`)
+   once a step and K5 3 times in each share's cull, every share's loss
+   finite; the bytes one step all-reduces, leaf by leaf, equal to what a
+   world-1 `sharded_train_step` hands to `all_reduce` on the card; the ring
+   all-reduce model (`analysis`: stated link rates, phase 11a's 1-rank
+   all_reduce time charged on every hop) and its weak and strong bounds
+   at 2, 4 and 8 cards and 2 nodes, each beside the bound from the bytes
+   alone.  `[scaling]` lines: share steps (the median of 3 windows of 3
+   steps, with their spread), buckets, busy shares, peak device bytes,
+   bytes, bounds, each beside the card's name and power limit.
 8. Profiles, last so that they disturb no timed phase: K1's device time on
    the `tls` chunk, K2's on the `als` chunk (as the Simulator calls it, and
    with the wrapper's two output fills instead), and K3's and
@@ -3600,6 +3614,110 @@ def phase_multirank(tls, als):
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the multi-card scaling evidence, each rank's share of the step
+# ---------------------------------------------------------------------------
+
+SCALING_WORLDS = (1, 2, 4, 8)   # phase 14: ranks whose shares are stepped
+SCALING_ITERS = 3               # phase 14: steps in a timed window
+SCALING_WINDOWS = 3             # phase 14: timed windows a share
+
+
+def scaling_alpha(multirank) -> dict:
+    """Phase 14's alpha: the least of phase 11a's 1-rank all_reduce times
+    (NCCL on the card), a whole call's overhead."""
+    times = multirank["nccl"]["paths"]["tile"]["all_reduce"]
+    return dict(alpha_s=min(v["ms"] for v in times.values()) * 1e-3,
+                backend=multirank["nccl"]["backend"])
+
+
+def phase_scaling(als, alpha: dict) -> dict:
+    """Phase 14: `bench_scaling.run` for the `tls` and `als` configs at
+    each N of SCALING_WORLDS (every share stepped on the card, one after
+    another; the `als` scene of phase 4 shared) with ``alpha``
+    (`scaling_alpha`): the bytes a step all-reduces (`allreduce_bytes`,
+    which `run` holds against what a world-1 `sharded_train_step` hands to
+    `all_reduce` on the card), the shares, `analysis`.  Fails where `run`
+    raises, on a share whose loss is not finite, or on a share that
+    launched other kernels than its traversal kernel once a step and K5 in
+    its cull."""
+    from lidar_brdf_tpu_torch import bench_scaling as bs
+    t_start = time.perf_counter()
+    scene, bvh, cfg, mats, rays = als
+    setups = {
+        "tls": bs.config_setup("tls", DEVICE, pulses=TLS_PULSES,
+                               num_tris=TLS_TRIS),
+        "als": bs.config_setup("als", DEVICE, num_tris=ALS_TRIS, workload=(
+            scene, bvh, cfg.with_(chunk_pulses=rays.num_pulses),
+            rays.to("cpu"), mats))}
+    kinds = {c: PATH_KERNEL["tile" if s.kind == "tile" else "ladder"]
+             for c, s in setups.items()}
+    card = setups["tls"].card
+
+    def check(config, n, m):
+        for s in m["shares"]:
+            if not math.isfinite(s["loss"]):
+                fail(f"{config}: share {s['rank']} of {n} gave the "
+                     f"loss {s['loss']}")
+            expect_launches(
+                f"{config}: share {s['rank']} of {n}", s["launches"],
+                {kinds[config]: bs.steps_per_share(SCALING_ITERS,
+                                                   SCALING_WINDOWS),
+                 "K5": k5_launches()})
+            busy = "n/a" if s["busy"] is None else f"{s['busy']:.3f}"
+            log(f"[scaling] {config} share {s['rank']} of {n}: "
+                f"{s['pulses']} pulses, {s['buckets']} buckets of "
+                f"{s['rows']} rows, cull {s['cull_s']:.3f} s, step "
+                f"{s['step_s'] * 1e3:.2f} ms (median of {m['windows']} "
+                f"windows of {m['iters']}, spread {s['spread']:.3f}), busy "
+                f"{busy}, loss {s['loss']:.6e}, peak device bytes "
+                f"{s['peak_bytes']} ({card})")
+        log(f"[scaling] {config} at {n} share(s): slowest "
+            f"{m['slowest_step_s'] * 1e3:.2f} ms (share "
+            f"{m['slowest_rank']}), fastest "
+            f"{m['fastest_step_s'] * 1e3:.2f} ms ({card})")
+
+    try:
+        res = bs.run(worlds=SCALING_WORLDS, iters=SCALING_ITERS,
+                     windows=SCALING_WINDOWS, setups=setups, alpha=alpha,
+                     check=check)
+    except RuntimeError as exc:
+        fail(str(exc))
+    for config, r in res["allreduce_bytes"].items():
+        log(f"[scaling] {config} all-reduced bytes a step, by collective: "
+            + ", ".join(f"{k} {b}" for k, b in r["leaves"].items())
+            + f"; total {r['total']} (the root script's two terms "
+            f"{r['jax_terms']['total_psum_bytes']}: table "
+            f"{r['jax_terms']['brdf_table_bytes']}, vertices "
+            f"{r['jax_terms']['vertex_grad_bytes']}); equal to a world-1 "
+            f"step's on {card}")
+    for config, m in res["analysis"]["configs"].items():
+        log(f"[scaling] {config} analysis, t1 {m['t1_s'] * 1e3:.2f} ms "
+            f"(windows spread {m['t1_spread']:.3f}), alpha "
+            f"{alpha['alpha_s'] * 1e3:.4f} ms (a 1-rank {alpha['backend']} "
+            f"call, charged on every hop), links assumed (NVLink "
+            f"{bs.NVLINK_BYTES_S:.3g} B/s, node link "
+            f"{bs.NODE_LINK_BYTES_S:.3g} B/s): " + "; ".join(
+                f"{name}: all-reduce {c['allreduce_s'] * 1e3:.4f} ms (bytes "
+                f"alone {c['bandwidth_s'] * 1e3:.4f}), weak "
+                f"{c['weak_bound']:.4f} (bytes alone "
+                f"{c['weak_bound_bytes_only']:.4f}), strong "
+                + ("not measured here" if c["strong_bound"] is None
+                   else f"{c['strong_bound']:.4f} (bytes alone "
+                        f"{c['strong_bound_bytes_only']:.4f})")
+                for name, c in m["cases"].items()) + f" ({card})")
+    res["seconds"] = time.perf_counter() - t_start
+    log(f"[scaling] phase 14 took {res['seconds']:.1f} s")
+    return res
+
+
+def scaling_launches(scaling, config, kernel) -> dict:
+    """{N: [``kernel``'s launches in each share]} of phase 14's
+    ``config``."""
+    return {n: [s["launches"][kernel] for s in m["shares"]]
+            for n, m in scaling["measured"][config].items()}
+
+
+# ---------------------------------------------------------------------------
 # phase 12: the JAX package's last entry points on the card, and the scans
 # with no cull end to end
 # ---------------------------------------------------------------------------
@@ -4036,6 +4154,11 @@ def main() -> int:
         "cull's: " + ", ".join(f"{k} {v} ({HOST_CULL_PEAK[k]})"
                                for k, v in peaks.items()))
     log(f"[phase 12] took {time.perf_counter() - t0:.1f} s")
+    scaling = phase_scaling(als, scaling_alpha(multirank))
+    k1["launches_scaling"] = scaling_launches(scaling, "tls", "K1")
+    k2["launches_scaling"] = scaling_launches(scaling, "als", "K2")
+    k5["launches_scaling"] = {c: scaling_launches(scaling, c, "K5")
+                              for c in ("tls", "als")}
     phase_profiles(k1_chunk_data, k1, k3, k2_chunk_data, k2)
     log(json.dumps({"card": card, "tls_forward": tls_fwd,
                     "files": files, "runtime": runtime,
@@ -4044,7 +4167,7 @@ def main() -> int:
                     "tls_packet_walk_forward": tls_walk,
                     "traverser_choice": choice, "fwd_bwd": training,
                     "entry_points": entry, "no_cull": no_cull,
-                    "points": points,
+                    "points": points, "scaling": scaling,
                     "seconds": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": [k1, k2, k3, k4, k5]}))
     log(json.dumps({"ok": True, "device": {

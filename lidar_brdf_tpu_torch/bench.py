@@ -204,32 +204,48 @@ class Workload:
         return self.rays.num_pulses * self.rays.rays_per_pulse
 
 
+def bsp_block(rays_per_pulse: int) -> int:
+    """Pulses of a BSP block, and of a tile: the Simulator's tile width,
+    640 // R pulses rounded so that a tile holds a multiple of 128 rays
+    (= 640 // R at the configs' R = 10)."""
+    step = 128 // math.gcd(128, rays_per_pulse)
+    return -(-max(1, 640 // rays_per_pulse) // step) * step
+
+
+def make_traverser(scene, kind: str, rays_per_pulse: int, device="cuda"):
+    """The bench's traverser over ``scene`` (its Wald table built here):
+    `TileTraverser` for ``kind="tile"``, `PulseLadderTraverser` for
+    ``kind="pulse"``."""
+    dev = resolve_device(device)
+    if kind == "tile":
+        return TileTraverser(
+            scene, tile_rays=bsp_block(rays_per_pulse) * rays_per_pulse,
+            device=dev)
+    if kind == "pulse":
+        return PulseLadderTraverser(scene, rays_per_pulse=rays_per_pulse,
+                                    device=dev)
+    raise ValueError(f"unknown traverser kind {kind!r}")
+
+
 def cull(scene, bvh, cfg, rays: RayBundle, materials, kind: str,
-         device="cuda") -> Workload:
+         device="cuda", traverser=None) -> Workload:
     """The bench's one cull at set-up (bench.py:210-298), with ``t_max =
     max_range * 1.2``.  Both kinds first take the BSP pulse order in blocks
-    of 640 // R pulses, as bench.py:228-231 does for every traverser; then
-    the rays are uploaded and culled on the device by K5:
+    of `bsp_block` pulses, as bench.py:228-231 does for every traverser;
+    then the rays are uploaded and culled on the device by K5:
     `TileTraverser.prepare` for ``kind="tile"``, or
     `PulseLadderTraverser.prepare_permuted` (ladders and the
-    bucket-contiguous pulse order) for ``kind="pulse"``.  ``cull_s`` is the
-    upload and the cull, to a synchronize."""
+    bucket-contiguous pulse order) for ``kind="pulse"``.  ``traverser``
+    (`make_traverser`'s, of the same kind and scene) is used in place of a
+    new one.  ``cull_s`` is the upload and the cull, to a synchronize."""
     dev = resolve_device(device)
     R = rays.rays_per_pulse
     t_max = float(cfg.max_range) * 1.2
-    # the Simulator's tile width: 640 // R pulses, rounded so that a tile
-    # holds a multiple of 128 rays (= 640 // R at the configs' R = 10)
-    step = 128 // math.gcd(128, R)
-    block = -(-max(1, 640 // R) // step) * step
-    order = bsp_order(rays, block)
+    order = bsp_order(rays, bsp_block(R))
     host = {k: as_numpy(getattr(rays, k))[order]
             for k in ("origin", "direction", "gps_time")}
-    if kind == "tile":
-        tr = TileTraverser(scene, tile_rays=block * R, device=dev)
-    elif kind == "pulse":
-        tr = PulseLadderTraverser(scene, rays_per_pulse=R, device=dev)
-    else:
-        raise ValueError(f"unknown traverser kind {kind!r}")
+    tr = traverser if traverser is not None else \
+        make_traverser(scene, kind, R, dev)
     t0 = time.perf_counter()
     on_dev = RayBundle(**{k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
                           for k, v in host.items()})

@@ -4,12 +4,13 @@
 
     python -m lidar_brdf_tpu_torch.parallel.worker <rank> <world> <port> \\
         <outdir> --device {cpu,cuda} --backend {gloo,nccl} \\
-        --workload {small,tls,als} [...] [--pulses N]
+        --workload {small,tls,als,fan} [...] [--pulses N]
 
 A rank joins the group at ``tcp://127.0.0.1:<port>`` and, for each
 workload, reads the replicated scene, BVH and materials from
 ``<outdir>/<workload>.npz`` (written once by the caller, `write_replicated`,
-so that no rank builds a scene), generates only its own pulse range
+so that no rank builds a scene; with the sim-noise buffer when the
+caller gave one), generates only its own pulse range
 (`multihost.process_pulse_range`) and runs `run_workload`: the sharded
 forward on each of the workload's paths (tile cull: K1; pulse ladders
 through `prepare_sharded`: K2; no cull: the packet walk, K4), then a
@@ -43,7 +44,7 @@ from ..core import convert
 from ..core.config import LiDARType, SensorConfig, ShadingMode
 from ..core.types import RayBundle, as_numpy, resolve_device
 from ..geom.packet import make_packet_traverser
-from ..io import native
+from ..io import native, synthetic
 from ..kernels import cull, packet, pulse, traverse
 from ..kernels.pulse import PulseLadderTraverser
 from ..kernels.traverse import TileTraverser, default_t_max
@@ -69,20 +70,30 @@ WORKLOADS = {
     # the bench's `als` config (the terrain) over one chunk of the flight
     "als": dict(pulses=131072, paths=("ladder",),
                 steps=(("ladder", "materials"),), bsp=False),
+    # the root `bench_scaling.py`'s fan over a small city (:169-193): 2
+    # rays a pulse, the packet walk (the JAX mesh's path without a
+    # traverser), a "full" step against 1.2 x the forward's intensity
+    "fan": dict(pulses=8192, paths=("packet",), steps=(("packet", "full"),),
+                bsp=False, target=1.2),
 }
+TARGET = 1.3                 # a step's target over the forward's intensity
+FAN_RAYS_PULSE = 2           # the fan's rays a pulse
 TILE_PULSES = 64             # pulses of a K1 tile (the bench's block)
 LEAVES = ("refractive_index", "roughness", "brdf_table", "reflectivity_f0")
 KERNELS = {"K1": traverse.KERNEL, "K2": pulse.KERNEL, "K4": packet.KERNEL,
            "K5": cull.KERNEL}
 
 
-def write_replicated(path: str, scene, bvh, materials) -> None:
-    """The replicated arrays of a workload (scene, BVH, materials) in one
-    uncompressed ``.npz`` that every rank reads."""
+def write_replicated(path: str, scene, bvh, materials, noise=None) -> None:
+    """The replicated arrays of a workload (scene, BVH, materials and, if
+    given, the sim-noise buffer the ranks draw from instead of their own)
+    in one uncompressed ``.npz`` that every rank reads."""
     arrays = {}
     for prefix, obj in (("scene", scene), ("bvh", bvh),
                         ("materials", materials)):
         arrays.update({f"{prefix}.{k}": v for k, v in obj.numpy().items()})
+    if noise is not None:
+        arrays["noise"] = np.asarray(as_numpy(noise), np.float32)
     np.savez(path, **arrays)
 
 
@@ -98,15 +109,62 @@ def read_replicated(path: str, device) -> tuple:
             convert.materials_from_numpy(part["materials"], device))
 
 
+def read_noise(path: str, device):
+    """The sim-noise buffer `write_replicated` stored, on ``device``; None
+    when it stored none."""
+    with np.load(path) as z:
+        return (torch.from_numpy(z["noise"]).to(device)
+                if "noise" in z.files else None)
+
+
 def _plan(cfg: SensorConfig, scene):
     lo, hi = scene.aabb()
     return plan_flight(cfg, as_numpy(lo), as_numpy(hi),
                        np.random.default_rng(cfg.seed))
 
 
+def fan_scene():
+    """The fan's scene: `city_scene(default_rng(11), 64)`, as the root
+    `bench_scaling.py::build_workload` builds it."""
+    return synthetic.city_scene(np.random.default_rng(11), num_buildings=64)
+
+
+def fan_config(total: int) -> SensorConfig:
+    """The fan's sensor over ``total`` pulses (the root
+    `bench_scaling.py`:174-179)."""
+    return SensorConfig(
+        lidar_type=LiDARType.TERRESTRIAL_SPHERICAL,
+        tls_position=(0.0, 12.0, 0.0), rays_per_pulse=FAN_RAYS_PULSE,
+        max_returns=1, chunk_pulses=total, include_shiny_surface_error=False,
+        shading_mode=ShadingMode.MEASURED)
+
+
+def fan_rays(total: int, lo: int, hi: int) -> RayBundle:
+    """Pulses [lo, hi) of the fan of ``total`` pulses, in the root
+    `bench_scaling.py`'s float64 arithmetic (:180-190): azimuths over the
+    full turn, elevations -0.9 to -0.3 rad, the pulse's rays 1 mm apart in
+    x and z, gps_time 0."""
+    R = FAN_RAYS_PULSE
+    az = np.linspace(0.0, 2 * np.pi, total, endpoint=False)[lo:hi]
+    el = np.linspace(-0.9, -0.3, total)[lo:hi]
+    d = np.stack([np.cos(el) * np.cos(az), np.sin(el),
+                  np.cos(el) * np.sin(az)], -1).astype(np.float32)
+    offs = (np.arange(R, dtype=np.float32)[None, :, None]
+            * np.array([0.001, 0.0, 0.001], np.float32))
+    o = (np.asarray(fan_config(total).tls_position, np.float32)
+         + np.zeros((hi - lo, 1, 3), np.float32) + offs)
+    return RayBundle(
+        origin=torch.from_numpy(o.astype(np.float32)),
+        direction=torch.from_numpy(
+            np.broadcast_to(d[:, None, :], (hi - lo, R, 3)).copy()),
+        gps_time=torch.zeros(hi - lo, dtype=torch.float32))
+
+
 def workload_config(name: str, total: int) -> SensorConfig:
     """The sensor of workload ``name`` over a scan of ``total`` pulses: the
     bench's config for `tls` and `als` (`bench.sensor_config`)."""
+    if name == "fan":
+        return fan_config(total)
     if name == "small":
         return SensorConfig(
             lidar_type=LiDARType.TERRESTRIAL_SPHERICAL,
@@ -124,7 +182,8 @@ def workload_config(name: str, total: int) -> SensorConfig:
 
 def workload_pulses(name: str, scene, pulses: int | None = None) -> int:
     """Pulses of workload ``name``'s whole scan: ``pulses`` cuts the `tls`
-    and `als` scans (default: 131,072; `als` at most its flight's)."""
+    and `als` scans (default: 131,072; `als` at most its flight's) and sets
+    the fan's (default: 8,192)."""
     if name == "small" or not pulses:
         pulses = WORKLOADS[name]["pulses"]
     if name == "als":
@@ -191,16 +250,18 @@ def time_all_reduce(mesh, tensors: dict, reps: int = 3) -> dict:
 
 
 def run_workload(name: str, mesh, replicated, total: int, lo: int, hi: int,
-                 *, t_max: float | None = None) -> dict:
+                 *, t_max: float | None = None, noise=None) -> dict:
     """One rank's share of workload ``name``: pulses [lo, hi) of its
     ``total``, on ``mesh.device``, through the sharded forward on each of
-    its paths and a training step (target: 1.3 x the forward's masked
-    intensity) on each step path, each run twice (the first call's time
-    and the second's; results and launch counts are the second's).
+    its paths and a training step (target: `TARGET`, or the workload's
+    ``target``, x the forward's masked intensity) on each step path, each
+    run twice (the first call's time and the second's; results and launch
+    counts are the second's).
 
     ``replicated``: (scene, BVH, materials) of `read_replicated`.  ``t_max``
     is the ladder path's (None: resolved over the mesh's ranks; a shard
-    computed alone passes the global value).  Returns the inputs (``cfg``,
+    computed alone passes the global value).  ``noise``: the sim-noise
+    buffer (None: `make_sim_noise(0)`).  Returns the inputs (``cfg``,
     ``rays``, ``noise``, ``scalars``), ``clouds`` {path: PointCloud},
     ``steps`` {path: (loss, updated materials, grads)}, ``traverse`` {path:
     (traverse_fn, data, packet_fn)} and ``summary`` (JSON-ready counts,
@@ -209,14 +270,16 @@ def run_workload(name: str, mesh, replicated, total: int, lo: int, hi: int,
     scene, bvh, materials = replicated
     dev = mesh.device
     cfg = workload_config(name, total)
-    rays = scan_rays(cfg, scene, lo, hi)
+    rays = (fan_rays(total, lo, hi) if name == "fan"
+            else scan_rays(cfg, scene, lo, hi))
     if spec["bsp"]:
         order = torch.from_numpy(bsp_order(rays, TILE_PULSES))
         rays = RayBundle(origin=rays.origin[order],
                          direction=rays.direction[order],
                          gps_time=rays.gps_time[order])
     rays = multihost.global_rays(rays, mesh)
-    noise = noise_mod.make_sim_noise(0, device=dev)
+    noise = (noise_mod.make_sim_noise(0, device=dev) if noise is None
+             else noise.to(dev))
     scalars = SimScalars.from_config(cfg, 0.0, dev)
     R = cfg.rays_per_pulse
     res = dict(cfg=cfg, rays=rays, noise=noise, scalars=scalars, clouds={},
@@ -253,7 +316,8 @@ def run_workload(name: str, mesh, replicated, total: int, lo: int, hi: int,
     for path, grad_params in spec["steps"]:
         fn, data, pk = res["traverse"][path]
         cloud = res["clouds"][path]
-        target = torch.where(cloud.mask, cloud.intensity * 1.3,
+        target = torch.where(cloud.mask,
+                             cloud.intensity * spec.get("target", TARGET),
                              torch.zeros_like(cloud.intensity))
         step = shard.sharded_train_step(mesh, cfg, traverse_fn=fn,
                                         packet_fn=pk, grad_params=grad_params)
@@ -338,7 +402,7 @@ def main(argv=None) -> int:
                     required=True)
     ap.add_argument("--pulses", type=int, default=None,
                     help="pulses of the tls and als scans (default: "
-                         "131,072)")
+                         "131,072) or of the fan (default: 8,192)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     multihost.initialize_distributed(
@@ -352,12 +416,13 @@ def main(argv=None) -> int:
                    workloads={})
         for name in args.workload:
             t0 = time.perf_counter()
-            rep = read_replicated(os.path.join(args.outdir, f"{name}.npz"),
-                                  mesh.device)
+            npz = os.path.join(args.outdir, f"{name}.npz")
+            rep = read_replicated(npz, mesh.device)
+            noise = read_noise(npz, mesh.device)
             load_s = time.perf_counter() - t0
             total = workload_pulses(name, rep[0], args.pulses)
             lo, hi = multihost.process_pulse_range(total)
-            res = run_workload(name, mesh, rep, total, lo, hi)
+            res = run_workload(name, mesh, rep, total, lo, hi, noise=noise)
             out["workloads"][name] = save_rank(args.outdir, name, res)
             out["workloads"][name].update(
                 load_s=load_s, seconds=time.perf_counter() - t0)

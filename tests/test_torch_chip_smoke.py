@@ -478,3 +478,73 @@ def test_chip_smoke_refuses_without_a_card():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def _scaling_setup(monkeypatch):
+    from lidar_brdf_tpu_torch.runtime import simulate
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "TLS_PULSES", 1024)
+    monkeypatch.setattr(chip_smoke, "TLS_TRIS", 2000)
+    monkeypatch.setattr(chip_smoke, "ALS_PULSES", 1024)
+    monkeypatch.setattr(chip_smoke, "ALS_TRIS", 20_000)
+    monkeypatch.setattr(chip_smoke, "SCALING_ITERS", 1)
+    monkeypatch.setattr(chip_smoke, "SCALING_WINDOWS", 1)
+    monkeypatch.setattr(chip_smoke, "SCALING_WORLDS", (1, 3))
+    monkeypatch.setattr(simulate, "PULSE_MIN_FACES", 10_000)
+    return chip_smoke.als_workload("cpu")
+
+
+def test_chip_smoke_scaling_phase_on_cpu(monkeypatch, capsys):
+    """Phase 14 at a small size: every share of the `tls` and `als` steps
+    at 1 and 3 ranks (an uneven split), the byte check against a world-1
+    step, and the analysis; bounds only where the shares were stepped."""
+    res = chip_smoke.phase_scaling(_scaling_setup(monkeypatch),
+                                   {"alpha_s": 2e-5, "backend": "gloo"})
+    assert set(res["measured"]) == {"tls", "als"}
+    for config, by_world in res["measured"].items():
+        assert set(by_world) == {1, 3}
+        for n, m in by_world.items():
+            shares = m["shares"]
+            assert [s["rank"] for s in shares] == list(range(n))
+            assert shares[0]["lo"] == 0 and shares[-1]["hi"] == 1024
+            assert all(a["hi"] == b["lo"] for a, b in zip(shares, shares[1:]))
+            assert all(s["busy"] is None and s["peak_bytes"] is None
+                       for s in shares)
+            assert m["slowest_step_s"] == max(s["step_s"] for s in shares)
+    model = res["analysis"]["configs"]
+    for config in ("tls", "als"):
+        cases = model[config]["cases"]
+        assert cases["2 cards"]["strong_bound"] is None
+        assert 0 < cases["2 cards"]["weak_bound"] < 1
+        assert model[config]["measured_on"] == "cpu"
+    assert res["allreduce_bytes"]["tls"]["leaves"]["brdf_table"] == 1_965_600
+    out = capsys.readouterr().out
+    assert "[scaling] tls share 2 of 3" in out
+    assert "[scaling] als all-reduced bytes a step" in out
+    assert "equal to a world-1 step's on cpu" in out
+    assert "strong not measured here" in out
+    assert "[scaling] phase 14 took" in out
+
+
+def test_chip_smoke_scaling_phase_fails_loudly(monkeypatch):
+    """Phase 14 ends the run (non-zero exit) on bytes that differ from the
+    step's and on a share whose loss is not finite."""
+    from lidar_brdf_tpu_torch import bench_scaling as bs
+    als = _scaling_setup(monkeypatch)
+    alpha = {"alpha_s": 2e-5, "backend": "gloo"}
+    real = bs.step_allreduce_bytes
+    monkeypatch.setattr(bs, "step_allreduce_bytes",
+                        lambda setup: real(setup)[:-1])
+    with pytest.raises(SystemExit, match="all-reduced"):
+        chip_smoke.phase_scaling(als, alpha)
+    monkeypatch.setattr(bs, "step_allreduce_bytes", real)
+    measured = bs.measured_step
+
+    def nan_share(*a, **kw):
+        m = measured(*a, **kw)
+        m["shares"][-1]["loss"] = float("nan")
+        return m
+
+    monkeypatch.setattr(bs, "measured_step", nan_share)
+    with pytest.raises(SystemExit, match="loss nan"):
+        chip_smoke.phase_scaling(als, alpha)

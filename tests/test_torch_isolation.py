@@ -32,7 +32,7 @@ def test_importing_the_port_loads_no_jax():
               "runtime.checkpoint", "utils.analysis", "utils.regular_grid",
               "examples", "examples.fit_brdf", "examples.fit_pose",
               "examples.fit_geometry", "parallel", "parallel.multihost",
-              "parallel.shard", "parallel.worker"):
+              "parallel.shard", "parallel.worker", "bench_scaling"):
         assert "lidar_brdf_tpu_torch." + m in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
