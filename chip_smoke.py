@@ -9,10 +9,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 
 1. Card and build: prints the card's name and power limit, builds the CUDA
    tile kernel (K1), pulse-ladder kernel (K2), the bench's pre-flight
-   kernel (K3), the packet-walk kernel (K4) and the beam-cull kernel (K5)
-   from `lidar_brdf_tpu_torch/kernels/csrc/` into `build/kernels/` (one
-   nvcc each, started together) and launches each once (K1, K2 and K4 on
-   a one-triangle input, K5 on the one-node tree over it).
+   kernel (K3), the packet-walk kernel (K4), the beam-cull kernel (K5) and
+   the table-gradient scatter-add (K6) from
+   `lidar_brdf_tpu_torch/kernels/csrc/` into `build/kernels/` (one nvcc
+   each, started together) and launches each once (K1, K2 and K4 on a
+   one-triangle input, K5 on the one-node tree over it, K6 on two cells).
 2. Kernel vs plain version on the card: K3 equal bit for bit on the
    bench's (8, 128) tile, on 1M elements and on sizes that are no multiple
    of 4, timed beside `torch.addcmul` (CUDA events and host time per
@@ -68,9 +69,15 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    terrain of phase 4 at 131,072 pulses (L = 2, no face pack; the flight's
    pulse count cut so that the one cull stays ~5 s).  Launch counts
    are reset before each: K1 must launch once per `tls` step and K2 not, K2
-   once per `als` step and K1 not.  Gradients w.r.t. the BRDF table, the ray
-   origins and the vertices must be finite, each with a non-zero entry.
-   Prints rays/s fwd+bwd, the `BENCH_GRADS` split and host syncs per step.
+   once per `als` step and K1 not, and K6 (the BRDF table's gradient,
+   `physics/brdf.py::TableRead`) once per step of every `BENCH_GRADS`
+   setting but ``none``, where it must not launch.  Gradients w.r.t. the
+   BRDF table, the ray origins and the vertices must be finite, each with
+   a non-zero entry.  Prints rays/s fwd+bwd, the `BENCH_GRADS` split, host
+   syncs per step, and the device time by kernel of a profiled ``table``
+   and ``full`` step (the ``table`` step must launch no
+   `indexing_backward` kernel: the table's reads have no index backward);
+   one step's backward hands its K6 inputs to phase 15.
 7. Card vs CPU gradients at the sizes of phase 5: loss to rtol 1e-5, each
    gradient within atol 1e-4 * max|g| (scatter-add order on the card is not
    fixed, so gradients are not bitwise reproducible); and through the water
@@ -107,8 +114,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    checkpoint/resume on the forward config cut to 2 chunks (state cut to 1
    chunk, resumed by a new `Simulator`: K1 once, K5 3 times, the
    uninterrupted cloud);
-   (e) the three fit examples at their step counts (K4 once a step, finite
-   falling losses, step-0 loss equal to the CPU port's to rtol 1e-5).
+   (e) the three fit examples at their step counts (K4 once a step, K6
+   once a step of `fit_brdf` and never in the others, finite falling
+   losses, step-0 loss equal to the CPU port's to rtol 1e-5).
 11. Multi-rank scans and training steps on `torch.distributed`
    (`lidar_brdf_tpu_torch/parallel/`), before phase 8: (a) one rank over
    NCCL in this process: the `tls` workload at full width (131,072 pulses
@@ -116,7 +124,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    ``"full"`` `sharded_train_step`: the cloud equal to `simulate_chunk`'s
    bit for bit, gradients within phase 7's tolerance of a step with no
    collective, K1 once per call, K5 3 times in each culled path's
-   preparation; (b) 4 ranks over gloo sharing the card,
+   preparation, K6 once per step; (b) 4 ranks over gloo sharing the card,
    started as subprocesses by `parallel/worker.py::launch` (scenes handed
    over as one `.npz` each): the `tls` workload (K1 once per rank per
    forward and per step, K4 once per rank) and the `als` ladder path at
@@ -124,7 +132,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    forward and per step, one global `t_max`); every rank's PLY shards
    byte-equal to the parent's own shards, losses and gradients bit-equal
    across ranks and within phase 7's tolerance of the sum of the parent's
-   shards; K5 3 times in each rank's culled preparation.  `[multirank]`
+   shards; K5 3 times in each rank's culled preparation, K6 once per
+   step.  `[multirank]`
    lines: per rank wall, cull, forward and step times, each all_reduce's
    time and bytes.
 12. The JAX package's last entry points on the card, and the scans with
@@ -167,7 +176,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    `als` fwd+bwd steps (`multihost.pulse_range`) at 1, 2, 4 and 8 ranks,
    every share stepped on the card one after another through the port's
    bench (the `als` terrain of phase 4 shared): K1 (`tls`) or K2 (`als`)
-   once a step and K5 3 times in each share's cull, every share's loss
+   and K6 once a step and K5 3 times in each share's cull, every share's loss
    finite; the bytes one step all-reduces, leaf by leaf, equal to what a
    world-1 `sharded_train_step` hands to `all_reduce` on the card; the ring
    all-reduce model (`analysis`: stated link rates, phase 11a's 1-rank
@@ -176,6 +185,19 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    alone.  `[scaling]` lines: share steps (the median of 3 windows of 3
    steps, with their spread), buckets, busy shares, peak device bytes,
    bytes, bounds, each beside the card's name and power limit.
+15. K6, the table gradient's scatter-add, against its plain version
+   (`kernels/scatter.py::table_scatter_add_plain`, `index_add_`), after
+   phase 7: uniform random cells, every contribution on one cell
+   (2,097,152 x 8), two cells alternating, a count that is no multiple of
+   32 (W = 8, 4 and 1), a call with N = 0 (no launch), the masked-slot
+   pattern (most cotangents zero on one cell, one NaN), and the real
+   (idx, g) of the `tls` and `als` steps of phase 6, captured from one
+   step's backward: every cell within count_c * 2^-23 * sum_c |g| of the
+   plain version (count_c contributions to cell c; float atomics sum in
+   no fixed order), NaN at the same cells.  Timed by CUDA events on a
+   queue beside `index_put_(accumulate=True)` (autograd's index backward,
+   the port's path before K6) and `index_add_` on the same inputs, with
+   the bound of N W 8 + 8 n_cells bytes at 3.35 TB/s.  `[K6]` lines.
 8. Profiles, last so that they disturb no timed phase: K1's device time on
    the `tls` chunk, K2's on the `als` chunk (as the Simulator calls it, and
    with the wrapper's two output fills instead), and K3's and
@@ -500,6 +522,7 @@ def phase_card_and_build():
     from lidar_brdf_tpu_torch.kernels import cull
     from lidar_brdf_tpu_torch.kernels import packet as kpk
     from lidar_brdf_tpu_torch.kernels import pulse as pp
+    from lidar_brdf_tpu_torch.kernels import scatter
     from lidar_brdf_tpu_torch.kernels import traverse as tr
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -511,12 +534,12 @@ def phase_card_and_build():
     from lidar_brdf_tpu_torch.kernels import smoke
     # one nvcc per kernel source, started together
     libs = (("K1", tr.KERNEL), ("K2", pp.KERNEL), ("K3", smoke.KERNEL),
-            ("K4", kpk.KERNEL), ("K5", cull.KERNEL))
+            ("K4", kpk.KERNEL), ("K5", cull.KERNEL), ("K6", scatter.KERNEL))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(libs)) as pool:
         for fut in [pool.submit(k.build, True) for _, k in libs]:
             fut.result()
-    log(f"[build] K1-K5 built in {time.perf_counter() - t0:.2f} s "
+    log(f"[build] K1-K6 built in {time.perf_counter() - t0:.2f} s "
         f"({cuda_build.NVCC_FLAGS})")
     for name, k in libs:
         log(f"[build] {name} {os.path.basename(k.source)}: "
@@ -571,8 +594,15 @@ def phase_card_and_build():
     if lists.counts.tolist() != [1, 0] or lists.faces.tolist() != [0]:
         fail(f"K5 one-node launch gave counts {lists.counts.tolist()}, "
              f"faces {lists.faces.tolist()}")
-    log("[build] K1 one-tile, K2 one-ladder, K3 one-tile, K4 one-leaf and "
-        "K5 one-node launches ok")
+    # two cells: 1 on cell 0, 2 + 3 + 4 on cell 1 (exact in f32)
+    out = scatter.table_scatter_add(
+        torch.tensor([[0, 1], [1, 1]], dtype=torch.int32, device="cuda"),
+        f32([[1.0, 2.0], [3.0, 4.0]]), 3)
+    torch.cuda.synchronize()
+    if out.tolist() != [1.0, 9.0, 0.0]:
+        fail(f"K6 two-cell launch gave {out.tolist()}")
+    log("[build] K1 one-tile, K2 one-ladder, K3 one-tile, K4 one-leaf, "
+        "K5 one-node and K6 two-cell launches ok")
     return card
 
 
@@ -1104,18 +1134,19 @@ def phase_traverser_choice(tls, als, k1, als_sim):
     return out
 
 
-KERNELS = ("K1", "K2", "K4", "K5")  # the kernels of the scans
+KERNELS = ("K1", "K2", "K4", "K5", "K6")  # the scans' and steps' kernels
 
 
 def traversal_libs() -> dict:
-    """The scans' kernels' `CudaLibrary` by id: the traversals and the
-    beam cull."""
+    """The scans' and steps' kernels' `CudaLibrary` by id: the traversals,
+    the beam cull and the table gradient's scatter-add."""
     from lidar_brdf_tpu_torch.kernels import cull
     from lidar_brdf_tpu_torch.kernels import packet as kpk
     from lidar_brdf_tpu_torch.kernels import pulse as pp
+    from lidar_brdf_tpu_torch.kernels import scatter
     from lidar_brdf_tpu_torch.kernels import traverse as tr
     return {"K1": tr.KERNEL, "K2": pp.KERNEL, "K4": kpk.KERNEL,
-            "K5": cull.KERNEL}
+            "K5": cull.KERNEL, "K6": scatter.KERNEL}
 
 
 def phase_forward(name, workload, warm_pulses, per_chunk, **sim_kw):
@@ -2565,35 +2596,88 @@ def check_grads(name, ws):
     return loss, out
 
 
+def capture_k6(fn) -> list:
+    """[(idx, g, n_cells)] of each table-gradient scatter ``fn()`` makes
+    through `physics/brdf.py::TableRead` (copies; the wrapper runs as
+    usual)."""
+    from lidar_brdf_tpu_torch.physics import brdf
+    calls = []
+    real = brdf.table_scatter_add
+
+    def spy(idx, g, n_cells):
+        calls.append((idx.clone(), g.clone(), n_cells))
+        return real(idx, g, n_cells)
+
+    brdf.table_scatter_add = spy
+    try:
+        fn()
+    finally:
+        brdf.table_scatter_add = real
+    return calls
+
+
+def step_kernels(by: dict) -> dict:
+    """Device ms of one profiled step (`device_ms_by_kernel`): all of it,
+    K6's, and autograd's index backwards' (ms, launches); Nones in a CPU
+    rehearsal."""
+    if not by:
+        return dict(device_ms=None, k6_ms=None, index_backward_ms=None,
+                    index_backward_launches=None)
+    ib = {k: v for k, v in by.items() if "indexing_backward" in k}
+    return dict(device_ms=device_ms(by),
+                k6_ms=device_ms(by, "table_scatter_kernel"),
+                index_backward_ms=device_ms(ib) if ib else 0.0,
+                index_backward_launches=sum(round(v["launches"])
+                                            for v in ib.values()))
+
+
 def phase_fwd_bwd(name, ws, kernel):
-    """Training steps on one culled workload: launch counts set to 0 just
-    before the timed steps and read just after (``kernel`` must launch,
-    the other traversal kernel not); gradient check; BENCH_GRADS split."""
+    """Training steps on one culled workload: for each `BENCH_GRADS`
+    setting, launch counts set to 0 just before its timed steps and read
+    just after (``kernel`` once a step, the other traversal kernel not, K6
+    once a step but under ``none``); gradient check; BENCH_GRADS split;
+    device ms by kernel of a profiled ``table`` and ``full`` step (the
+    ``table`` step launches no index backward).  Returns (the ``full``
+    steps' launches, results, one step's K6 inputs)."""
     from lidar_brdf_tpu_torch import bench
     from lidar_brdf_tpu_torch.kernels import pulse as pp
+    from lidar_brdf_tpu_torch.kernels import scatter
     from lidar_brdf_tpu_torch.kernels import traverse as tr
     loss, gmax = check_grads(name, ws)
-    split = {}
+    calls = capture_k6(lambda: bench.loss_and_grads(ws))
+    if len(calls) != 1:
+        fail(f"one {name} step scattered the table gradient {len(calls)} "
+             f"times, not once")
+    split, launches, kernels = {}, {}, {}
     syncs = prof = None
-    launches = None
+    other = "K2" if kernel == "K1" else "K1"
     for grads in ("none", "table", "table+origin", "full"):
         step, _ = bench.make_step(ws, grads)
         step()                                   # warm
         sync()
         if grads == "full":
             syncs = count_syncs(step)
-            tr.KERNEL.launches = pp.KERNEL.launches = 0
+        tr.KERNEL.launches = pp.KERNEL.launches = 0
+        scatter.KERNEL.launches = 0
         t = bench.time_steps(step, DEVICE, STEP_ITERS, warm=1)
+        n = launches[grads] = dict(K1=tr.KERNEL.launches,
+                                   K2=pp.KERNEL.launches,
+                                   K6=scatter.KERNEL.launches)
+        want = {kernel: STEP_ITERS + 1, other: 0,
+                "K6": 0 if grads == "none" else STEP_ITERS + 1}
+        if DEVICE == "cuda" and n != want:
+            fail(f"the {name} fwd+bwd steps ({grads}) launched {n}: "
+                 f"expected {want} ({STEP_ITERS + 1} steps)")
         if grads == "full":
-            launches = dict(K1=tr.KERNEL.launches, K2=pp.KERNEL.launches)
             prof = bench.profile_step(step, DEVICE)
+        if grads in ("table", "full"):
+            kernels[grads] = step_kernels(device_ms_by_kernel(step, 1))
         split[grads] = dict(step_s=t["step_s"],
                             rays_per_s=ws.num_rays / t["step_s"])
-    other = "K2" if kernel == "K1" else "K1"
-    if DEVICE == "cuda" and (launches[kernel] != STEP_ITERS + 1
-                             or launches[other]):
-        fail(f"the {name} fwd+bwd steps launched {launches}: expected "
-             f"{kernel} once per step ({STEP_ITERS + 1}) and nothing else")
+    if DEVICE == "cuda" and kernels["table"]["index_backward_launches"]:
+        fail(f"the {name} table step launched "
+             f"{kernels['table']['index_backward_launches']} index "
+             f"backwards: the table's reads must have none")
     full = split["full"]
     log(f"[fwd+bwd] {name}: {ws.rays.num_pulses} pulses x "
         f"{ws.rays.rays_per_pulse} rays, {ws.scene.num_faces} faces, L = "
@@ -2603,6 +2687,13 @@ def phase_fwd_bwd(name, ws, kernel):
         f"{syncs}; launches in 1 warm + {STEP_ITERS} timed steps {launches}")
     log(f"[fwd+bwd] {name} BENCH_GRADS split (ms per step): " + ", ".join(
         f"{k} {v['step_s'] * 1e3:.2f}" for k, v in split.items()))
+    for grads, k in kernels.items():
+        share = (k["k6_ms"] / k["device_ms"] if k["device_ms"] else None)
+        log(f"[fwd+bwd] {name} profiled {grads} step: device "
+            f"{fmt_ms(k['device_ms'])} ms, K6 {fmt_ms(k['k6_ms'])} ms "
+            f"(share {'not measured' if share is None else f'{share:.4f}'}"
+            f"), index backwards {fmt_ms(k['index_backward_ms'])} ms in "
+            f"{k['index_backward_launches']} launches")
     if prof is not None:
         prof["busy"] = prof["device_s"] / full["step_s"]
         log(f"[fwd+bwd] {name} profiled full step: device "
@@ -2610,16 +2701,17 @@ def phase_fwd_bwd(name, ws, kernel):
             f"of the timed step (profiled wall {prof['wall_s'] * 1e3:.2f} "
             f"ms); top kernels (ms, calls): "
             + "; ".join(f"{n} {ms:.3f} x{c}" for n, ms, c in prof["top"]))
-    return launches, dict(rays=ws.num_rays, faces=ws.scene.num_faces,
-                          cull_s=ws.cull_s, loss=loss, grad_max=gmax,
-                          syncs_per_step=syncs, launches=launches,
-                          split=split, profile=prof)
+    return launches["full"], dict(
+        rays=ws.num_rays, faces=ws.scene.num_faces, cull_s=ws.cull_s,
+        loss=loss, grad_max=gmax, syncs_per_step=syncs, launches=launches,
+        split=split, profile=prof, kernels=kernels), calls[0]
 
 
 def phase_training(als):
     """The port's bench path: K3 pre-flight, the full-width `tls` step, the
-    `als` step over phase 4's terrain.  Returns (K3 launches, K1 launches,
-    K2 launches, results)."""
+    `als` step over phase 4's terrain.  Returns (K3 launches, the `tls`
+    and `als` full steps' launches {K1, K2, K6}, results, each step's K6
+    inputs {"tls", "als": (idx, g, n_cells)})."""
     from lidar_brdf_tpu_torch import bench
     from lidar_brdf_tpu_torch.kernels import smoke
     smoke.KERNEL.launches = 0                  # the bench path starts here
@@ -2635,14 +2727,15 @@ def phase_training(als):
     ws = bench.cull(scene, bvh, cfg, rays, mats, "tile", DEVICE)
     log(f"[setup] fwd+bwd tls workload built in "
         f"{time.perf_counter() - t0:.2f} s")
-    k1, tls = phase_fwd_bwd("tls", ws, "K1")
+    tls_n, tls, tls_k6 = phase_fwd_bwd("tls", ws, "K1")
     del ws
     scene, bvh, cfg, mats, rays = als
     n = min(ALS_STEP_PULSES, rays.num_pulses)
     ws = bench.cull(scene, bvh, cfg.with_(chunk_pulses=n),
                     head(rays, n).to("cpu"), mats, "pulse", DEVICE)
-    k2, als_res = phase_fwd_bwd("als", ws, "K2")
-    return k3, k1["K1"], k2["K2"], dict(tls=tls, als=als_res)
+    als_n, als_res, als_k6 = phase_fwd_bwd("als", ws, "K2")
+    return (k3, tls_n, als_n, dict(tls=tls, als=als_res),
+            dict(tls=tls_k6, als=als_k6))
 
 
 def grad_cases(kind):
@@ -2890,7 +2983,8 @@ def phase_files(tls):
         fail(f"the CLI simulate exited with {rc}")
     chunks = -(-rays.num_pulses // cfg.chunk_pulses)
     want = {"K1": chunks * len(FILES_WAVELENGTHS), "K2": 0, "K4": 0,
-            "K5": chunks * k5_launches()}      # the second from the cache
+            "K5": chunks * k5_launches(),      # the second from the cache
+            "K6": 0}
     if DEVICE == "cuda" and launches != want:
         fail(f"the CLI scan launched {launches}: expected {want}")
     res["launches"] = launches
@@ -3306,7 +3400,8 @@ def runtime_examples():
         loss_fn, x0 = mod.build_problem(DEVICE)
         res, launches = launch_counts(
             lambda: adam_fit(loss_fn, x0, mod.LR, steps))
-        expect_launches(f"{name}'s {steps} steps", launches, {"K4": steps})
+        expect_launches(f"{name}'s {steps} steps", launches,
+                        {"K4": steps, "K6": steps if name == "fit_brdf" else 0})
         cpu_fn, cx0 = mod.build_problem("cpu")
         cpu0 = float(cpu_fn(cx0).detach())
         losses = res["losses"]
@@ -3417,7 +3512,7 @@ def multirank_nccl(tls):
         expect_launches(f"the one-rank {path} forward", s["fwd_launches"],
                         {PATH_KERNEL[path]: 1})
     expect_launches("the one-rank tile step", summary["tile"]["step_launches"],
-                    {"K1": 1})
+                    {"K1": 1, "K6": 1})
     fn, data, _ = res["traverse"]["tile"]
     args = (rep[0], rep[2], res["rays"], res["noise"], res["scalars"])
     with torch.no_grad():
@@ -3488,7 +3583,7 @@ def check_ranks(name, ranks, refs, outdir):
         for path, _ in worker.WORKLOADS[name]["steps"]:
             expect_launches(f"{name}: rank {k}'s {path} step",
                             g["paths"][path]["step_launches"],
-                            {PATH_KERNEL[path]: 1})
+                            {PATH_KERNEL[path]: 1, "K6": 1})
     for path in worker.WORKLOADS[name]["paths"]:
         t_max = {g["paths"][path]["t_max"] for g in got}
         if path == "ladder" and t_max != {
@@ -3658,11 +3753,10 @@ def phase_scaling(als, alpha: dict) -> dict:
             if not math.isfinite(s["loss"]):
                 fail(f"{config}: share {s['rank']} of {n} gave the "
                      f"loss {s['loss']}")
+            steps = bs.steps_per_share(SCALING_ITERS, SCALING_WINDOWS)
             expect_launches(
                 f"{config}: share {s['rank']} of {n}", s["launches"],
-                {kinds[config]: bs.steps_per_share(SCALING_ITERS,
-                                                   SCALING_WINDOWS),
-                 "K5": k5_launches()})
+                {kinds[config]: steps, "K5": k5_launches(), "K6": steps})
             busy = "n/a" if s["busy"] is None else f"{s['busy']:.3f}"
             log(f"[scaling] {config} share {s['rank']} of {n}: "
                 f"{s['pulses']} pulses, {s['buckets']} buckets of "
@@ -4024,6 +4118,172 @@ def phase_no_cull(als, water, forward, culled) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 15: K6, the table gradient's scatter-add, against its plain version
+# ---------------------------------------------------------------------------
+
+K6_ROWS = 1 << 20          # phase 15: rows (x 8) of the uniform, two-cell cases
+K6_HOT_ROWS = 2_097_152    # phase 15: rows (x 8) all on one cell
+K6_MS_BUDGET = 200.0       # phase 15: ms of device work a timing aims at
+K6_TIMED = ("uniform", "one cell", "two cells", "tls step", "als step")
+
+
+def k6_cases(steps: dict) -> dict:
+    """{name: (idx (N, W) int32, g (N, W) f32, n_cells)} on `DEVICE`:
+    synthetic cases over the default library's 15 tables, then each of
+    ``steps``' captured step inputs ({"tls": (idx, g, n_cells), ...})."""
+    import torch
+    from lidar_brdf_tpu_torch.physics.brdf import TABLE_CELLS
+    n_cells = 15 * TABLE_CELLS
+    gen = torch.Generator().manual_seed(15)
+    i32 = torch.int32
+
+    def rand_idx(n, w):
+        return torch.randint(0, n_cells, (n, w), generator=gen, dtype=i32)
+
+    def rand_g(n, w):
+        return torch.randn((n, w), generator=gen)
+
+    n = K6_ROWS
+    masked_idx, masked_g = rand_idx(4099, 8), rand_g(4099, 8)
+    dead = torch.rand(4099, generator=gen) < 0.75   # masked slots: one
+    masked_idx[dead] = 4242                          # cell, zero cotangents
+    masked_g[dead] = 0.0
+    masked_g[dead.nonzero()[::2, 0], 0] = -0.0
+    masked_g[17, 3] = float("nan")
+    cases = {
+        "uniform": (rand_idx(n, 8), rand_g(n, 8)),
+        "one cell": (torch.full((K6_HOT_ROWS, 8), 12345, dtype=i32),
+                     rand_g(K6_HOT_ROWS, 8)),
+        "two cells": (torch.tensor([777, 9001], dtype=i32).repeat(4 * n)
+                      .reshape(n, 8), rand_g(n, 8)),
+        "4099 x 8": (rand_idx(4099, 8), rand_g(4099, 8)),
+        "1001 x 4": (rand_idx(1001, 4), rand_g(1001, 4)),
+        "777 x 1": (rand_idx(777, 1), rand_g(777, 1)),
+        "0 x 8": (rand_idx(0, 8), rand_g(0, 8)),
+        "masked slots": (masked_idx, masked_g),
+    }
+    out = {k: (i.to(DEVICE), g.to(DEVICE), n_cells)
+           for k, (i, g) in cases.items()}
+    out.update({f"{k} step": v for k, v in steps.items()})
+    return out
+
+
+def k6_check(name, idx, g, n_cells) -> dict:
+    """K6 against its plain version on one input: NaN at the same cells,
+    every other cell within count_c * 2^-23 * sum_c |g| (float64), one
+    launch (none for N = 0).  Returns the error and the input's shape."""
+    import torch
+    from lidar_brdf_tpu_torch.kernels import scatter
+    before = scatter.KERNEL.launches
+    got = scatter.table_scatter_add(idx, g, n_cells)
+    sync()
+    n = scatter.KERNEL.launches - before
+    if DEVICE == "cuda" and n != (1 if g.numel() else 0):
+        fail(f"K6 {name}: {n} launches in one call")
+    want = scatter.table_scatter_add_plain(idx, g, n_cells)
+    flat = idx.reshape(-1).long()
+    count = torch.bincount(flat, minlength=n_cells).double()
+    mag = torch.zeros(n_cells, dtype=torch.float64,
+                      device=g.device).index_add_(
+        0, flat, g.reshape(-1).abs().double())
+    nan = want.isnan()
+    if not torch.equal(got.isnan(), nan):
+        fail(f"K6 {name}: NaN at {int(got.isnan().sum())} cells, the plain "
+             f"version at {int(nan.sum())}")
+    err = torch.where(nan, 0.0, (got.double() - want.double()).abs())
+    bound = torch.where(nan, 0.0, count * 2.0 ** -23 * mag)
+    over = int((err > bound).sum())
+    if over:
+        fail(f"K6 {name}: {over} cells beyond count * 2^-23 * sum |g| of "
+             f"the plain version (max error {float(err.max()):.3e})")
+    live = g.reshape(-1) != 0
+    cells = torch.unique(flat[live]) if bool(live.any()) else flat[:0]
+    zero_cells, zero_counts = torch.unique(flat[~live], return_counts=True)
+    return dict(rows=g.shape[0], width=g.shape[1], contributions=g.numel(),
+                live=int(live.sum()), cells=int(cells.numel()),
+                hottest=int(count.max()) if n_cells else 0,
+                zero_cells=int(zero_cells.numel()),
+                zero_top_share=(float(zero_counts.max()) / max(1, int(
+                    (~live).sum())) if zero_counts.numel() else None),
+                max_abs_err=float(err.max()),
+                max_err_over_bound=float((err / bound.clamp(
+                    min=1e-300)).max()))
+
+
+def k6_bound(rows, width, n_cells) -> float:
+    """K6's least ms: N W 8 bytes read (index and cotangent) and the table
+    zeroed and written (8 bytes a cell) at 3.35 TB/s; one add a
+    contribution is far below the f32 rate."""
+    return (rows * width * 8 + 2 * 4 * n_cells) / H100_BYTES_PER_S * 1e3
+
+
+def k6_ms(fn) -> float:
+    """CUDA-event ms of ``fn()`` on a queue, over as many calls as fit
+    `K6_MS_BUDGET` (at least 1)."""
+    once = cuda_ms(fn, 1)
+    return cuda_ms(fn, max(1, min(100, int(K6_MS_BUDGET / max(once, 1e-3)))),
+                   queued=True)
+
+
+def phase_k6_vs_plain(steps: dict) -> dict:
+    """Phase 15: K6 against its plain version on every case of `k6_cases`
+    (``steps``: phase 6's captured step inputs), then timed beside
+    `index_put_(accumulate=True)`, `index_add_` and the plain version on
+    the large cases, in turns.  Returns K6's record for the kernels line
+    (its time on the `tls` step's input)."""
+    import torch
+    from lidar_brdf_tpu_torch.kernels import scatter
+    t0 = time.perf_counter()
+    res = {}
+    for name, (idx, g, n_cells) in k6_cases(steps).items():
+        r = res[name] = k6_check(name, idx, g, n_cells)
+        r["bound_ms"] = k6_bound(r["rows"], r["width"], n_cells)
+        if name in K6_TIMED:
+            flat_i, flat_g = idx.reshape(-1), g.reshape(-1)
+            flat_l = flat_i.long()
+            zeros = lambda: torch.zeros(n_cells, device=g.device)
+            fns = dict(
+                k6=lambda: scatter.table_scatter_add(idx, g, n_cells),
+                index_put=lambda: zeros().index_put_((flat_l,), flat_g,
+                                                     accumulate=True),
+                index_add=lambda: zeros().index_add_(0, flat_i, flat_g))
+            runs = {k: [] for k in fns}
+            for k in [*fns, *reversed(fns)]:
+                runs[k].append(k6_ms(fns[k]))
+            r.update({f"{k}_ms": min(v) for k, v in runs.items()},
+                     runs=runs, plain_ms=k6_ms(
+                         lambda: scatter.table_scatter_add_plain(
+                             idx, g, n_cells)))
+        log(f"[K6] {name}: {r['rows']} x {r['width']} ({r['live']} non-zero"
+            f", {r['cells']} cells hit, the hottest cell "
+            f"{r['hottest']} contributions; zero cotangents on "
+            f"{r['zero_cells']} cells, the largest share "
+            f"{r['zero_top_share']}); max |K6 - plain| "
+            f"{r['max_abs_err']:.3e} ({r['max_err_over_bound']:.3e} of the "
+            f"bound); bound {r['bound_ms']:.5f} ms"
+            + ("" if "k6_ms" not in r else
+               f"; CUDA events K6 {r['k6_ms']:.5f} ms (runs "
+               f"{r['runs']['k6']}), index_put_(accumulate=True) "
+               f"{r['index_put_ms']:.5f} ({r['runs']['index_put']}), "
+               f"index_add_ {r['index_add_ms']:.5f} "
+               f"({r['runs']['index_add']}), plain {r['plain_ms']:.5f}; "
+               f"K6 at {r['k6_ms'] / r['bound_ms']:.1f}x its bound"))
+    main = res["tls step"]
+    log(f"[K6] phase 15 took {time.perf_counter() - t0:.1f} s")
+    return dict(
+        name="table_scatter_add", route="cuda",
+        source="lidar_brdf_tpu_torch/kernels/csrc/table_scatter.cu",
+        replaces="lidar_brdf_tpu/physics/brdf.py:199", launches=None,
+        max_abs_err=max(r["max_abs_err"] for r in res.values()),
+        ms=main["k6_ms"], plain_ms=main["plain_ms"],
+        bound_ms=main["bound_ms"], bound_by="bytes",
+        library_ms=main["index_add_ms"],
+        index_put_ms=main["index_put_ms"], cases={
+            k: {x: y for x, y in r.items() if x != "runs"}
+            for k, r in res.items()})
+
+
 def main() -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
@@ -4092,9 +4352,16 @@ def main() -> int:
     k4["launches"] = water_launches["K4"]
     k2["launches_water"] = water_launches["K2"]
     phase_card_vs_cpu()
-    (k3["launches"], k1["launches_fwd_bwd"], k2["launches_fwd_bwd"],
-     training) = phase_training(als)
+    k3["launches"], tls_steps, als_steps, training, k6_steps = \
+        phase_training(als)
+    k1["launches_fwd_bwd"] = tls_steps["K1"]
+    k2["launches_fwd_bwd"] = als_steps["K2"]
     phase_card_vs_cpu_grads()
+    k6 = phase_k6_vs_plain(k6_steps)
+    del k6_steps
+    k6.update(launches=tls_steps["K6"], launches_als=als_steps["K6"],
+              launches_by_grads={k: v["launches"] for k, v in
+                                 training.items()})
     files = phase_files(tls)
     runtime = phase_runtime(tls, als)
     forward_culled = bench_cold_scan(runtime["forward_bench"])
@@ -4103,6 +4370,8 @@ def main() -> int:
         r["launches"]["K2"] for r in runtime["als_repeat"]]
     k4["launches_examples"] = {
         k: v["launches"]["K4"] for k, v in runtime["examples"].items()}
+    k6["launches_examples"] = {
+        k: v["launches"]["K6"] for k, v in runtime["examples"].items()}
     multirank = phase_multirank(tls, als)
     gloo = [r["workloads"] for r in multirank["gloo"]["ranks"]]
     nccl = multirank["nccl"]["paths"]
@@ -4115,6 +4384,11 @@ def main() -> int:
     k2["launches_multirank"] = dict(per_rank=[
         [w["als"]["paths"]["ladder"]["fwd_launches"]["K2"],
          w["als"]["paths"]["ladder"]["step_launches"]["K2"]] for w in gloo])
+    k6["launches_multirank"] = dict(
+        one_rank=nccl["tile"]["step_launches"]["K6"],
+        per_rank=[[w[n]["paths"][p]["step_launches"]["K6"]
+                   for n, p in (("tls", "tile"), ("als", "ladder"))]
+                  for w in gloo])
     k4["launches_multirank"] = dict(
         one_rank=nccl["packet"]["fwd_launches"]["K4"],
         per_rank=[w["tls"]["paths"]["packet"]["fwd_launches"]["K4"]
@@ -4159,6 +4433,8 @@ def main() -> int:
     k2["launches_scaling"] = scaling_launches(scaling, "als", "K2")
     k5["launches_scaling"] = {c: scaling_launches(scaling, c, "K5")
                               for c in ("tls", "als")}
+    k6["launches_scaling"] = {c: scaling_launches(scaling, c, "K6")
+                              for c in ("tls", "als")}
     phase_profiles(k1_chunk_data, k1, k3, k2_chunk_data, k2)
     log(json.dumps({"card": card, "tls_forward": tls_fwd,
                     "files": files, "runtime": runtime,
@@ -4169,7 +4445,7 @@ def main() -> int:
                     "entry_points": entry, "no_cull": no_cull,
                     "points": points, "scaling": scaling,
                     "seconds": time.perf_counter() - t_start}))
-    log(json.dumps({"kernels": [k1, k2, k3, k4, k5]}))
+    log(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

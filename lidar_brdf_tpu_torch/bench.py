@@ -345,8 +345,9 @@ def time_steps(step, device, iters: int, warm: int = 2) -> dict:
 def profile_step(step, device, top: int = 8) -> dict | None:
     """One step under `torch.profiler` on the card: its wall seconds (to a
     synchronize; the profiler slows the host), the device seconds summed
-    over its kernels, copies and fills, and the ``top`` kernels by device
-    time as (name, ms, calls).  None on the CPU (no device time exists
+    over its kernels, copies and fills, the ``top`` kernels by device
+    time as (name, ms, calls), and the table gradient's scatter-add (K6)
+    device seconds.  None on the CPU (no device time exists
     there).  Device seconds over an unprofiled step's time is the device's
     busy share."""
     dev = torch.device(device)
@@ -370,7 +371,9 @@ def profile_step(step, device, top: int = 8) -> dict | None:
     events.sort(key=dev_us, reverse=True)
     return dict(wall_s=wall, device_s=device_s,
                 top=[(e.key[:70], dev_us(e) * 1e-3, e.count)
-                     for e in events[:top]])
+                     for e in events[:top]],
+                table_scatter_s=sum(dev_us(e) for e in events
+                                    if "table_scatter_kernel" in e.key) * 1e-6)
 
 
 def card_and_power_limit(dev: torch.device):
@@ -510,6 +513,9 @@ def main() -> int:
             f"(profiled wall {prof['wall_s'] * 1e3:.2f} ms)")
         for name, ms, calls in prof["top"]:
             log(f"#   {ms:9.3f} ms {calls:5d}x {name}")
+        log(f"# table gradient (K6): {prof['table_scatter_s'] * 1e3:.5f} ms = "
+            f"{prof['table_scatter_s'] / prof['device_s']:.5f} of the device "
+            f"time")
     rays_per_s = ws.num_rays / t["step_s"]
     name, limit = card_and_power_limit(dev)
     print(json.dumps({

@@ -273,7 +273,7 @@ def _pulses(rays: RayBundle, lo: int, hi: int) -> RayBundle:
 
 def steps_per_share(iters: int = STEP_ITERS, windows: int = WINDOWS) -> int:
     """Steps `measured_step` runs on a share: `WARM_STEPS`, ``windows`` x
-    ``iters`` timed, one profiled (each launches K1 or K2 once)."""
+    ``iters`` timed, one profiled (each launches K1 or K2, and K6, once)."""
     return WARM_STEPS + windows * iters + 1
 
 

@@ -45,7 +45,7 @@ from ..core.config import LiDARType, SensorConfig, ShadingMode
 from ..core.types import RayBundle, as_numpy, resolve_device
 from ..geom.packet import make_packet_traverser
 from ..io import native, synthetic
-from ..kernels import cull, packet, pulse, traverse
+from ..kernels import cull, packet, pulse, scatter, traverse
 from ..kernels.pulse import PulseLadderTraverser
 from ..kernels.traverse import TileTraverser, default_t_max
 from ..physics.returns import SimScalars
@@ -81,7 +81,7 @@ FAN_RAYS_PULSE = 2           # the fan's rays a pulse
 TILE_PULSES = 64             # pulses of a K1 tile (the bench's block)
 LEAVES = ("refractive_index", "roughness", "brdf_table", "reflectivity_f0")
 KERNELS = {"K1": traverse.KERNEL, "K2": pulse.KERNEL, "K4": packet.KERNEL,
-           "K5": cull.KERNEL}
+           "K5": cull.KERNEL, "K6": scatter.KERNEL}
 
 
 def write_replicated(path: str, scene, bvh, materials, noise=None) -> None:

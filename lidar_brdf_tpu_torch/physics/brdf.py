@@ -4,12 +4,16 @@
 Each material has a 360x91 retro-reflectance table f_r(phi, theta)
 (`computeColor-comp.glsl:32-82`).  A lookup maps the surface-to-sensor
 direction L and the normal N to (x = azimuth bucket, y = |cos(L,N)| * 90)
-and interpolates raw, bilinear or cubic Hermite.  The JAX package routes
-the neighbourhood reads through custom VJPs (`_bilinear_windows`,
-`_hermite_windows`) because scatter is slow on a TPU; their backward
-scatter-adds each element cotangent into the table.  Here the reads are
-plain indexing, and autograd's index backward (an accumulating
-`index_put_`) scatters the same cotangents into the same elements.
+and interpolates raw, bilinear or cubic Hermite.  Each lookup reads its W
+neighbourhood cells (1, 4 or 8) of the flat table in one gather through
+`TableRead`, the counterpart of the JAX package's custom VJPs
+`_bilinear_windows` / `_hermite_windows` (and of the plain gather of its
+raw lookup): the backward scatter-adds the (N, W) cotangents straight into
+the flat table, in one pass with no sort (`kernels/scatter.py`, the CUDA
+kernel K6 on the card).  The spline arithmetic stays outside it, so the
+gradients w.r.t. x and y (hence L and N) flow as autograd forms them.  The
+JAX package's forward window table (`_window_table`, row gathers that are
+cheaper on a TPU) is not ported: the reads gather single elements.
 
 The analytic models of `reflectIrradiance-comp.glsl` (`analytic_brdf_factor`)
 are plain element-wise PyTorch, as the JAX package computes them outside any
@@ -23,6 +27,7 @@ import torch
 
 from ..core.config import BRDFInterpolation
 from ..core.types import MaterialTable
+from ..kernels.scatter import table_scatter_add
 from ..utils.safemath import (abs_, clip, cross3, dot3, maximum, minimum,
                               safe_arccos, safe_arctan2)
 
@@ -45,17 +50,57 @@ def table_angles(L, N):
     return x, y
 
 
-def _flat_index(mat, xi, yi):
-    return (mat.long() * (PHI_BUCKETS * THETA_BUCKETS)
-            + xi.long() * THETA_BUCKETS + yi.long())
+TABLE_CELLS = PHI_BUCKETS * THETA_BUCKETS
+
+
+class TableRead(torch.autograd.Function):
+    """``tables.reshape(-1)[idx]`` for an int32 (..., W) index of flat table
+    cells; its backward adds each read's cotangent into its cell in one
+    pass (`kernels/scatter.py::table_scatter_add`: K6 on the card), as the
+    JAX package's `_hermite_windows_bwd` / `_bilinear_windows_bwd` do.
+    No gradient for the index."""
+
+    @staticmethod
+    def forward(ctx, tables, idx):
+        ctx.save_for_backward(idx)
+        ctx.table_shape = tables.shape
+        return tables.reshape(-1)[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        w = idx.shape[-1]
+        flat = table_scatter_add(idx.reshape(-1, w),
+                                 g.reshape(-1, w).contiguous(),
+                                 ctx.table_shape.numel())
+        return flat.reshape(ctx.table_shape), None
+
+
+def _mat_base(mat_id, like):
+    """int32 first flat cell of each read's material table, shaped as
+    ``like``."""
+    mat = torch.as_tensor(mat_id, device=like.device).to(torch.int32)
+    return torch.broadcast_to(mat, like.shape) * TABLE_CELLS
 
 
 def lookup_raw(tables, mat_id, x, y):
     """Nearest-bucket lookup (`getRawInterpolation`)."""
     xi = torch.remainder(x.to(torch.int32), PHI_BUCKETS)
     yi = torch.clamp(y.to(torch.int32), 0, THETA_BUCKETS - 1)
-    mat = torch.broadcast_to(torch.as_tensor(mat_id, device=xi.device), xi.shape)
-    return tables.reshape(-1)[_flat_index(mat, xi, yi)]
+    idx = _mat_base(mat_id, xi) + xi * THETA_BUCKETS + yi
+    return TableRead.apply(tables, idx[..., None])[..., 0]
+
+
+def _bilinear_elem_indices(mat, x0i, y0i):
+    """(..., 4) int32 flat cells [v00, v10, v01, v11] (JAX :65-73); ``mat``
+    is the material's first cell (`_mat_base`)."""
+    x1i = torch.remainder(x0i + 1, PHI_BUCKETS)
+    # the reference clamps the upper neighbour to 89, not 90 (:41)
+    y1i = torch.clamp(y0i + 1, 0, THETA_BUCKETS - 2)
+    return torch.stack([mat + x0i * THETA_BUCKETS + y0i,
+                        mat + x1i * THETA_BUCKETS + y0i,
+                        mat + x0i * THETA_BUCKETS + y1i,
+                        mat + x1i * THETA_BUCKETS + y1i], dim=-1)
 
 
 def lookup_bilinear(tables, mat_id, x, y):
@@ -67,15 +112,8 @@ def lookup_bilinear(tables, mat_id, x, y):
     yf = y - y0
     x0i = torch.remainder(x0.to(torch.int32), PHI_BUCKETS)
     y0i = torch.clamp(y0.to(torch.int32), 0, THETA_BUCKETS - 1)
-    x1i = torch.remainder(x0i + 1, PHI_BUCKETS)
-    y1i = torch.clamp(y0i + 1, 0, THETA_BUCKETS - 2)
-    mat = torch.broadcast_to(torch.as_tensor(mat_id, device=x0i.device),
-                             x0i.shape)
-    flat = tables.reshape(-1)
-    v00 = flat[_flat_index(mat, x0i, y0i)]
-    v10 = flat[_flat_index(mat, x1i, y0i)]
-    v01 = flat[_flat_index(mat, x0i, y1i)]
-    v11 = flat[_flat_index(mat, x1i, y1i)]
+    idx = _bilinear_elem_indices(_mat_base(mat_id, x0i), x0i, y0i)
+    v00, v10, v01, v11 = TableRead.apply(tables, idx).unbind(-1)
     return (v00 * (1 - xf) * (1 - yf) + v10 * xf * (1 - yf)
             + v01 * (1 - xf) * yf + v11 * xf * yf)
 
@@ -91,6 +129,21 @@ def hermite_matrix(t: float, device="cpu") -> torch.Tensor:
     ], dtype=torch.float32, device=device)
 
 
+def _hermite_elem_indices(mat, xi, yi):
+    """(..., 8) int32 flat cells [rx0..rx3, ry0..ry3] of the two 4-point
+    neighbourhoods (JAX :137-148): the x spline's on row clip(yi-1), the
+    y spline's on column (xi-1) mod 360; ``mat`` is the material's first
+    cell (`_mat_base`)."""
+    x_col = torch.remainder(xi - 1, PHI_BUCKETS)
+    y_row = torch.clamp(yi - 1, 0, THETA_BUCKETS - 1)
+    k = torch.arange(4, dtype=torch.int32, device=xi.device)
+    xs_k = torch.remainder(xi[..., None] + k - 1, PHI_BUCKETS)
+    ys_k = torch.clamp(yi[..., None] + k - 1, 0, THETA_BUCKETS - 1)
+    return torch.cat([(mat + y_row)[..., None] + xs_k * THETA_BUCKETS,
+                      (mat + x_col * THETA_BUCKETS)[..., None] + ys_k],
+                     dim=-1)
+
+
 def lookup_hermite(tables, mat_id, x, y, hermite):
     """Separable cubic-Hermite lookup (`getHermiteInterpolation`,
     `computeColor-comp.glsl:49-70`): a spline along x on row clip(yi-1),
@@ -102,16 +155,9 @@ def lookup_hermite(tables, mat_id, x, y, hermite):
     yf = y - y0f
     xi = torch.remainder(x0f.to(torch.int32), PHI_BUCKETS)
     yi = torch.clamp(y0f.to(torch.int32), 0, THETA_BUCKETS - 1)
-    mat = torch.broadcast_to(torch.as_tensor(mat_id, device=xi.device),
-                             xi.shape)
-    flat = tables.reshape(-1)
-    y_row = torch.clamp(yi - 1, 0, THETA_BUCKETS - 1)
-    x_col = torch.remainder(xi - 1, PHI_BUCKETS)
-    rx = [flat[_flat_index(mat, torch.remainder(xi + k - 1, PHI_BUCKETS),
-                           y_row)] for k in range(4)]
-    ry = [flat[_flat_index(mat, x_col,
-                           torch.clamp(yi + k - 1, 0, THETA_BUCKETS - 1))]
-          for k in range(4)]
+    idx = _hermite_elem_indices(_mat_base(mat_id, xi), xi, yi)
+    both = TableRead.apply(tables, idx).unbind(-1)
+    rx, ry = both[:4], both[4:]
 
     # explicit multiply-adds, no matmul (the JAX package keeps the spline
     # off the matrix unit for the same full-f32 reason)

@@ -122,7 +122,7 @@ def test_chip_smoke_water_and_packet_walk_on_cpu(monkeypatch, capsys):
     launches, res, levels, _ = chip_smoke.phase_water(water)
     assert res["bottom_returns"] > 0 and res["surface_returns"] > 0
     assert res["rays"] == 2048 * 10 and set(launches) == {"K1", "K2", "K4",
-                                                          "K5"}
+                                                          "K5", "K6"}
     assert len(levels) == 2 and len(res["active_share"]) == 2
     for packed, o1, d1, a1 in levels:
         assert o1.shape == d1.shape == (1024 * 10, 3)
@@ -311,7 +311,8 @@ def test_chip_smoke_water_scan_on_cpu(monkeypatch):
     assert len(out["runs"]) == 2
     for r in out["runs"]:
         assert r["rays"] == 512 * 10 and r["points"] > 0
-        assert r["launches"] == {"K1": 0, "K2": 0, "K4": 0, "K5": 0}
+        assert r["launches"] == {"K1": 0, "K2": 0, "K4": 0, "K5": 0,
+                                 "K6": 0}
         for key in ("wall_s", "cull_s", "device_s", "readback_s"):
             assert r[key] >= 0
     assert out["runs"][0]["points"] == out["runs"][1]["points"]
@@ -359,19 +360,64 @@ def test_chip_smoke_training_phases_on_cpu(monkeypatch, capsys):
         assert key in k3
     assert k3["bound_by"] == "bytes" and k3["bound_ms"] > 0
     als = chip_smoke.als_workload("cpu")
-    n3, n1, n2, res = chip_smoke.phase_training(als)
+    n3, tls_n, als_n, res, k6_steps = chip_smoke.phase_training(als)
     assert set(res) == {"tls", "als"}
     assert res["tls"]["rays"] == 4096 * 10
     assert res["als"]["rays"] == 1024 * 10
     for r in res.values():
         assert set(r["split"]) == {"none", "table", "table+origin", "full"}
         assert r["loss"] > 0 and min(r["grad_max"].values()) > 0
+        assert set(r["kernels"]) == {"table", "full"}
+        assert set(r["launches"]) == set(r["split"])
+    assert set(tls_n) == set(als_n) == {"K1", "K2", "K6"}
+    # one step's table reads: (return levels x pulses, 8) Hermite cells
+    idx, g, n_cells = k6_steps["tls"]
+    assert idx.dtype is torch.int32 and g.shape == idx.shape
+    assert idx.shape == (4096, 8) and n_cells == 15 * 360 * 91
+    assert k6_steps["als"][0].shape == (2 * 1024, 8)
     chip_smoke.phase_card_vs_cpu_grads()
     out = capsys.readouterr().out
     assert "[fwd+bwd] tls" in out and "[fwd+bwd] als BENCH_GRADS" in out
     assert "[card-vs-cpu grads] ALS L=2" in out
     assert "[card-vs-cpu grads] water L=3" in out
     assert "K3 tile" in out
+
+
+def test_chip_smoke_k6_phase_on_cpu(monkeypatch, capsys):
+    """Phase 15 at a small size, the plain version on both sides: every
+    case checked against the scatter bound, the large ones timed, and
+    K6's record for the kernels line."""
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "K6_ROWS", 4096)
+    monkeypatch.setattr(chip_smoke, "K6_HOT_ROWS", 8192)
+    monkeypatch.setattr(chip_smoke, "K6_MS_BUDGET", 1.0)
+    gen = torch.Generator().manual_seed(0)
+    n_cells = 15 * 360 * 91
+    steps = {k: (torch.randint(0, n_cells, (n, 8), generator=gen,
+                               dtype=torch.int32),
+                 torch.randn((n, 8), generator=gen), n_cells)
+             for k, n in (("tls", 2048), ("als", 4096))}
+    k6 = chip_smoke.phase_k6_vs_plain(steps)
+    for key in ("name", "route", "source", "replaces", "max_abs_err", "ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms"):
+        assert key in k6
+    assert k6["route"] == "cuda" and k6["bound_by"] == "bytes"
+    assert k6["max_abs_err"] == 0.0 and k6["bound_ms"] > 0
+    assert k6["replaces"] == "lidar_brdf_tpu/physics/brdf.py:199"
+    cases = k6["cases"]
+    assert {"uniform", "one cell", "two cells", "0 x 8", "777 x 1",
+            "masked slots", "tls step", "als step"} <= set(cases)
+    assert cases["one cell"]["cells"] == 1
+    assert cases["one cell"]["contributions"] == 8192 * 8
+    assert cases["two cells"]["cells"] == 2
+    assert cases["0 x 8"]["contributions"] == 0
+    assert cases["777 x 1"]["contributions"] % 32
+    masked = cases["masked slots"]
+    assert masked["zero_cells"] == 1 and masked["live"] < 4099 * 8 / 3
+    for name in chip_smoke.K6_TIMED:
+        assert cases[name]["k6_ms"] > 0 and cases[name]["index_put_ms"] > 0
+    out = capsys.readouterr().out
+    assert "[K6] one cell" in out and "index_put_(accumulate=True)" in out
 
 
 def test_chip_smoke_runtime_phase_on_cpu(monkeypatch, capsys):

@@ -1,6 +1,6 @@
 """The CUDA kernels (K1 tiles, K2 pulse ladders, K3 the bench's pre-flight,
-K4 the packet walk, K5 the beam cull) on the card vs their plain PyTorch
-versions, the
+K4 the packet walk, K5 the beam cull, K6 the table gradient's scatter-add)
+on the card vs their plain PyTorch versions, the
 water and packet-walk scans, the compacted readback, the CLI on an OBJ
 directory and the fwd+bwd step's gradients on the card vs the CPU (the
 card's clouds are compacted, so clouds are compared after
@@ -14,7 +14,9 @@ runs on its own, without `tests/conftest.py` (which imports JAX):
 
 Faces must be equal and t equal to rtol 1e-6 where a face is hit; K3, K4
 and K5 (lists, near distances, and the buckets, bounds and ladders built
-from them) equal bit for bit.  Gradients: loss to rtol 1e-5, each gradient within
+from them) equal bit for bit; K6 within count_c * 2^-23 * sum_c |g| of its
+plain version at each cell c (float atomics sum in no fixed order).
+Gradients: loss to rtol 1e-5, each gradient within
 atol 1e-4 * max|g| (the card's scatter-add order is not fixed).
 """
 
@@ -629,3 +631,34 @@ def test_culled_scan_launches_k5_per_chunk(card, use_pulse):
     cpu = Simulator(scene=scene, bvh=bvh, cfg=cfg, device="cpu",
                     materials=mats, use_pulse=use_pulse).run(rays)
     chip_smoke.compare_clouds(f"culled, use_pulse={use_pulse}", card, cpu)
+
+
+@pytest.mark.parametrize("case", ["uniform", "one cell", "two cells",
+                                  "4099 x 8", "1001 x 4", "777 x 1",
+                                  "0 x 8", "masked slots"])
+def test_table_scatter_matches_plain(card, monkeypatch, case):
+    """K6 against its plain version on `chip_smoke.py` phase 15's small
+    cases (`k6_check` fails beyond the scatter bound, on NaN at other
+    cells, or on other than one launch a call, none for N = 0)."""
+    monkeypatch.setattr(chip_smoke, "K6_ROWS", 1 << 16)
+    monkeypatch.setattr(chip_smoke, "K6_HOT_ROWS", 1 << 16)
+    idx, g, n_cells = chip_smoke.k6_cases({})[case]
+    assert idx.is_cuda and g.is_cuda
+    r = chip_smoke.k6_check(case, idx, g, n_cells)
+    assert r["contributions"] == g.numel()
+
+
+@pytest.mark.parametrize("grads", ["none", "table", "full"])
+def test_table_gradient_launches_k6_once_per_step(card, grads):
+    """The bench's `tls` step scatters the table gradient with one K6
+    launch a step, and launches none under ``BENCH_GRADS=none``."""
+    from lidar_brdf_tpu_torch.kernels import scatter
+    scene, bvh, cfg, rays, mats = bench.build_workload(
+        "tls", 2048, 10, 1, "city", 2000)
+    ws = bench.cull(scene, bvh, cfg, rays, mats, "tile", "cuda")
+    step, params = bench.make_step(ws, grads)
+    scatter.KERNEL.launches = 0
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    assert scatter.KERNEL.launches == (0 if grads == "none" else 3)
