@@ -18,6 +18,7 @@ from .core.types import (BVH, MaterialTable, PointCloud, RayBundle,
                          TriangleScene, as_numpy, resolve_device)
 from .geom.bvh import build_bvh
 from .io.materials import MaterialLibrary
+from .runtime.metrics import span
 from .runtime.simulate import Simulator
 from .sensors.als import build_als_rays, plan_flight
 from .sensors.tls import build_tls_rays, num_tls_pulses
@@ -52,7 +53,13 @@ def build_rays(cfg: SensorConfig, scene: TriangleScene | None = None,
     buffer is drawn from a CPU generator seeded with ``seed + 1`` (seed
     defaults to ``cfg.seed``), so a seed gives the same rays on every
     device; ``raygen_noise`` overrides it.  Aerial modes plan the flight
-    over ``scene``'s bounding box with ``np.random.default_rng(seed)``."""
+    over ``scene``'s bounding box with ``np.random.default_rng(seed)``.  A
+    span ``lbt.rays``."""
+    with span("lbt.rays"):
+        return _build_rays(cfg, scene, seed, device, raygen_noise)
+
+
+def _build_rays(cfg, scene, seed, device, raygen_noise) -> RayBundle:
     dev = resolve_device(device)
     seed = cfg.seed if seed is None else seed
     if raygen_noise is None:
@@ -81,17 +88,20 @@ def simulate(scene: TriangleScene, cfg: SensorConfig,
     """One-call simulation: rays -> traversal -> returns -> intensity, at
     the configured wavelength.  Returns a host PointCloud (on the card,
     compacted: see `Simulator`).  ``stats`` as in
-    `Simulator.run`; ``noise_buf`` overrides the sim-noise buffer."""
-    dev = resolve_device(device)
-    if materials is None:
-        materials = MaterialLibrary.default().table_at(cfg.wavelength_nm[0])
-    if bvh is None:
-        bvh = build_scene_bvh(scene)
-    if rays is None:
-        rays = build_rays(cfg, scene, device=dev)
-    sim = Simulator(scene=scene, bvh=bvh, materials=materials, cfg=cfg,
-                    device=dev, noise_buf=noise_buf)
-    return sim.run(rays, stats=stats)
+    `Simulator.run`; ``noise_buf`` overrides the sim-noise buffer.  A span
+    ``lbt.simulate`` over ``lbt.rays``, ``lbt.construct`` and ``lbt.run``."""
+    with span("lbt.simulate"):
+        dev = resolve_device(device)
+        if materials is None:
+            materials = MaterialLibrary.default().table_at(
+                cfg.wavelength_nm[0])
+        if bvh is None:
+            bvh = build_scene_bvh(scene)
+        if rays is None:
+            rays = build_rays(cfg, scene, device=dev)
+        sim = Simulator(scene=scene, bvh=bvh, materials=materials, cfg=cfg,
+                        device=dev, noise_buf=noise_buf)
+        return sim.run(rays, stats=stats)
 
 
 def simulate_spectral(scene: TriangleScene, cfg: SensorConfig,
@@ -176,8 +186,17 @@ def simulate_tls_path(scene: TriangleScene, cfg: SensorConfig,
     position.  With ``out_dir``, each cloud is written to
     ``<out_dir>/<i>.ply`` on a background writer thread while the next
     waypoint simulates — the reference's detached-thread save
-    (`Results/Paths/TLS/<i>.ply`, LiDARPointCloud.cpp:56-61).
+    (`Results/Paths/TLS/<i>.ply`, LiDARPointCloud.cpp:56-61).  A span
+    ``lbt.path`` over each waypoint's ``lbt.rays``, ``lbt.construct`` and
+    ``lbt.run``, and the writer thread's ``lbt.ply_write``.
     """
+    with span("lbt.path"):
+        return _simulate_tls_path(scene, cfg, positions, materials, bvh,
+                                  out_dir, device)
+
+
+def _simulate_tls_path(scene, cfg, positions, materials, bvh, out_dir,
+                       device) -> list[PointCloud]:
     dev = resolve_device(device)
     positions = np.asarray(positions, np.float32)
     if materials is None:

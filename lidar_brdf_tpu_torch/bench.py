@@ -67,6 +67,7 @@ from .kernels.pulse import PulseLadderTraverser
 from .kernels.smoke import affine_smoke, affine_smoke_plain
 from .kernels.traverse import TileTraverser
 from .physics.returns import SimScalars
+from .runtime.metrics import span
 from .runtime.simulate import bsp_order, simulate_chunk
 from .sensors.als import build_als_rays, plan_flight
 from .utils import noise as noise_mod
@@ -276,8 +277,9 @@ def step_loss(ws: Workload, params: dict) -> torch.Tensor:
     cloud = simulate_chunk(scene, mats, rays, ws.noise, ws.scalars, ws.cfg,
                            scene_has_water=False, traverse_fn=ws.traverser,
                            traverse_data=ws.data)
-    return torch.where(cloud.mask, cloud.intensity,
-                       torch.zeros_like(cloud.intensity)).sum()
+    with span("lbt.loss"):
+        return torch.where(cloud.mask, cloud.intensity,
+                           torch.zeros_like(cloud.intensity)).sum()
 
 
 def leaf_params(ws: Workload, names=GRADS["full"]) -> dict:
@@ -302,20 +304,25 @@ def make_step(ws: Workload, grads: str = "full"):
     """``(step, params)``: ``step()`` runs one training step and returns the
     loss (a device scalar); ``params`` maps brdf_table / origin / vertices
     to the leaf tensors it updates.  ``grads`` selects the differentiated
-    set as ``BENCH_GRADS`` does; the rest stay constants."""
+    set as ``BENCH_GRADS`` does; the rest stay constants.  A step is a
+    span ``lbt.step`` over ``lbt.forward``, ``lbt.backward`` and
+    ``lbt.update``."""
     names = GRADS[grads]
     params = leaf_params(ws, names)
 
     def step():
-        loss = step_loss(ws, params)
-        if names:
-            loss.backward()
-            with torch.no_grad():
-                for n in names:
-                    p = params[n]
-                    p.add_(p.grad, alpha=1e-30)
-                    p.grad = None
-        return loss.detach()
+        with span("lbt.step"):
+            with span("lbt.forward"):
+                loss = step_loss(ws, params)
+            if names:
+                with span("lbt.backward"):
+                    loss.backward()
+                with span("lbt.update"), torch.no_grad():
+                    for n in names:
+                        p = params[n]
+                        p.add_(p.grad, alpha=1e-30)
+                        p.grad = None
+            return loss.detach()
 
     return step, params
 

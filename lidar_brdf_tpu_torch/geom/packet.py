@@ -22,6 +22,7 @@ import torch
 
 from ..core.types import BVH, Hit, TriangleScene, as_numpy
 from ..kernels.packet import PACKET, node_records, packet_traverse
+from ..runtime.metrics import upload
 
 DEFAULT_TILE = 128   # the JAX package's tile, one of K4's `WIDTHS`
 
@@ -69,12 +70,14 @@ def pack_bvh(bvh: BVH, device=None):
     skip = np.asarray(as_numpy(bvh.node_skip), np.int32)
     if (skip <= np.arange(skip.shape[0])).any():
         raise ValueError("a BVH skip link does not point forward")
-    put = lambda a, dt: torch.from_numpy(
-        np.ascontiguousarray(as_numpy(a), dt)).to(device)
-    box = torch.cat([put(bvh.node_min, np.float32),
-                     put(bvh.node_max, np.float32)], dim=1)
-    return node_records(box, torch.from_numpy(skip).to(device),
-                        put(bvh.node_face, np.int32))
+    host = lambda a, dt: torch.from_numpy(np.ascontiguousarray(as_numpy(a),
+                                                               dt))
+    nodes = upload(dict(node_min=host(bvh.node_min, np.float32),
+                        node_max=host(bvh.node_max, np.float32),
+                        node_skip=torch.from_numpy(skip),
+                        node_face=host(bvh.node_face, np.int32)), device)
+    box = torch.cat([nodes["node_min"], nodes["node_max"]], dim=1)
+    return node_records(box, nodes["node_skip"], nodes["node_face"])
 
 
 def pack_triangles(scene: TriangleScene) -> torch.Tensor:

@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..core.types import PointCloud, as_numpy
+from ..runtime.metrics import carried, span
 
 _HEADER_FIELDS = [
     ("x", "float"), ("y", "float"), ("z", "float"),
@@ -104,6 +105,11 @@ def write_ply(path: str, cloud: PointCloud, *, compact: bool = True) -> int:
     return n
 
 
+def _write_spanned(path: str, cloud: PointCloud, *, compact: bool) -> int:
+    with span("lbt.ply_write"):
+        return write_ply(path, cloud, compact=compact)
+
+
 class AsyncPlyWriter:
     """Background PLY writer: compaction + file IO off the simulation thread.
 
@@ -126,8 +132,10 @@ class AsyncPlyWriter:
         self._futures: list = []
 
     def submit(self, path: str, cloud: PointCloud, *, compact: bool = True):
-        """Queue one write; returns its Future (resolves to point count)."""
-        fut = self._pool.submit(write_ply, path, cloud, compact=compact)
+        """Queue one write; returns its Future (resolves to point count).
+        The write is a span ``lbt.ply_write`` under the caller's open one."""
+        fut = self._pool.submit(carried(_write_spanned), path, cloud,
+                                compact=compact)
         self._futures.append(fut)
         return fut
 

@@ -40,6 +40,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..runtime.metrics import count
 from .cuda_build import CudaLibrary, check_tensor, raw_stream
 
 LAUNCHES = 3          # K5 launches a `beam_cull` call: walk, place, sort
@@ -258,7 +259,9 @@ def beam_cull(nodes, center, axis, tan_half, radius, valid, t_max: float,
         counts, offsets, faces, dnear = cull_plain(
             nodes, center, axis, tan_half, radius, valid, t_max,
             capacity=capacity)
-        _, sizes, order, over = _summary(counts, offsets, pad_to, capacity)
+        total, sizes, order, over = _summary(counts, offsets, pad_to,
+                                             capacity)
+        count("pairs", total)
         return CullLists(counts, offsets, faces, dnear, order, sizes, over)
     if not center.is_cuda:
         raise ValueError(f"unsupported device {center.device}")
@@ -294,6 +297,7 @@ def beam_cull(nodes, center, axis, tan_half, radius, valid, t_max: float,
     offsets = torch.zeros(T + 1, dtype=torch.int64, device=dev)
     torch.cumsum(counts, 0, out=offsets[1:])
     total, sizes, order, over = _summary(counts, offsets, pad_to, capacity)
+    count("pairs", total)
     faces = i32(total)
     dnear = torch.empty(total, dtype=torch.float32, device=dev)
     KERNEL.check(KERNEL.lib.lbt_beam_cull_place(

@@ -47,6 +47,7 @@ from ..core.types import BVH, Hit, TriangleScene, as_numpy, resolve_device
 from ..geom.beamcull import (_collect_candidates, beams_are_narrow,
                              tile_beams, wald_rows_np)
 from ..geom.intersect import BIG
+from ..runtime.metrics import span, upload
 from .cuda_build import CudaLibrary, check_tensor, raw_stream
 from .cull import NodeCache, bucket_rows, cull_rays
 from .traverse import (CAND_BLOCK, INT_MISS,  # noqa: F401  (JAX's name)
@@ -392,8 +393,10 @@ class PulseLadderTraverser:
         self.rays_per_pulse = int(rays_per_pulse)
         self.group = int(group)
         self.device = resolve_device(device)
-        self.wald = torch.from_numpy(wald_rows_np(
-            as_numpy(scene.vertices), as_numpy(scene.faces))).to(self.device)
+        with span("lbt.construct.wald"):
+            rows = torch.from_numpy(wald_rows_np(as_numpy(scene.vertices),
+                                                 as_numpy(scene.faces)))
+        self.wald = upload(rows, self.device)
         self.t_max = None
         self.nodes = NodeCache(self.device)
 

@@ -30,6 +30,7 @@ from ..core.types import BVH, Hit, TriangleScene, as_numpy, resolve_device
 from ..geom.beamcull import (_next_pow2, beams_are_narrow, tile_beams,
                              wald_rows_np)
 from ..geom.intersect import BIG, EPSILON
+from ..runtime.metrics import span, upload
 from .cuda_build import CudaLibrary, check_tensor, raw_stream
 from .cull import NodeCache, bucket_rows, cull_rays, readback
 
@@ -329,8 +330,10 @@ class TileTraverser:
             raise ValueError(f"tile_rays must be a multiple of {LANES}")
         self.tile_rays = tile_rays
         self.device = resolve_device(device)
-        self.wald = torch.from_numpy(wald_rows_np(
-            as_numpy(scene.vertices), as_numpy(scene.faces))).to(self.device)
+        with span("lbt.construct.wald"):
+            rows = torch.from_numpy(wald_rows_np(as_numpy(scene.vertices),
+                                                 as_numpy(scene.faces)))
+        self.wald = upload(rows, self.device)
         self.t_max = None
         self.nodes = NodeCache(self.device)
         self._face_box = (None, None)

@@ -31,6 +31,7 @@ from ..core.config import SensorConfig
 from ..core.types import (MaterialTable, RayBundle, SURFACE_TERRAIN,
                           SURFACE_WATER, TriangleScene, _TensorFields)
 from ..geom.intersect import BIG, face_normal_from_verts, refine_hit_verts
+from ..runtime.metrics import span
 from ..utils import noise as noise_mod
 from ..utils.safemath import (clip, dot3, maximum, safe_arccos, safe_norm,
                               safe_sqrt, safe_unit)
@@ -220,10 +221,11 @@ def simulate_returns(scene: TriangleScene, materials: MaterialTable,
                          "(geom/packet.py::make_packet_traverser)")
     if traverse_fn is None:
         traverse_fn = packet_fn
-    if traverse_data is not None:
-        hits0 = traverse_fn(rays.origin, rays.direction, traverse_data)
-    else:
-        hits0 = traverse_fn(rays.origin, rays.direction)
+    with span("lbt.traverse"):
+        if traverse_data is not None:
+            hits0 = traverse_fn(rays.origin, rays.direction, traverse_data)
+        else:
+            hits0 = traverse_fn(rays.origin, rays.direction)
     bounce_fn = packet_fn if hybrid else traverse_fn
     sensor_normal = (1.0, 0.0, 1.0) if cfg.is_terrestrial else (1.0, 1.0, 0.0)
     if face_pack is None:

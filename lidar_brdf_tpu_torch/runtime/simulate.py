@@ -36,6 +36,7 @@ from ..physics.returns import (SimScalars, final_winner_origins,
 from ..physics.shading import shade_records
 from ..physics.types import OutlierRecord, ReturnRecord
 from ..utils import noise as noise_mod
+from .metrics import carried, count, span, upload
 
 
 def coherent_order(rays: RayBundle) -> RayBundle:
@@ -152,22 +153,25 @@ def simulate_chunk(scene: TriangleScene, materials: MaterialTable,
     package), ``traverse_fn``, ``traverse_data``, ``face_pack`` and
     ``packet_fn`` as in `simulate_returns`.
     """
-    records, outliers, num_returns, final_origin = simulate_returns(
-        scene, materials, rays, noise_buf, scalars, cfg,
-        base_ray_index=base_ray_index, traverse_fn=traverse_fn,
-        traverse_data=traverse_data, scene_has_water=scene_has_water,
-        face_pack=face_pack, packet_fn=packet_fn)
-    # shading reads the winner origins after the bounce loop
-    # (`computeColor-comp.glsl:88,96`); water-free, non-bathymetric scenes
-    # never move an origin, so there it is the recorded start point
-    if scene_has_water or cfg.bathymetric:
-        fo = final_winner_origins(records, final_origin)
-    else:
-        fo = records.start
-    intensity = shade_records(scene, materials, records, fo, scalars, cfg,
-                              rays.rays_per_pulse)
-    return records_to_pointcloud(scene, records, outliers, num_returns,
-                                 intensity, cfg.include_outliers)
+    with span("lbt.returns"):
+        records, outliers, num_returns, final_origin = simulate_returns(
+            scene, materials, rays, noise_buf, scalars, cfg,
+            base_ray_index=base_ray_index, traverse_fn=traverse_fn,
+            traverse_data=traverse_data, scene_has_water=scene_has_water,
+            face_pack=face_pack, packet_fn=packet_fn)
+    with span("lbt.shade"):
+        # shading reads the winner origins after the bounce loop
+        # (`computeColor-comp.glsl:88,96`); water-free, non-bathymetric
+        # scenes never move an origin, so there it is the recorded start
+        if scene_has_water or cfg.bathymetric:
+            fo = final_winner_origins(records, final_origin)
+        else:
+            fo = records.start
+        intensity = shade_records(scene, materials, records, fo, scalars,
+                                  cfg, rays.rays_per_pulse)
+    with span("lbt.cloud"):
+        return records_to_pointcloud(scene, records, outliers, num_returns,
+                                     intensity, cfg.include_outliers)
 
 
 def _pad_slice(rays: dict, lo: int, hi: int, chunk: int) -> dict:
@@ -281,14 +285,23 @@ class Simulator:
     cache_ladders_max: int = 64       # cached chunks (FIFO; device memory)
 
     def __post_init__(self):
+        with span("lbt.construct"):
+            self._construct()
+
+    def _construct(self):
+        """`__post_init__`'s work: the scene's checks and host reads, the
+        uploads of the scene, materials and sim noise, and the culled
+        traverser (its Wald rows built on the host and uploaded)."""
         from ..api import attach_face_neighbors
         self.device = resolve_device(self.device)
         self.compact_readback = bool(
             self.device.type == "cuda" if self.compact_readback is None
             else self.compact_readback)
-        scene = attach_face_neighbors(self.scene)
-        self.scene_has_water = bool(
-            (as_numpy(scene.comp_surface) & SURFACE_WATER).any())
+        with span("lbt.construct.scene"):
+            scene = attach_face_neighbors(self.scene)
+            self.scene_has_water = bool(
+                (as_numpy(scene.comp_surface) & SURFACE_WATER).any())
+            scene_min_y = float(as_numpy(scene.vertices)[:, 1].min())
         self.use_culled = (self.use_culled is not False
                            and self.traverse_fn is None)
         self.packet_fn = None
@@ -296,14 +309,14 @@ class Simulator:
         self._bsp_cache = {}        # run key -> BSP-ordered host arrays
         self._ray_key_memo = {}     # tensor ids -> (key, tensors)
         self._count_hints = {}      # (run key, lo, hi) -> points
-        scene_min_y = float(as_numpy(scene.vertices)[:, 1].min())
-        self.scene = scene.to(self.device)
-        self.materials = self.materials.to(self.device)
+        self.scene = upload(scene, self.device)
+        self.materials = upload(self.materials, self.device)
         self.scalars = SimScalars.from_config(self.cfg, scene_min_y,
                                               self.device)
         if self.noise_buf is None:
-            self.noise_buf = noise_mod.make_sim_noise(self.cfg.seed)
-        self.noise_buf = self.noise_buf.to(self.device)
+            with span("lbt.construct.noise"):
+                self.noise_buf = noise_mod.make_sim_noise(self.cfg.seed)
+        self.noise_buf = upload(self.noise_buf, self.device)
         b0, b1 = self.cfg.max_range_soft_boundary
         self.t_max = float(self.cfg.max_range + abs(b0) + abs(b1) + 1.0)
         rpp = max(self.cfg.rays_per_pulse, 1)
@@ -394,8 +407,9 @@ class Simulator:
 
     def _upload(self, sl: dict) -> RayBundle:
         """A host slice as the chunk's device RayBundle."""
-        return RayBundle(**{k: torch.from_numpy(np.ascontiguousarray(v)).to(
-            self.device, non_blocking=True) for k, v in sl.items()})
+        return RayBundle(**upload(
+            {k: torch.from_numpy(np.ascontiguousarray(v))
+             for k, v in sl.items()}, self.device, non_blocking=True))
 
     def _prep_slice(self, sl: dict, metrics=None):
         """Upload a padded host slice and cull it on the device: (device
@@ -406,9 +420,11 @@ class Simulator:
                  if metrics is not None and self.use_culled
                  else contextlib.nullcontext())
         with stage:
-            dev, data = self._cull(self._upload(sl))
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            dev = self._upload(sl)
+            with span("lbt.cull.k5"):
+                dev, data = self._cull(dev)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
         return dev, data
 
     def _prep(self, rays: dict, lo: int, hi: int, chunk: int, metrics=None):
@@ -432,32 +448,37 @@ class Simulator:
             return sl, None, 0.0
         if key is not None:
             return sl, key, 0.0
-        t0 = time.perf_counter()
-        key = self._chunk_key(sl["origin"], sl["direction"])
-        return sl, key, time.perf_counter() - t0
+        with span("lbt.hash", timed=True) as timer:
+            key = self._chunk_key(sl["origin"], sl["direction"])
+        return sl, key, timer.seconds
 
     def _prep_cached(self, sl: dict, key: str | None, metrics=None):
         """`_prep_slice` through the ladder cache: (device rays, data, cull
         seconds).  A hit skips the upload and the cull; only culled chunks
         are cached (JAX runtime/simulate.py:709-783)."""
-        t0 = time.perf_counter()
-        hit = None if key is None else self._ladder_cache.get(key)
-        if hit is not None:
-            return (*hit, time.perf_counter() - t0)
-        dev, data = self._prep_slice(sl, metrics)
-        if data is not None and key is not None:
-            _put(self._ladder_cache, key, (dev, data),
-                 self.cache_ladders_max)
-        return dev, data, time.perf_counter() - t0
+        with span("lbt.cull", timed=True) as timer:
+            hit = None if key is None else self._ladder_cache.get(key)
+            if key is not None:
+                count("ladder_cache_misses" if hit is None
+                      else "ladder_cache_hits")
+            if hit is None:
+                hit = self._prep_slice(sl, metrics)
+                if hit[1] is not None and key is not None:
+                    _put(self._ladder_cache, key, hit,
+                         self.cache_ladders_max)
+        return (*hit, timer.seconds)
 
     def _chunk_key(self, origin: np.ndarray, direction: np.ndarray) -> str:
         """Content key of rays (the scene and BVH are bound to this
         Simulator): blake2b-16 of the f32 origin and direction bytes and
         ``t_max``, as the JAX package's `_chunk_key`."""
         h = hashlib.blake2b(digest_size=16)
-        h.update(np.ascontiguousarray(origin, np.float32))
-        h.update(np.ascontiguousarray(direction, np.float32))
+        o = np.ascontiguousarray(origin, np.float32)
+        d = np.ascontiguousarray(direction, np.float32)
+        h.update(o)
+        h.update(d)
         h.update(str(self.t_max).encode())
+        count("hashed_bytes", o.nbytes + d.nbytes)
         return h.hexdigest()
 
     def _ray_key(self, rays: RayBundle, host: dict) -> str:
@@ -493,22 +514,32 @@ class Simulator:
         (``device_s``, host clock to a synchronize; with
         ``compact_readback`` the packing too, and a count hint's queued
         copy), readback (``readback_s``) and the bytes read back
-        (``readback_bytes``)."""
+        (``readback_bytes``): the seconds of the spans ``lbt.order``,
+        ``lbt.hash`` (the worker thread's, added to ``order_s`` though it
+        overlaps the main thread's spans), ``lbt.cull``, ``lbt.device`` and
+        ``lbt.readback`` (`runtime/metrics.py`)."""
+        with span("lbt.run"):
+            return self._run(rays, checkpoint_dir, metrics, materials, stats)
+
+    def _run(self, rays, checkpoint_dir, metrics, materials, stats):
+        """`run`'s work, inside its span."""
         if materials is not None:
-            materials = materials.to(self.device)
-        t0 = time.perf_counter()
-        host = {k: as_numpy(getattr(rays, k))
-                for k in ("origin", "direction", "gps_time")}
-        run_key = None
-        if self.reorder:
-            run_key = self._ray_key(rays, host)
-            hit = self._bsp_cache.get(run_key)
-            if hit is None:
-                order = bsp_order(rays, self.block_pulses)
-                hit = {k: v[order] for k, v in host.items()}
-                _put(self._bsp_cache, run_key, hit, 2)
-            host = hit
-        order_s = time.perf_counter() - t0
+            materials = upload(materials, self.device)
+        with span("lbt.order", timed=True) as timer:
+            host = {k: as_numpy(getattr(rays, k))
+                    for k in ("origin", "direction", "gps_time")}
+            run_key = None
+            if self.reorder:
+                run_key = self._ray_key(rays, host)
+                hit = self._bsp_cache.get(run_key)
+                count("bsp_cache_misses" if hit is None
+                      else "bsp_cache_hits")
+                if hit is None:
+                    order = bsp_order(rays, self.block_pulses)
+                    hit = {k: v[order] for k, v in host.items()}
+                    _put(self._bsp_cache, run_key, hit, 2)
+                host = hit
+        order_s = timer.seconds
         P = rays.num_pulses
         R = rays.rays_per_pulse
         chunk = min(self.cfg.chunk_pulses, 1 << max(P - 1, 1).bit_length())
@@ -528,15 +559,19 @@ class Simulator:
         hints = self._count_hints
         sync = (torch.cuda.synchronize if self.device.type == "cuda"
                 else (lambda: None))
+        host_slice = carried(self._host_slice)
 
         def prep(lo, hi):
             key = None if run_key is None else f"{run_key}:{lo}:{hi}:{chunk}"
-            return pool.submit(self._host_slice, host, lo, hi, chunk, key)
+            return pool.submit(host_slice, host, lo, hi, chunk, key)
 
         with ThreadPoolExecutor(max_workers=1) as pool:
             fut = prep(*spans[0][1:]) if spans else None
             for k, (ci, lo, hi) in enumerate(spans):
-                sl, key, key_s = fut.result()
+                count("chunks")
+                count("rays", (hi - lo) * R)
+                with span("lbt.prep_wait"):
+                    sl, key, key_s = fut.result()
                 timing["order_s"] += key_s
                 if k + 1 < len(spans):       # slice the next chunk meanwhile
                     fut = prep(*spans[k + 1][1:])
@@ -545,39 +580,39 @@ class Simulator:
                 hint_key = None if run_key is None else (run_key, lo, hi)
                 stage = (metrics.stage("TOTAL") if metrics is not None
                          else contextlib.nullcontext())
-                with stage:
-                    t0 = time.perf_counter()
+                with stage, span("lbt.device", timed=True) as device:
                     cloud = self.run_chunk(sl, lo * R, data, materials)
                     pre = None
                     if self.compact_readback:
-                        rows, count = pack_compact(cloud)
+                        rows, count_t = pack_compact(cloud)
                         hint = hints.get(hint_key)
                         if hint is not None:   # queue rows and count
                             pre = _to_host(
                                 rows[:_pad_rows(hint, rows.shape[0])])
-                            count = _to_host(count)
+                            count_t = _to_host(count_t)
                     sync()
-                t1 = time.perf_counter()
-                if self.compact_readback:
-                    n = int(count)
-                    if hint_key is not None:
-                        _put(hints, hint_key, n, 4 * max(len(spans), 8))
-                    moved = 0 if pre is None else pre.shape[0]
-                    if pre is None or pre.shape[0] < n:
-                        pre = rows[:n].cpu()       # count, then the rows
-                        moved += n
-                    cloud = unpack_compact(pre[:n])
-                    nbytes = (count.element_size()
-                              + moved * rows.shape[1] * 4)
-                else:
-                    cloud = cloud.to("cpu")
-                    nbytes = sum(v.nbytes for v in vars(cloud).values())
-                t2 = time.perf_counter()
+                with span("lbt.readback", timed=True) as readback:
+                    if self.compact_readback:
+                        n = int(count_t)
+                        count("points", n)
+                        if hint_key is not None:
+                            _put(hints, hint_key, n, 4 * max(len(spans), 8))
+                        moved = 0 if pre is None else pre.shape[0]
+                        if pre is None or pre.shape[0] < n:
+                            pre = rows[:n].cpu()   # count, then the rows
+                            moved += n
+                        cloud = unpack_compact(pre[:n])
+                        nbytes = (count_t.element_size()
+                                  + moved * rows.shape[1] * 4)
+                    else:
+                        cloud = cloud.to("cpu")
+                        nbytes = sum(v.nbytes for v in vars(cloud).values())
+                    count("readback_bytes", nbytes)
                 clouds.append(cloud)
                 if ckpt is not None:
                     ckpt.save_chunk(ci, cloud)
-                timing["device_s"] += t1 - t0
-                timing["readback_s"] += t2 - t1
+                timing["device_s"] += device.seconds
+                timing["readback_s"] += readback.seconds
                 timing["readback_bytes"] += nbytes
         if stats is not None:
             for key, val in timing.items():
