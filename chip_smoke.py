@@ -13,7 +13,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    the table-gradient scatter-add (K6) from
    `lidar_brdf_tpu_torch/kernels/csrc/` into `build/kernels/` (one nvcc
    each, started together) and launches each once (K1, K2 and K4 on a
-   one-triangle input, K5 on the one-node tree over it, K6 on two cells).
+   one-triangle input, K5 on the one-node tree over it, K6 on two cells
+   and on two rows through `row_scatter_add`).
 2. Kernel vs plain version on the card: K3 equal bit for bit on the
    bench's (8, 128) tile, on 1M elements and on sizes that are no multiple
    of 4, timed beside `torch.addcmul` (CUDA events and host time per
@@ -69,15 +70,18 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    terrain of phase 4 at 131,072 pulses (L = 2, no face pack; the flight's
    pulse count cut so that the one cull stays ~5 s).  Launch counts
    are reset before each: K1 must launch once per `tls` step and K2 not, K2
-   once per `als` step and K1 not, and K6 (the BRDF table's gradient,
-   `physics/brdf.py::TableRead`) once per step of every `BENCH_GRADS`
-   setting but ``none``, where it must not launch.  Gradients w.r.t. the
-   BRDF table, the ray origins and the vertices must be finite, each with
-   a non-zero entry.  Prints rays/s fwd+bwd, the `BENCH_GRADS` split, host
-   syncs per step, and the device time by kernel of a profiled ``table``
-   and ``full`` step (the ``table`` step must launch no
-   `indexing_backward` kernel: the table's reads have no index backward);
-   one step's backward hands its K6 inputs to phase 15.
+   once per `als` step and K1 not, and K6 once per step of every
+   `BENCH_GRADS` setting but ``none`` for the BRDF table's gradient
+   (`physics/brdf.py::TableRead`) and once more for each row scatter
+   (`physics/rows.py::RowGather`: the winner rows with the origin, and the
+   face pack's build and rows or the corner vertices with the vertices).
+   Gradients w.r.t. the BRDF table, the ray origins and the vertices must
+   be finite, each with a non-zero entry.  Prints rays/s fwd+bwd, the
+   `BENCH_GRADS` split, host syncs per step, and the device time by kernel
+   of a profiled ``table`` and ``full`` step (neither may launch an
+   `indexing_backward` kernel: the table's reads and the row gathers have
+   no index backward); one step's backward hands its K6 inputs to phases
+   15 and 16.
 7. Card vs CPU gradients at the sizes of phase 5: loss to rtol 1e-5, each
    gradient within atol 1e-4 * max|g| (scatter-add order on the card is not
    fixed, so gradients are not bitwise reproducible); and through the water
@@ -124,16 +128,17 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    ``"full"`` `sharded_train_step`: the cloud equal to `simulate_chunk`'s
    bit for bit, gradients within phase 7's tolerance of a step with no
    collective, K1 once per call, K5 3 times in each culled path's
-   preparation, K6 once per step; (b) 4 ranks over gloo sharing the card,
-   started as subprocesses by `parallel/worker.py::launch` (scenes handed
-   over as one `.npz` each): the `tls` workload (K1 once per rank per
-   forward and per step, K4 once per rank) and the `als` ladder path at
-   131,072 pulses over the 4,999,122-face terrain (K2 once per rank per
-   forward and per step, one global `t_max`); every rank's PLY shards
+   preparation, K6 `k6_per_step` times a step; (b) 4 ranks over gloo
+   sharing the card, started as subprocesses by
+   `parallel/worker.py::launch` (scenes handed over as one `.npz` each):
+   the `tls` workload (K1 once per rank per forward and per step, K4 once
+   per rank) and the `als` ladder path at 131,072 pulses over the
+   4,999,122-face terrain (K2 once per rank per forward and per step, one
+   global `t_max`); every rank's PLY shards
    byte-equal to the parent's own shards, losses and gradients bit-equal
    across ranks and within phase 7's tolerance of the sum of the parent's
-   shards; K5 3 times in each rank's culled preparation, K6 once per
-   step.  `[multirank]`
+   shards; K5 3 times in each rank's culled preparation, K6
+   `k6_per_step` times a step.  `[multirank]`
    lines: per rank wall, cull, forward and step times, each all_reduce's
    time and bytes.
 12. The JAX package's last entry points on the card, and the scans with
@@ -176,10 +181,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    `als` fwd+bwd steps (`multihost.pulse_range`) at 1, 2, 4 and 8 ranks,
    every share stepped on the card one after another through the port's
    bench (the `als` terrain of phase 4 shared): K1 (`tls`) or K2 (`als`)
-   and K6 once a step and K5 3 times in each share's cull, every share's loss
-   finite; the bytes one step all-reduces, leaf by leaf, equal to what a
-   world-1 `sharded_train_step` hands to `all_reduce` on the card; the ring
-   all-reduce model (`analysis`: stated link rates, phase 11a's 1-rank
+   once a step, K6 `k6_per_step` times, K5 3 times in each share's cull,
+   every share's loss finite; the bytes one step all-reduces, leaf by leaf,
+   equal to what a world-1 `sharded_train_step` hands to `all_reduce` on
+   the card; the ring all-reduce model (`analysis`: stated link rates,
+   phase 11a's 1-rank
    all_reduce time charged on every hop) and its weak and strong bounds
    at 2, 4 and 8 cards and 2 nodes, each beside the bound from the bytes
    alone.  `[scaling]` lines: share steps (the median of 3 windows of 3
@@ -198,6 +204,15 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    queue beside `index_put_(accumulate=True)` (autograd's index backward,
    the port's path before K6) and `index_add_` on the same inputs, with
    the bound of N W 8 + 8 n_cells bytes at 3.35 TB/s.  `[K6]` lines.
+16. The row scatters (`kernels/scatter.py::row_scatter_add`: K6 over the
+   flat cells ``row * C + col``), after phase 15: uniform rows, every row
+   on one source row (1,048,576 x 23), unique rows (x 6), a count that is
+   no multiple of 32, N = 0, the masked-slot pattern, and each row scatter
+   of the `tls` and `als` steps of phase 6, each checked on its flat cells
+   as phase 15 checks; timed beside `index_put_(accumulate=True)` on the
+   rows (autograd's backward of a row gather, the port's path before),
+   `index_add_` on the rows, and, on the winner rows, the JAX package's
+   dense compare-select.  `[rows]` lines.
 8. Profiles, last so that they disturb no timed phase: K1's device time on
    the `tls` chunk, K2's on the `als` chunk (as the Simulator calls it, and
    with the wrapper's two output fills instead), and K3's and
@@ -217,7 +232,10 @@ the topo-bathymetric scan of phase 4b alone, twice, and prints each
 run's wall, cull and device seconds.  `--k5-chunk` builds the kernels and
 runs phase 13 without the water chunk; a copy of the script in the root
 of an older tree (one whose `beam_cull` takes no ``lanes``, ``capacity``
-or ``depth``) skips the forced paths and times that tree's K5.  A copy of the script in the
+or ``depth``) skips the forced paths and times that tree's K5.
+`--row-chunk` builds the kernels and runs phase 16 on the row scatters of
+the bench's `alphaprime` step (1,310,400 pulses) and 1,048,576-pulse `als`
+step, each profiled and timed too.  A copy of the script in the
 root of another tree of the repo measures that tree's kernel or scan the
 same way (a tree whose K4 takes no mask: every ray, in its 128-ray
 tiles).
@@ -601,8 +619,15 @@ def phase_card_and_build():
     torch.cuda.synchronize()
     if out.tolist() != [1.0, 9.0, 0.0]:
         fail(f"K6 two-cell launch gave {out.tolist()}")
+    # two rows of 2 through K6's flat cells: row 1 gets [1, 2] + [3, 4]
+    out = scatter.row_scatter_add(
+        torch.tensor([1, 1], dtype=torch.int64, device="cuda"),
+        f32([[1.0, 2.0], [3.0, 4.0]]), 3)
+    torch.cuda.synchronize()
+    if out.tolist() != [[0.0, 0.0], [4.0, 6.0], [0.0, 0.0]]:
+        fail(f"K6 two-row launch gave {out.tolist()}")
     log("[build] K1 one-tile, K2 one-ladder, K3 one-tile, K4 one-leaf, "
-        "K5 one-node and K6 two-cell launches ok")
+        "K5 one-node, K6 two-cell and two-row launches ok")
     return card
 
 
@@ -2616,6 +2641,63 @@ def capture_k6(fn) -> list:
     return calls
 
 
+def capture_rows(fn) -> list:
+    """[(idx, g, rows)] of each row-gradient scatter ``fn()`` makes through
+    `physics/rows.py::RowGather` (copies; the wrapper runs as usual)."""
+    from lidar_brdf_tpu_torch.physics import rows as prows
+    calls = []
+    real = prows.row_scatter_add
+
+    def spy(idx, g, rows):
+        calls.append((idx.clone(), g.clone(), rows))
+        return real(idx, g, rows)
+
+    prows.row_scatter_add = spy
+    try:
+        fn()
+    finally:
+        prows.row_scatter_add = real
+    return calls
+
+
+def row_inputs(ws, calls) -> dict:
+    """One step's row scatters (`capture_rows`) with the shape of its
+    winner rows: pulses, rays a pulse and return levels."""
+    return dict(calls=calls, pulses=ws.rays.num_pulses,
+                rays=ws.rays.rays_per_pulse, levels=ws.cfg.max_returns)
+
+
+FULL_LEAVES = ("brdf_table", "origin", "vertices")
+
+
+MATERIAL_LEAVES = ("brdf_table", "refractive_index", "roughness",
+                   "reflectivity_f0")    # a sharded "materials" step's
+
+
+def k6_per_step(leaves, faces: int, pulses: int, levels: int) -> int:
+    """K6 launches of one water-free step that differentiates ``leaves``:
+    one for the BRDF table's reads, one for the winner rays' rows with the
+    origin, and, where `simulate_returns` packs the faces
+    (`returns.packs_faces`), one for the pack's rows when they carry a
+    gradient (its vertex or material columns) and one for its vertex
+    build; unpacked, one for the corner vertices."""
+    from lidar_brdf_tpu_torch.physics.returns import packs_faces
+    packed = packs_faces(faces, pulses, levels)
+    verts = "vertices" in leaves
+    rows = verts or bool({"refractive_index", "roughness"} & set(leaves))
+    return (("brdf_table" in leaves) + ("origin" in leaves)
+            + (rows if packed else verts) + (verts and packed))
+
+
+def row_scatters(ws, grads: str) -> int:
+    """Row scatters (K6 launches beside the table's) in one step of ``ws``
+    under ``grads`` (`k6_per_step` less the table's)."""
+    from lidar_brdf_tpu_torch import bench
+    names = bench.GRADS[grads]
+    return k6_per_step(names, ws.scene.num_faces, ws.rays.num_pulses,
+                       ws.cfg.max_returns) - ("brdf_table" in names)
+
+
 def step_kernels(by: dict) -> dict:
     """Device ms of one profiled step (`device_ms_by_kernel`): all of it,
     K6's, and autograd's index backwards' (ms, launches); Nones in a CPU
@@ -2635,16 +2717,22 @@ def phase_fwd_bwd(name, ws, kernel):
     """Training steps on one culled workload: for each `BENCH_GRADS`
     setting, launch counts set to 0 just before its timed steps and read
     just after (``kernel`` once a step, the other traversal kernel not, K6
-    once a step but under ``none``); gradient check; BENCH_GRADS split;
-    device ms by kernel of a profiled ``table`` and ``full`` step (the
-    ``table`` step launches no index backward).  Returns (the ``full``
-    steps' launches, results, one step's K6 inputs)."""
+    once a step for the table but under ``none`` and `row_scatters` times
+    more); gradient check; BENCH_GRADS split; device ms by kernel of a
+    profiled ``table`` and ``full`` step (neither launches an index
+    backward).  Returns (the ``full`` steps' launches, results, one step's
+    table scatter, its row scatters)."""
     from lidar_brdf_tpu_torch import bench
     from lidar_brdf_tpu_torch.kernels import pulse as pp
     from lidar_brdf_tpu_torch.kernels import scatter
     from lidar_brdf_tpu_torch.kernels import traverse as tr
     loss, gmax = check_grads(name, ws)
-    calls = capture_k6(lambda: bench.loss_and_grads(ws))
+    row_calls = []
+    calls = capture_k6(lambda: row_calls.extend(capture_rows(
+        lambda: bench.loss_and_grads(ws))))
+    if len(row_calls) != row_scatters(ws, "full"):
+        fail(f"one {name} step scattered {len(row_calls)} row gradients, "
+             f"not {row_scatters(ws, 'full')}")
     if len(calls) != 1:
         fail(f"one {name} step scattered the table gradient {len(calls)} "
              f"times, not once")
@@ -2664,7 +2752,9 @@ def phase_fwd_bwd(name, ws, kernel):
                                    K2=pp.KERNEL.launches,
                                    K6=scatter.KERNEL.launches)
         want = {kernel: STEP_ITERS + 1, other: 0,
-                "K6": 0 if grads == "none" else STEP_ITERS + 1}
+                "K6": k6_per_step(bench.GRADS[grads], ws.scene.num_faces,
+                                  ws.rays.num_pulses, ws.cfg.max_returns)
+                * (STEP_ITERS + 1)}
         if DEVICE == "cuda" and n != want:
             fail(f"the {name} fwd+bwd steps ({grads}) launched {n}: "
                  f"expected {want} ({STEP_ITERS + 1} steps)")
@@ -2674,10 +2764,12 @@ def phase_fwd_bwd(name, ws, kernel):
             kernels[grads] = step_kernels(device_ms_by_kernel(step, 1))
         split[grads] = dict(step_s=t["step_s"],
                             rays_per_s=ws.num_rays / t["step_s"])
-    if DEVICE == "cuda" and kernels["table"]["index_backward_launches"]:
-        fail(f"the {name} table step launched "
-             f"{kernels['table']['index_backward_launches']} index "
-             f"backwards: the table's reads must have none")
+    for grads, k in kernels.items():
+        if DEVICE == "cuda" and k["index_backward_launches"]:
+            fail(f"the {name} {grads} step launched "
+                 f"{k['index_backward_launches']} index backwards: the "
+                 f"table's reads and the record pass's row gathers must "
+                 f"have none")
     full = split["full"]
     log(f"[fwd+bwd] {name}: {ws.rays.num_pulses} pulses x "
         f"{ws.rays.rays_per_pulse} rays, {ws.scene.num_faces} faces, L = "
@@ -2704,14 +2796,16 @@ def phase_fwd_bwd(name, ws, kernel):
     return launches["full"], dict(
         rays=ws.num_rays, faces=ws.scene.num_faces, cull_s=ws.cull_s,
         loss=loss, grad_max=gmax, syncs_per_step=syncs, launches=launches,
-        split=split, profile=prof, kernels=kernels), calls[0]
+        split=split, profile=prof, kernels=kernels), calls[0], row_inputs(
+            ws, row_calls)
 
 
 def phase_training(als):
     """The port's bench path: K3 pre-flight, the full-width `tls` step, the
     `als` step over phase 4's terrain.  Returns (K3 launches, the `tls`
-    and `als` full steps' launches {K1, K2, K6}, results, each step's K6
-    inputs {"tls", "als": (idx, g, n_cells)})."""
+    and `als` full steps' launches {K1, K2, K6}, results, each step's
+    table scatter {"tls", "als": (idx, g, n_cells)}, each step's row
+    scatters {"tls", "als": `row_inputs`})."""
     from lidar_brdf_tpu_torch import bench
     from lidar_brdf_tpu_torch.kernels import smoke
     smoke.KERNEL.launches = 0                  # the bench path starts here
@@ -2727,15 +2821,15 @@ def phase_training(als):
     ws = bench.cull(scene, bvh, cfg, rays, mats, "tile", DEVICE)
     log(f"[setup] fwd+bwd tls workload built in "
         f"{time.perf_counter() - t0:.2f} s")
-    tls_n, tls, tls_k6 = phase_fwd_bwd("tls", ws, "K1")
+    tls_n, tls, tls_k6, tls_rows = phase_fwd_bwd("tls", ws, "K1")
     del ws
     scene, bvh, cfg, mats, rays = als
     n = min(ALS_STEP_PULSES, rays.num_pulses)
     ws = bench.cull(scene, bvh, cfg.with_(chunk_pulses=n),
                     head(rays, n).to("cpu"), mats, "pulse", DEVICE)
-    als_n, als_res, als_k6 = phase_fwd_bwd("als", ws, "K2")
+    als_n, als_res, als_k6, als_rows = phase_fwd_bwd("als", ws, "K2")
     return (k3, tls_n, als_n, dict(tls=tls, als=als_res),
-            dict(tls=tls_k6, als=als_k6))
+            dict(tls=tls_k6, als=als_k6), dict(tls=tls_rows, als=als_rows))
 
 
 def grad_cases(kind):
@@ -3398,10 +3492,14 @@ def runtime_examples():
             f"lidar_brdf_tpu_torch.examples.{name}")
         steps = EXAMPLE_STEPS or mod.STEPS
         loss_fn, x0 = mod.build_problem(DEVICE)
-        res, launches = launch_counts(
-            lambda: adam_fit(loss_fn, x0, mod.LR, steps))
+        res = {}
+        rows, launches = launch_counts(lambda: capture_rows(
+            lambda: res.update(adam_fit(loss_fn, x0, mod.LR, steps))))
+        # K6 for the table's reads (`fit_brdf`) and for each row scatter
+        # (the origin rows of `fit_pose`, the vertex rows of `fit_geometry`)
         expect_launches(f"{name}'s {steps} steps", launches,
-                        {"K4": steps, "K6": steps if name == "fit_brdf" else 0})
+                        {"K4": steps, "K6": (steps if name == "fit_brdf"
+                                             else 0) + len(rows)})
         cpu_fn, cx0 = mod.build_problem("cpu")
         cpu0 = float(cpu_fn(cx0).detach())
         losses = res["losses"]
@@ -3487,6 +3585,7 @@ def multirank_nccl(tls):
     and each gradient within phase 7's atol 1e-4 * max|g| of the same step
     with no collective, K1 once per forward and per step, K4 once in the
     packet forward."""
+    from lidar_brdf_tpu_torch import bench
     import torch
     import torch.distributed as dist
     from lidar_brdf_tpu_torch.parallel import multihost, shard, worker
@@ -3512,7 +3611,10 @@ def multirank_nccl(tls):
         expect_launches(f"the one-rank {path} forward", s["fwd_launches"],
                         {PATH_KERNEL[path]: 1})
     expect_launches("the one-rank tile step", summary["tile"]["step_launches"],
-                    {"K1": 1, "K6": 1})
+                    {"K1": 1, "K6": k6_per_step(
+                        FULL_LEAVES + MATERIAL_LEAVES, scene.num_faces,
+                        MULTI_PULSES,
+                        bench.CONFIGS["tls"]["max_returns"])})
     fn, data, _ = res["traverse"]["tile"]
     args = (rep[0], rep[2], res["rays"], res["noise"], res["scalars"])
     with torch.no_grad():
@@ -3547,7 +3649,7 @@ def multirank_nccl(tls):
     return dict(backend=backend, wall_s=wall_s, paths=summary, grad_err=errs)
 
 
-def check_ranks(name, ranks, refs, outdir):
+def check_ranks(name, ranks, refs, outdir, faces):
     """The ranks' results of workload ``name`` against the parent's shards
     (`worker.run_shards_alone`): each rank's range and PLY shards (bytes
     equal to the parent's shard written the same way), losses, replicated
@@ -3556,8 +3658,10 @@ def check_ranks(name, ranks, refs, outdir):
     of the shards', origin gradients of each rank within it of its
     shard's (non-finite entries where the reference's are), one ladder
     ``t_max``, and (on the card) each path's kernel once per forward and
-    per step.  Returns (max |dg| / max |g| by step path and gradient, the
+    per step, and K6 `k6_per_step` times per step (``faces``: the
+    scene's).  Returns (max |dg| / max |g| by step path and gradient, the
     count of non-finite gradient entries where there are any)."""
+    from lidar_brdf_tpu_torch import bench
     import filecmp
     import torch
     from lidar_brdf_tpu_torch.io.ply import write_ply
@@ -3580,10 +3684,13 @@ def check_ranks(name, ranks, refs, outdir):
             expect_launches(f"{name}: rank {k}'s {path} forward",
                             g["paths"][path]["fwd_launches"],
                             {PATH_KERNEL[path]: 1})
-        for path, _ in worker.WORKLOADS[name]["steps"]:
+        for path, grads in worker.WORKLOADS[name]["steps"]:
+            leaves = (FULL_LEAVES if grads == "full" else ()) + MATERIAL_LEAVES
             expect_launches(f"{name}: rank {k}'s {path} step",
                             g["paths"][path]["step_launches"],
-                            {PATH_KERNEL[path]: 1, "K6": 1})
+                            {PATH_KERNEL[path]: 1, "K6": k6_per_step(
+                                leaves, faces, g["hi"] - g["lo"],
+                                bench.CONFIGS[name]["max_returns"])})
     for path in worker.WORKLOADS[name]["paths"]:
         t_max = {g["paths"][path]["t_max"] for g in got}
         if path == "ladder" and t_max != {
@@ -3667,7 +3774,7 @@ def multirank_gloo(tls, als):
             refs = worker.run_shards_alone(name, rep, total, MULTI_RANKS,
                                            DEVICE)
             out["errs"][name], out["nonfinite"][name] = check_ranks(
-                name, ranks, refs, outdir)
+                name, ranks, refs, outdir, scene.num_faces)
             out["parent_s"][name] = time.perf_counter() - t0
             del refs, rep
     out["ranks"] = ranks
@@ -3733,8 +3840,9 @@ def phase_scaling(als, alpha: dict) -> dict:
     which `run` holds against what a world-1 `sharded_train_step` hands to
     `all_reduce` on the card), the shares, `analysis`.  Fails where `run`
     raises, on a share whose loss is not finite, or on a share that
-    launched other kernels than its traversal kernel once a step and K5 in
-    its cull."""
+    launched other kernels than its traversal kernel once a step, K5 in
+    its cull, and K6 `k6_per_step` times a step."""
+    from lidar_brdf_tpu_torch import bench
     from lidar_brdf_tpu_torch import bench_scaling as bs
     t_start = time.perf_counter()
     scene, bvh, cfg, mats, rays = als
@@ -3746,6 +3854,7 @@ def phase_scaling(als, alpha: dict) -> dict:
             rays.to("cpu"), mats))}
     kinds = {c: PATH_KERNEL["tile" if s.kind == "tile" else "ladder"]
              for c, s in setups.items()}
+    faces = {c: s.workload[0].num_faces for c, s in setups.items()}
     card = setups["tls"].card
 
     def check(config, n, m):
@@ -3756,7 +3865,10 @@ def phase_scaling(als, alpha: dict) -> dict:
             steps = bs.steps_per_share(SCALING_ITERS, SCALING_WINDOWS)
             expect_launches(
                 f"{config}: share {s['rank']} of {n}", s["launches"],
-                {kinds[config]: steps, "K5": k5_launches(), "K6": steps})
+                {kinds[config]: steps, "K5": k5_launches(),
+                 "K6": steps * k6_per_step(
+                     FULL_LEAVES, faces[config], s["pulses"],
+                     bench.CONFIGS[config]["max_returns"])})
             busy = "n/a" if s["busy"] is None else f"{s['busy']:.3f}"
             log(f"[scaling] {config} share {s['rank']} of {n}: "
                 f"{s['pulses']} pulses, {s['buckets']} buckets of "
@@ -4284,6 +4396,170 @@ def phase_k6_vs_plain(steps: dict) -> dict:
             for k, r in res.items()})
 
 
+# phase 16: the record pass's row scatters on K6, against the plain version
+ROW_ROWS = 1 << 20         # gathered rows of the synthetic timed cases
+ROW_FACES = 39_992         # source rows of the face cases (the city's)
+ROW_TIMED = ("uniform 23", "one row 23", "unique 6")
+ROW_LABELS = {6: "winner rows", 23: "face rows", 3: "vertex rows"}
+
+
+def row_cases(steps: dict) -> dict:
+    """{name: (idx (N,) int64, g (N, C) f32, rows, winner shape or None)}
+    on `DEVICE`: synthetic cases, then each captured row scatter of
+    ``steps`` ({"tls": `row_inputs`, ...}), named by step and columns.  The
+    winner shape (levels, pulses, rays) marks the winner rays' rows, which
+    the dense compare-select can also sum."""
+    import torch
+    gen = torch.Generator().manual_seed(16)
+    i64 = torch.int64
+
+    def rand_g(n, c):
+        return torch.randn((n, c), generator=gen)
+
+    n = ROW_ROWS
+    masked_idx = torch.randint(0, ROW_FACES, (4099,), generator=gen)
+    masked_g = rand_g(4099, 23)
+    dead = torch.rand(4099, generator=gen) < 0.75   # masked slots: row 0,
+    masked_idx[dead] = 0                             # zero cotangents
+    masked_g[dead] = 0.0
+    masked_g[dead.nonzero()[::2, 0], 5] = -0.0
+    masked_g[17, 3] = float("nan")
+    cases = {
+        "uniform 23": (torch.randint(0, ROW_FACES, (n,), generator=gen),
+                       rand_g(n, 23), ROW_FACES),
+        "one row 23": (torch.full((n,), 4242, dtype=i64), rand_g(n, 23),
+                       ROW_FACES),
+        "unique 6": (torch.randperm(4 * n, generator=gen)[:n],
+                     rand_g(n, 6), 4 * n),
+        "4099 x 3": (torch.randint(0, 1000, (4099,), generator=gen),
+                     rand_g(4099, 3), 1000),
+        "0 x 23": (torch.zeros(0, dtype=i64), rand_g(0, 23), ROW_FACES),
+        "masked slots": (masked_idx, masked_g, ROW_FACES),
+    }
+    out = {k: (i.to(DEVICE), g.to(DEVICE), rows, None)
+           for k, (i, g, rows) in cases.items()}
+    for step, inp in steps.items():
+        for idx, g, rows in inp["calls"]:
+            cols = g.shape[1]
+            name = f"{step} {ROW_LABELS.get(cols, f'{cols} cols')}"
+            winner = ((inp["levels"], inp["pulses"], inp["rays"])
+                      if cols == 6 else None)
+            out[name] = (idx, g, rows, winner)
+    return out
+
+
+def winner_rows_dense(idx, g, winner):
+    """The winner rays' row gradient as the JAX package's
+    `_winner_rows_pr_bwd` forms it: a compare-select over the R rays of
+    each pulse, summed over the levels; (P R, C)."""
+    import torch
+    L, P, R = winner
+    w = idx.reshape(L, P) - torch.arange(P, device=idx.device) * R
+    mask = w[:, :, None] == torch.arange(R, device=idx.device)
+    return torch.where(mask[..., None], g.reshape(L, P, 1, -1),
+                       0.0).sum(0).reshape(P * R, -1)
+
+
+def phase_rows(steps: dict) -> dict:
+    """Phase 16: the row scatters (`kernels/scatter.py::row_scatter_add`,
+    K6 over the flat cells ``row * C + col``) on every case of `row_cases`
+    (``steps``: captured step inputs), each held to the plain version by
+    `k6_check` on its flat cells; then timed by CUDA events on a queue, in
+    turns: the whole call (cells formed, then K6), K6 alone on cells formed
+    before, `index_put_(accumulate=True)` on the rows (autograd's backward
+    of a row gather, the port's path before) and `index_add_` on the rows;
+    the winner rows also beside the dense compare-select.  Returns
+    {case: record}."""
+    import torch
+    from lidar_brdf_tpu_torch.kernels import scatter
+    t0 = time.perf_counter()
+    res = {}
+    for name, (idx, g, rows, winner) in row_cases(steps).items():
+        cols = g.shape[1]
+        cells = (idx[:, None] * cols + torch.arange(
+            cols, device=idx.device)).to(torch.int32)
+        r = res[name] = k6_check(f"rows {name}", cells, g, rows * cols)
+        r.update(bound_ms=k6_bound(r["rows"], cols, rows * cols),
+                 source_rows=rows)
+        if name in ROW_TIMED or name.split(" ")[0] in steps:
+            zeros = lambda: torch.zeros((rows, cols), device=g.device)
+            fns = dict(
+                k6=lambda: scatter.row_scatter_add(idx, g, rows),
+                k6_kernel=lambda: scatter.table_scatter_add(
+                    cells, g, rows * cols),
+                index_put=lambda: zeros().index_put_((idx,), g,
+                                                     accumulate=True),
+                index_add=lambda: zeros().index_add_(0, idx, g))
+            if winner is not None:
+                fns["dense"] = lambda: winner_rows_dense(idx, g, winner)
+                # at most L values a cell: rounding of L additions
+                torch.testing.assert_close(
+                    winner_rows_dense(idx, g, winner),
+                    scatter.table_scatter_add_plain(
+                        cells, g, rows * cols).reshape(rows, cols), rtol=0,
+                    atol=winner[0] * 2.0 ** -23 * float(
+                        g.abs().nan_to_num(0.0, 0.0, 0.0).max()),
+                    equal_nan=True)
+            runs = {k: [] for k in fns}
+            for k in [*fns, *reversed(fns)]:
+                runs[k].append(k6_ms(fns[k]))
+            r.update({f"{k}_ms": min(v) for k, v in runs.items()},
+                     runs=runs)
+        log(f"[rows] {name}: {r['rows']} x {cols} into {rows} rows "
+            f"({r['live']} non-zero cotangents, {r['cells']} cells hit, the "
+            f"hottest {r['hottest']} times); max |K6 - plain| "
+            f"{r['max_abs_err']:.3e} ({r['max_err_over_bound']:.3e} of the "
+            f"bound); bound {r['bound_ms']:.5f} ms"
+            + ("" if "k6_ms" not in r else
+               f"; CUDA events cells + K6 {r['k6_ms']:.5f} ms (runs "
+               f"{r['runs']['k6']}; K6 alone {r['k6_kernel_ms']:.5f}), "
+               f"index_put_(accumulate=True) {r['index_put_ms']:.5f} "
+               f"({r['runs']['index_put']}), index_add_ "
+               f"{r['index_add_ms']:.5f} ({r['runs']['index_add']})"
+               + (f", dense compare-select {r['dense_ms']:.5f} "
+                  f"({r['runs']['dense']})" if "dense_ms" in r else "")
+               + f"; at {r['k6_ms'] / r['bound_ms']:.1f}x the bound"))
+    log(f"[rows] phase 16 took {time.perf_counter() - t0:.1f} s")
+    return {k: {x: y for x, y in r.items() if x != "runs"}
+            for k, r in res.items()}
+
+
+def row_chunk() -> dict:
+    """The row scatters of the fit cells' steps: the `alphaprime` city
+    frame (1,310,400 pulses, L = 2, face pack) and the 1,048,576-pulse
+    `als` step (L = 2, corner vertices), each culled once as the bench
+    does; one step's row scatters captured and run through phase 16, one
+    full step profiled by kernel (K6 and index backwards), and full steps
+    timed."""
+    from lidar_brdf_tpu_torch import bench
+    out, steps = {}, {}
+    for name in ("alphaprime", "als"):
+        spec = bench.CONFIGS[name]
+        t0 = time.perf_counter()
+        scene, bvh, cfg, rays, mats = bench.build_workload(
+            name, spec["pulses"], spec["rays_pulse"], spec["max_returns"],
+            spec["scene"], spec["num_tris"])
+        ws = bench.cull(scene, bvh, cfg, rays, mats, spec["traverser"],
+                        DEVICE)
+        setup = time.perf_counter() - t0
+        calls = capture_rows(lambda: bench.loss_and_grads(ws))
+        steps[name] = row_inputs(ws, calls)
+        step, _ = bench.make_step(ws, "full")
+        kern = step_kernels(device_ms_by_kernel(step, 1))
+        t = bench.time_steps(step, DEVICE, 5, warm=1)
+        out[name] = dict(setup_s=setup, step_ms=t["step_s"] * 1e3,
+                         kernels=kern, scatters=len(calls))
+        log(f"[row chunk] {name}: set-up {setup:.1f} s, step "
+            f"{t['step_s'] * 1e3:.3f} ms, profiled step device "
+            f"{fmt_ms(kern['device_ms'])} ms, K6 {fmt_ms(kern['k6_ms'])} "
+            f"ms, index backwards {fmt_ms(kern['index_backward_ms'])} ms in "
+            f"{kern['index_backward_launches']} launches, {len(calls)} row "
+            f"scatters a step")
+        del ws, step
+    out["phase16"] = phase_rows(steps)
+    return out
+
+
 def main() -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
@@ -4310,9 +4586,14 @@ def main() -> int:
         phase_card_and_build()
         log(json.dumps({"k5_chunk": k5_chunk()}))
         return 0
+    if sys.argv[1:] == ["--row-chunk"]:
+        phase_card_and_build()
+        log(json.dumps({"row_chunk": row_chunk()}))
+        return 0
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]} (only --k1-chunk, "
-             f"--k2-chunk, --k4-chunk, --k5-chunk or --water-scan)")
+             f"--k2-chunk, --k4-chunk, --k5-chunk, --row-chunk or "
+             f"--water-scan)")
     t_start = time.perf_counter()
     card = phase_card_and_build()
     t0 = time.perf_counter()
@@ -4352,7 +4633,7 @@ def main() -> int:
     k4["launches"] = water_launches["K4"]
     k2["launches_water"] = water_launches["K2"]
     phase_card_vs_cpu()
-    k3["launches"], tls_steps, als_steps, training, k6_steps = \
+    k3["launches"], tls_steps, als_steps, training, k6_steps, row_steps = \
         phase_training(als)
     k1["launches_fwd_bwd"] = tls_steps["K1"]
     k2["launches_fwd_bwd"] = als_steps["K2"]
@@ -4362,6 +4643,8 @@ def main() -> int:
     k6.update(launches=tls_steps["K6"], launches_als=als_steps["K6"],
               launches_by_grads={k: v["launches"] for k, v in
                                  training.items()})
+    k6["rows"] = phase_rows(row_steps)
+    del row_steps
     files = phase_files(tls)
     runtime = phase_runtime(tls, als)
     forward_culled = bench_cold_scan(runtime["forward_bench"])

@@ -2,7 +2,10 @@
 //     out[idx[i]] += g[i]   for i < total,   out zeroed by the caller,
 // over f32 cotangents g and int32 flat table indices idx, both the
 // row-major (N, W) layout of a table read (W = 8 Hermite, 4 bilinear, 1
-// raw).
+// raw).  The record pass's row gathers call it too
+// (`kernels/scatter.py::row_scatter_add`), on the flat cells row * C + col
+// of a (rows, C) gradient: the face-pack rows crowd hundreds of thousands
+// of winners onto one street face, where a sort serialises each run.
 //
 // Replaces the XLA element scatter-add of the JAX package's custom
 // backwards `lidar_brdf_tpu/physics/brdf.py::_hermite_windows_bwd`

@@ -1,4 +1,4 @@
-"""The table gradient's scatter-add: the hand-written CUDA kernel K6 and its
+"""The gradients' scatter-add: the hand-written CUDA kernel K6 and its
 plain PyTorch version.
 
 ``out[idx[i, k]] += g[i, k]`` into a zeroed f32 vector of ``n_cells``: the
@@ -12,6 +12,11 @@ On a CUDA tensor `table_scatter_add` launches `csrc/table_scatter.cu` once
 on a CPU tensor it runs `table_scatter_add_plain`.  It never falls back
 from one to the other.  The kernel's sums are not bit-stable from run to
 run (float atomics; see the source's note).
+
+`row_scatter_add` is ``out[idx[i], c] += g[i, c]`` into a zeroed (rows, C)
+gradient, on K6 over the flat cells ``row * C + col``: the backward of a
+row gather (`physics/rows.py::RowGather`), the record pass's winner,
+face-pack and vertex rows.
 """
 
 from __future__ import annotations
@@ -67,3 +72,17 @@ def table_scatter_add_plain(idx: torch.Tensor, g: torch.Tensor,
     """Plain PyTorch version of K6: `index_add_` of the flat cotangents."""
     return torch.zeros(n_cells, dtype=g.dtype, device=g.device).index_add_(
         0, idx.reshape(-1), g.reshape(-1))
+
+
+def row_scatter_add(idx: torch.Tensor, g: torch.Tensor,
+                    rows: int) -> torch.Tensor:
+    """(rows, C): the sum of the rows ``g[i]`` over the i with ``idx[i] ==
+    r`` at each row r.  ``idx`` int64 (N,) and ``g`` (N, C) contiguous on
+    one device (f32 on the card), every index in [0, rows), rows * C <
+    2^31.  The cells ``row * C + col`` are formed in int32 and summed by
+    `table_scatter_add`: K6 on a CUDA tensor (one launch; none for N = 0),
+    `index_add_` on a CPU one."""
+    cols = g.shape[1]
+    cells = torch.add(torch.arange(cols, dtype=torch.int32, device=g.device),
+                      idx.to(torch.int32)[:, None], alpha=cols)
+    return table_scatter_add(cells, g, rows * cols).reshape(rows, cols)

@@ -35,6 +35,7 @@ from ..runtime.metrics import span
 from ..utils import noise as noise_mod
 from ..utils.safemath import (clip, dot3, maximum, safe_arccos, safe_norm,
                               safe_sqrt, safe_unit)
+from .rows import gather_rows
 from .types import OutlierRecord, ReturnRecord
 
 LIGHT_SPEED = 299792458.0
@@ -121,13 +122,19 @@ def build_face_pack(scene: TriangleScene, materials: MaterialTable,
                                         noise_mod.MODEL_COMP_STREAM)
     fl = torch.float32
     return torch.cat([
-        scene.vertices[f[:, 0]], scene.vertices[f[:, 1]],
-        scene.vertices[f[:, 2]],
+        gather_rows(scene.vertices, f).reshape(-1, 9),
         scene.vertex_uv[f[:, 0]], scene.vertex_uv[f[:, 1]],
         scene.vertex_uv[f[:, 2]],
         vert_ksns[f[:, 0]], mrow, comp_rand[:, None].to(fl),
         fc[:, None].to(fl), crow.to(fl),
     ], dim=1)
+
+
+def packs_faces(num_faces: int, num_pulses: int, max_returns: int) -> bool:
+    """Whether `simulate_returns` builds the face pack itself: the scene has
+    at most P * L faces (the JAX package's gate: the F-row build pays only
+    when it replaces as many per-winner gathers)."""
+    return num_faces <= num_pulses * max(max_returns, 1)
 
 
 def _faces_contiguous(va, vb, comp_a, comp_b):
@@ -207,12 +214,10 @@ def simulate_returns(scene: TriangleScene, materials: MaterialTable,
     ``packet_fn`` it hands it the level's active mask (``active``, the
     rays' leading shape), and only those rays walk; a caller's
     ``traverse_fn`` is called with the rays alone.  ``face_pack``: None
-    builds the (F, 23) pack when the scene has at most P * L faces (the JAX
-    package's gate: the F-row build pays only when it replaces as many
-    per-winner gathers), False never builds it (every winner gathers its
-    own vertex, uv and material rows), a tensor is used as given.  Returns
-    (records (L, P), outliers (L, P), num_returns (P,), final ray origins
-    (P, R, 3)).
+    builds the (F, 23) pack where `packs_faces`, False never builds it
+    (every winner gathers its own vertex, uv and material rows), a tensor
+    is used as given.  Returns (records (L, P), outliers (L, P),
+    num_returns (P,), final ray origins (P, R, 3)).
     """
     retraverse = bool(cfg.bathymetric) or scene_has_water
     hybrid = retraverse and traverse_data is not None
@@ -229,7 +234,7 @@ def simulate_returns(scene: TriangleScene, materials: MaterialTable,
     bounce_fn = packet_fn if hybrid else traverse_fn
     sensor_normal = (1.0, 0.0, 1.0) if cfg.is_terrestrial else (1.0, 1.0, 0.0)
     if face_pack is None:
-        if scene.num_faces <= rays.num_pulses * max(cfg.max_returns, 1):
+        if packs_faces(scene.num_faces, rays.num_pulses, cfg.max_returns):
             face_pack = build_face_pack(scene, materials, noise_buf)
     elif face_pack is False:
         face_pack = None
@@ -263,12 +268,13 @@ def _returns_retraverse(scene: TriangleScene, materials: MaterialTable,
     rows), as in the JAX package's scan; level 0 takes ``hits0``.  Every
     record field stays differentiable where the JAX package's is: through
     the ray state (origins move to refracted water hits), the winner rows
-    and the face rows; the traversals are forward-only.  Gathers are plain
-    indexing (see `_returns_noretraverse`).  With ``bounce_masked`` (the
-    bounce traverser is the packet walk) each bounce level hands
-    ``bounce_fn`` the rays still active and only those walk: the records
-    read a ray's hit only where it is active (``valid2``), and an inactive
-    ray gets the miss.  Else every ray walks, as in the JAX package.
+    and the face rows; the traversals are forward-only.  Gathers of rows
+    that carry a gradient are `gather_rows` (see `_returns_noretraverse`).
+    With ``bounce_masked`` (the bounce traverser is the packet walk) each
+    bounce level hands ``bounce_fn`` the rays still active and only those
+    walk: the records read a ray's hit only where it is active
+    (``valid2``), and an inactive ray gets the miss.  Else every ray walks,
+    as in the JAX package.
     """
     P, R = rays.num_pulses, rays.rays_per_pulse
     N = P * R
@@ -305,13 +311,15 @@ def _returns_retraverse(scene: TriangleScene, materials: MaterialTable,
         w = torch.argmin(torch.where(valid_hit, t_pr,
                                      torch.full_like(t_pr, BIG)), dim=1)
         flat_w = p_arange * R + w
-        origin_w, dir_w = origin2[flat_w], dir2[flat_w]
-        start_w, prev_dir_w_raw = start2[flat_w], prev2[flat_w]
+        origin_w = gather_rows(origin2, flat_w)
+        dir_w = gather_rows(dir2, flat_w)
+        start_w = gather_rows(start2, flat_w)
+        prev_dir_w_raw = gather_rows(prev2, flat_w)
         face_w = face2[flat_w]
         has_winner = valid2[flat_w]
         safe_fw = torch.clamp(face_w, min=0).long()
         if face_pack is not None:
-            frow = face_pack[safe_fw]                           # (P, 23)
+            frow = gather_rows(face_pack, safe_fw)              # (P, 23)
             v0, v1, v2 = frow[:, 0:3], frow[:, 3:6], frow[:, 6:9]
             verts_w = None
             comp_w = frow[:, 20].to(torch.int32)
@@ -320,9 +328,7 @@ def _returns_retraverse(scene: TriangleScene, materials: MaterialTable,
         else:
             rows_w = faces_aug[safe_fw]                         # (P, 4)
             verts_w = rows_w[:, 0:3].long()
-            v0 = scene.vertices[verts_w[:, 0]]
-            v1 = scene.vertices[verts_w[:, 1]]
-            v2 = scene.vertices[verts_w[:, 2]]
+            v0, v1, v2 = gather_rows(scene.vertices, verts_w).unbind(1)
             comp_w = rows_w[:, 3]
             crow_w = comp_aug[comp_w.long()]
             mat_w, surface_w = crow_w[:, 0], crow_w[:, 1]
@@ -526,7 +532,8 @@ def final_winner_origins(records: ReturnRecord, final_origin) -> torch.Tensor:
     R = final_origin.shape[1]
     w = torch.clamp(records.winner_ray, min=0).long()
     idx = torch.arange(P, device=w.device)[None, :] * R + w
-    return final_origin.reshape(P * R, 3)[idx.reshape(-1)].reshape(L, P, 3)
+    return gather_rows(final_origin.reshape(P * R, 3),
+                       idx.reshape(-1)).reshape(L, P, 3)
 
 
 def _returns_noretraverse(scene: TriangleScene, materials: MaterialTable,
@@ -544,10 +551,17 @@ def _returns_noretraverse(scene: TriangleScene, materials: MaterialTable,
     it gathers its corner vertices, uvs, ks/ns and material rows from the
     scene arrays, as the JAX package's unpacked branch does.
 
-    Gathers are plain indexing: their backward is autograd's accumulating
-    `index_put_`.  The JAX package's custom VJPs around the same gathers
-    (`_winner_rows`, `_winner_rows_pr`, `_winner_verts_union`) exist only
-    to avoid serialized scatter on a TPU and give the same sums.
+    The gathers of rows that carry a gradient (the winner rays' origin and
+    direction, the face pack's rows, the unpacked corner vertices) are
+    `physics/rows.py::gather_rows`: their backward adds each gathered row's
+    cotangent into its source row in one pass with no sort (K6 over the
+    flat cells ``row * C + col`` on the card, `index_add_` on the CPU),
+    summing the levels where a ray wins at several.  Autograd's own
+    backward of plain indexing sorts the indices and adds each run of equal
+    rows serially.  The JAX package's custom VJPs around the same gathers
+    (`_winner_rows`, `_winner_rows_pr`, `_winner_verts_union`) give the
+    same sums; the other gathers (ints, uvs, material rows) are plain
+    indexing.
     """
     P, R = rays.num_pulses, rays.rays_per_pulse
     N = P * R
@@ -685,13 +699,13 @@ def _returns_noretraverse(scene: TriangleScene, materials: MaterialTable,
     valid_col_L = st("valid_col")
     valid_col = valid_col_L.reshape(K)
 
-    pack = cat6[flat_w_K]                                       # (K, 6)
+    pack = gather_rows(cat6, flat_w_K)                          # (K, 6)
     origin_w = pack[:, 0:3]         # == start point (origins never move)
     dir_w = pack[:, 3:6]            # == previousDirection
 
     safe_face = torch.clamp(face_w_K, min=0).long()
     if face_pack is not None:
-        frow = face_pack[safe_face]                             # (K, 23)
+        frow = gather_rows(face_pack, safe_face)                # (K, 23)
         v0, v1, v2 = frow[:, 0:3], frow[:, 3:6], frow[:, 6:9]
         uv0, uv1, uv2 = frow[:, 9:11], frow[:, 11:13], frow[:, 13:15]
         ksns, mrow = frow[:, 15:17], frow[:, 17:19]
@@ -702,7 +716,7 @@ def _returns_noretraverse(scene: TriangleScene, materials: MaterialTable,
     else:
         rows_w = faces_aug[safe_face]                           # (K, 4)
         vidx = rows_w[:, 0:3].long()
-        verts3 = scene.vertices[vidx]                           # (K, 3, 3)
+        verts3 = gather_rows(scene.vertices, vidx)              # (K, 3, 3)
         v0, v1, v2 = verts3[:, 0], verts3[:, 1], verts3[:, 2]
         uvs = scene.vertex_uv[vidx]                             # (K, 3, 2)
         uv0, uv1, uv2 = uvs[:, 0], uvs[:, 1], uvs[:, 2]

@@ -360,7 +360,8 @@ def test_chip_smoke_training_phases_on_cpu(monkeypatch, capsys):
         assert key in k3
     assert k3["bound_by"] == "bytes" and k3["bound_ms"] > 0
     als = chip_smoke.als_workload("cpu")
-    n3, tls_n, als_n, res, k6_steps = chip_smoke.phase_training(als)
+    n3, tls_n, als_n, res, k6_steps, row_steps = chip_smoke.phase_training(
+        als)
     assert set(res) == {"tls", "als"}
     assert res["tls"]["rays"] == 4096 * 10
     assert res["als"]["rays"] == 1024 * 10
@@ -370,6 +371,14 @@ def test_chip_smoke_training_phases_on_cpu(monkeypatch, capsys):
         assert set(r["kernels"]) == {"table", "full"}
         assert set(r["launches"]) == set(r["split"])
     assert set(tls_n) == set(als_n) == {"K1", "K2", "K6"}
+    # one step's row scatters: the winner rows and the face pack's build
+    # and rows (`tls`: 2,000 faces, 4,096 pulses) or the corner vertices
+    # (`als`: no pack)
+    shapes = lambda k: sorted(tuple(g.shape) for _, g, _ in
+                              row_steps[k]["calls"])
+    assert shapes("tls") == [(4096, 6), (4096, 23), (2000 * 3, 3)]
+    assert shapes("als") == [(2 * 1024, 6), (2 * 1024 * 3, 3)]
+    assert row_steps["als"]["levels"] == 2 and row_steps["als"]["rays"] == 10
     # one step's table reads: (return levels x pulses, 8) Hermite cells
     idx, g, n_cells = k6_steps["tls"]
     assert idx.dtype is torch.int32 and g.shape == idx.shape
@@ -418,6 +427,50 @@ def test_chip_smoke_k6_phase_on_cpu(monkeypatch, capsys):
         assert cases[name]["k6_ms"] > 0 and cases[name]["index_put_ms"] > 0
     out = capsys.readouterr().out
     assert "[K6] one cell" in out and "index_put_(accumulate=True)" in out
+
+
+def test_chip_smoke_rows_phase_on_cpu(monkeypatch, capsys):
+    """Phase 16 at a small size, the plain version on both sides: every
+    row case checked on its flat cells against the scatter bound, the
+    large ones and the steps' timed (the winner rows beside the dense
+    compare-select too); then `--row-chunk` on small `alphaprime` and
+    `als` steps."""
+    from lidar_brdf_tpu_torch import bench
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "ROW_ROWS", 4096)
+    monkeypatch.setattr(chip_smoke, "K6_MS_BUDGET", 1.0)
+    gen = torch.Generator().manual_seed(0)
+    P, R, L = 512, 10, 2
+    flat = (torch.arange(P) * R + torch.randint(0, R, (L, P),
+                                                generator=gen)).reshape(-1)
+    steps = {"tls": dict(calls=[
+        (flat, torch.randn((L * P, 6), generator=gen), P * R),
+        (torch.randint(0, 300, (L * P,), generator=gen),
+         torch.randn((L * P, 23), generator=gen), 300)],
+        pulses=P, rays=R, levels=L)}
+    cases = chip_smoke.phase_rows(steps)
+    assert {"uniform 23", "one row 23", "unique 6", "0 x 23",
+            "masked slots", "tls winner rows", "tls face rows"} <= set(cases)
+    assert cases["one row 23"]["cells"] == 23
+    assert cases["one row 23"]["hottest"] == 4096
+    assert cases["0 x 23"]["contributions"] == 0
+    assert cases["masked slots"]["zero_cells"] >= 23
+    for r in cases.values():
+        assert r["max_abs_err"] == 0.0 and r["bound_ms"] > 0
+    for name in (*chip_smoke.ROW_TIMED, "tls winner rows", "tls face rows"):
+        assert cases[name]["k6_ms"] > 0 and cases[name]["index_put_ms"] > 0
+    assert cases["tls winner rows"]["dense_ms"] > 0
+    out = capsys.readouterr().out
+    assert "[rows] one row 23" in out and "dense compare-select" in out
+    monkeypatch.setattr(bench, "CONFIGS", {
+        "alphaprime": dict(pulses=1024, rays_pulse=10, max_returns=2,
+                           scene="city", num_tris=2000, traverser="tile"),
+        "als": dict(pulses=512, rays_pulse=10, max_returns=2,
+                    scene="terrain", num_tris=2000, traverser="pulse")})
+    chunk = chip_smoke.row_chunk()
+    assert chunk["alphaprime"]["scatters"] == 3
+    assert chunk["als"]["scatters"] == 2
+    assert "alphaprime face rows" in chunk["phase16"]
 
 
 def test_chip_smoke_runtime_phase_on_cpu(monkeypatch, capsys):

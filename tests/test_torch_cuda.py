@@ -651,7 +651,9 @@ def test_table_scatter_matches_plain(card, monkeypatch, case):
 @pytest.mark.parametrize("grads", ["none", "table", "full"])
 def test_table_gradient_launches_k6_once_per_step(card, grads):
     """The bench's `tls` step scatters the table gradient with one K6
-    launch a step, and launches none under ``BENCH_GRADS=none``."""
+    launch a step, and launches none under ``BENCH_GRADS=none``; each row
+    scatter of the origin and vertex rows is one launch more
+    (`chip_smoke.k6_per_step`: 3 more in a packed ``full`` step)."""
     from lidar_brdf_tpu_torch.kernels import scatter
     scene, bvh, cfg, rays, mats = bench.build_workload(
         "tls", 2048, 10, 1, "city", 2000)
@@ -661,4 +663,7 @@ def test_table_gradient_launches_k6_once_per_step(card, grads):
     for _ in range(3):
         step()
     torch.cuda.synchronize()
-    assert scatter.KERNEL.launches == (0 if grads == "none" else 3)
+    per_step = chip_smoke.k6_per_step(bench.GRADS[grads], ws.scene.num_faces,
+                                      ws.rays.num_pulses, ws.cfg.max_returns)
+    assert per_step == {"none": 0, "table": 1, "full": 4}[grads]
+    assert scatter.KERNEL.launches == 3 * per_step

@@ -266,6 +266,19 @@ def test_a_repeat_run_counts_ladder_cache_hits(use_pulse):
         assert all(stats[k] >= 0.0 for k in STATS_KEYS)
 
 
+def test_row_scatters_are_counted_in_a_fit_step_and_not_in_a_scan(tmp_path):
+    """Each backward of a row gather adds its gathered rows to
+    ``row_scatter_rows``: two recorded fit steps (L = 2, 512 pulses, no
+    face pack) scatter the winner rows and the corner vertices, 4 x 1,024
+    rows a step; a recorded scan has no backward and counts none."""
+    _step(tmp_path)
+    assert metrics.recorded()["counts"]["row_scatter_rows"] == 2 * 4 * 1024
+    metrics.clear()
+    _simulate(tmp_path)
+    counts = metrics.recorded()["counts"]
+    assert counts["chunks"] > 0 and "row_scatter_rows" not in counts
+
+
 def test_a_pipeline_stage_is_a_span():
     m = metrics.PipelineMetrics()
     with metrics.recording():
