@@ -35,17 +35,19 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 3. The `tls` forward scan at full width through `api.simulate` (1,310,720
    rays over a ~40k-face city), warm, then timed; the launch counts are
    reset just before the timed run: K1 once per chunk, K5 `LAUNCHES`
-   (3) times per chunk (the cull on the card), K2 not; the cull's host
-   reads are counted and printed.
+   (3) times per chunk (the cull on the card), K2 not, K7 once a row gather
+   of the return extraction (`k7_per_chunk`); the cull's host reads are
+   counted and printed.
 4. The `als` forward scan at full width through `api.simulate` (1,048,576
    pulses x 10 rays, 2 returns, over the 4,999,122-face terrain, in chunks
    of 131,072), warm on one chunk, then timed: K2 once per chunk, K5 3
-   times per chunk, K1 not.
+   times per chunk, K7 `k7_per_chunk` times, K1 not.
 4b. The topo-bathymetric scan at full width through `api.simulate`: the
    `als` terrain under a water plane (5,007,314 faces), 532 nm,
    bathymetric, 3 returns, the `als` cell's 1,048,576 pulses (eight
    chunks of 131,072), warm on 8,192, then timed: K2 once per chunk (level 0), K4 twice (levels 1 and
-   2), K5 3 times per chunk, K1 not; it must give bottom returns.  Then
+   2), K5 3 times per chunk, K7 `k7_per_chunk` times (water), K1 not;
+   it must give bottom returns.  Then
    the `tls` scan through `Simulator(use_culled=False)` (no cull): K4 once
    per chunk, no K1, no K5.
    The water chunk's bounce levels must hand the walk their active masks.
@@ -74,13 +76,16 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    `BENCH_GRADS` setting but ``none`` for the BRDF table's gradient
    (`physics/brdf.py::TableRead`) and once more for each row scatter
    (`physics/rows.py::RowGather`: the winner rows with the origin, and the
-   face pack's build and rows or the corner vertices with the vertices).
+   face pack's build and rows or the corner vertices with the vertices),
+   and K7 once a row gather (`k7_per_chunk`, whatever the setting; one
+   step's `row_gather` calls are counted against it on any device).
    Gradients w.r.t. the BRDF table, the ray origins and the vertices must
    be finite, each with a non-zero entry.  Prints rays/s fwd+bwd, the
    `BENCH_GRADS` split, host syncs per step, and the device time by kernel
    of a profiled ``table`` and ``full`` step (neither may launch an
    `indexing_backward` kernel: the table's reads and the row gathers have
-   no index backward); one step's backward hands its K6 inputs to phases
+   no index backward; nor PyTorch's `vectorized_gather_kernel`: the row
+   gathers are K7); one step's backward hands its K6 inputs to phases
    15 and 16.
 7. Card vs CPU gradients at the sizes of phase 5: loss to rtol 1e-5, each
    gradient within atol 1e-4 * max|g| (scatter-add order on the card is not
@@ -213,6 +218,16 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    rows (autograd's backward of a row gather, the port's path before),
    `index_add_` on the rows, and, on the winner rows, the JAX package's
    dense compare-select.  `[rows]` lines.
+17. K7, the forward row gathers (`kernels/gather.py::row_gather`), against
+   ``src[idx]``, after phase 16: f32 and int32 sources of 1, 2, 3, 4, 6, 16
+   and 23 columns, 1-D and 2-D indices holding the last row, an empty
+   index, a source view that is not 16-byte aligned, and 16-byte face
+   rows, 64-byte noise rows and 92-byte face-pack rows at the terrain
+   step's shapes: bit-equal, one launch a call (none for no rows); the
+   large ones timed by CUDA events on a queue beside ``src[idx]`` (the
+   port's path before) and `torch.index_select`, with the bound of the
+   index and the row written for each row gathered and the least 32-byte
+   sectors of each distinct source row read, at 3.35 TB/s.  `[K7]` lines.
 8. Profiles, last so that they disturb no timed phase: K1's device time on
    the `tls` chunk, K2's on the `als` chunk (as the Simulator calls it, and
    with the wrapper's two output fills instead), and K3's and
@@ -233,9 +248,11 @@ run's wall, cull and device seconds.  `--k5-chunk` builds the kernels and
 runs phase 13 without the water chunk; a copy of the script in the root
 of an older tree (one whose `beam_cull` takes no ``lanes``, ``capacity``
 or ``depth``) skips the forced paths and times that tree's K5.
-`--row-chunk` builds the kernels and runs phase 16 on the row scatters of
-the bench's `alphaprime` step (1,310,400 pulses) and 1,048,576-pulse `als`
-step, each profiled and timed too.  A copy of the script in the
+`--step-chunk` builds the kernels and runs phase 16 on the row scatters
+and phase 17 on the forward row gathers of the bench's `alphaprime` step
+(1,310,400 pulses) and 1,048,576-pulse `als` step, each built and culled
+once, profiled by kernel, its gathered rows counted, its host enqueue
+read and its steps timed.  A copy of the script in the
 root of another tree of the repo measures that tree's kernel or scan the
 same way (a tree whose K4 takes no mask: every ray, in its 128-ray
 tiles).
@@ -538,6 +555,7 @@ def phase_card_and_build():
     from lidar_brdf_tpu_torch.geom.beamcull import wald_rows_np
     from lidar_brdf_tpu_torch.kernels import cuda_build
     from lidar_brdf_tpu_torch.kernels import cull
+    from lidar_brdf_tpu_torch.kernels import gather
     from lidar_brdf_tpu_torch.kernels import packet as kpk
     from lidar_brdf_tpu_torch.kernels import pulse as pp
     from lidar_brdf_tpu_torch.kernels import scatter
@@ -552,12 +570,13 @@ def phase_card_and_build():
     from lidar_brdf_tpu_torch.kernels import smoke
     # one nvcc per kernel source, started together
     libs = (("K1", tr.KERNEL), ("K2", pp.KERNEL), ("K3", smoke.KERNEL),
-            ("K4", kpk.KERNEL), ("K5", cull.KERNEL), ("K6", scatter.KERNEL))
+            ("K4", kpk.KERNEL), ("K5", cull.KERNEL), ("K6", scatter.KERNEL),
+            ("K7", gather.KERNEL))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(libs)) as pool:
         for fut in [pool.submit(k.build, True) for _, k in libs]:
             fut.result()
-    log(f"[build] K1-K6 built in {time.perf_counter() - t0:.2f} s "
+    log(f"[build] K1-K7 built in {time.perf_counter() - t0:.2f} s "
         f"({cuda_build.NVCC_FLAGS})")
     for name, k in libs:
         log(f"[build] {name} {os.path.basename(k.source)}: "
@@ -626,8 +645,19 @@ def phase_card_and_build():
     torch.cuda.synchronize()
     if out.tolist() != [[0.0, 0.0], [4.0, 6.0], [0.0, 0.0]]:
         fail(f"K6 two-row launch gave {out.tolist()}")
+    # rows 1, 1, 0 of 16-byte rows (a chunk a thread) and of 12-byte rows
+    # (an element a thread)
+    idx = torch.tensor([1, 1, 0], device="cuda")
+    for cols in (4, 3):
+        src = torch.arange(2 * cols, dtype=torch.int32,
+                           device="cuda").reshape(2, cols)
+        out = gather.row_gather(src, idx)
+        torch.cuda.synchronize()
+        if not torch.equal(out, src[idx]):
+            fail(f"K7 three-row launch of {cols} columns gave "
+                 f"{out.tolist()}")
     log("[build] K1 one-tile, K2 one-ladder, K3 one-tile, K4 one-leaf, "
-        "K5 one-node, K6 two-cell and two-row launches ok")
+        "K5 one-node, K6 two-cell and two-row, K7 three-row launches ok")
     return card
 
 
@@ -1180,10 +1210,11 @@ def phase_forward(name, workload, warm_pulses, per_chunk, **sim_kw):
     `Simulator` built with ``sim_kw`` when given.  The traversal kernels'
     launch counts are set to 0 just before the timed run and read just
     after: each kernel of ``per_chunk`` ({id: launches per chunk}) must
-    have launched that often per chunk, every other one not."""
+    have launched that often per chunk, every other one not, and K7
+    `k7_per_chunk` times a chunk."""
     import torch
     from lidar_brdf_tpu_torch import api
-    from lidar_brdf_tpu_torch.kernels import cull
+    from lidar_brdf_tpu_torch.kernels import cull, gather
     from lidar_brdf_tpu_torch.runtime.simulate import Simulator
     scene, bvh, cfg, mats, rays = workload
     n_rays = rays.num_pulses * rays.rays_per_pulse
@@ -1199,20 +1230,21 @@ def phase_forward(name, workload, warm_pulses, per_chunk, **sim_kw):
     scan(head(rays, warm_pulses))
     warm_s = time.perf_counter() - t0
     t0 = time.perf_counter()          # what every scan's wall holds of it
-    Simulator(scene=scene, bvh=bvh, materials=mats, cfg=cfg, device=DEVICE,
-              **sim_kw)
+    sim = Simulator(scene=scene, bvh=bvh, materials=mats, cfg=cfg,
+                    device=DEVICE, **sim_kw)
     setup_s = time.perf_counter() - t0
     stats = {}
     sync()
     base = peak_reset()
     libs = traversal_libs()
-    for lib in libs.values():                   # main path starts here
+    for lib in (*libs.values(), gather.KERNEL):  # main path starts here
         lib.launches = 0
     reads = cull.READBACKS
     t0 = time.perf_counter()
     cloud = scan(rays, stats)
     wall = time.perf_counter() - t0
     launches = {k: lib.launches for k, lib in libs.items()}
+    k7 = gather.KERNEL.launches
     reads = cull.READBACKS - reads
     memory = peak_read(base)
     m = cloud.mask
@@ -1226,13 +1258,20 @@ def phase_forward(name, workload, warm_pulses, per_chunk, **sim_kw):
         f"{stats['order_s']:.3f} s, cull {stats['cull_s']:.3f} s, "
         f"device {stats['device_s']:.3f} s, readback "
         f"{stats['readback_s']:.3f} s; a Simulator's construction (in the "
-        f"wall, outside the split) {setup_s:.3f} s; launches {launches}; the "
-        f"cull's host reads {reads}; device memory {fmt_memory(memory)}")
+        f"wall, outside the split) {setup_s:.3f} s; launches {launches}, "
+        f"K7 {k7}; the cull's host reads {reads}; device memory "
+        f"{fmt_memory(memory)}")
     chunks = -(-rays.num_pulses // cfg.chunk_pulses)
     want = {k: per_chunk.get(k, 0) * chunks for k in KERNELS}
     if DEVICE == "cuda" and launches != want:
         fail(f"the {name} forward scan launched {launches}: expected "
              f"{want} ({chunks} chunks)")
+    k7_want = chunks * k7_per_chunk(
+        sim.scene, min(cfg.chunk_pulses, rays.num_pulses), cfg.max_returns,
+        sim.scene_has_water or bool(cfg.bathymetric))
+    if DEVICE == "cuda" and k7 != k7_want:
+        fail(f"the {name} forward scan launched K7 {k7} times: expected "
+             f"{k7_want} ({chunks} chunks)")
     if n_pts <= 0:
         fail(f"the {name} forward scan produced no points")
     if not (bool(torch.isfinite(inten).all()) and bool((inten >= 0).all())):
@@ -1241,8 +1280,8 @@ def phase_forward(name, workload, warm_pulses, per_chunk, **sim_kw):
         fail(f"{name} positions are not finite")
     return launches, cloud, dict(
         rays=n_rays, faces=scene.num_faces, points=n_pts, wall_s=wall,
-        rays_per_s=n_rays / wall, launches=launches, cull_readbacks=reads,
-        sim_setup_s=setup_s,
+        rays_per_s=n_rays / wall, launches=launches, k7_launches=k7,
+        cull_readbacks=reads, sim_setup_s=setup_s,
         **memory, **stats)
 
 
@@ -2621,48 +2660,47 @@ def check_grads(name, ws):
     return loss, out
 
 
-def capture_k6(fn) -> list:
-    """[(idx, g, n_cells)] of each table-gradient scatter ``fn()`` makes
-    through `physics/brdf.py::TableRead` (copies; the wrapper runs as
-    usual)."""
+def capture(module, attr: str, fn) -> list:
+    """The arguments of each call ``fn()`` makes to ``module.attr``, in
+    order (tensors copied; the real function runs as usual): the table
+    scatters (`physics/brdf.py`, ``table_scatter_add``: (idx, g,
+    n_cells)), the row scatters (`physics/rows.py`, ``row_scatter_add``:
+    (idx, g, rows)), the row gathers (`kernels/gather.py`, ``row_gather``:
+    (src, idx))."""
+    import torch
+    calls = []
+    real = getattr(module, attr)
+
+    def spy(*args):
+        calls.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                           for a in args))
+        return real(*args)
+
+    setattr(module, attr, spy)
+    try:
+        fn()
+    finally:
+        setattr(module, attr, real)
+    return calls
+
+
+def capture_step(ws) -> tuple:
+    """One fwd+bwd step of ``ws`` (`bench.loss_and_grads`): the `capture`
+    lists of its table scatters, row scatters and row gathers."""
+    from lidar_brdf_tpu_torch import bench
+    from lidar_brdf_tpu_torch.kernels import gather
     from lidar_brdf_tpu_torch.physics import brdf
-    calls = []
-    real = brdf.table_scatter_add
-
-    def spy(idx, g, n_cells):
-        calls.append((idx.clone(), g.clone(), n_cells))
-        return real(idx, g, n_cells)
-
-    brdf.table_scatter_add = spy
-    try:
-        fn()
-    finally:
-        brdf.table_scatter_add = real
-    return calls
-
-
-def capture_rows(fn) -> list:
-    """[(idx, g, rows)] of each row-gradient scatter ``fn()`` makes through
-    `physics/rows.py::RowGather` (copies; the wrapper runs as usual)."""
     from lidar_brdf_tpu_torch.physics import rows as prows
-    calls = []
-    real = prows.row_scatter_add
-
-    def spy(idx, g, rows):
-        calls.append((idx.clone(), g.clone(), rows))
-        return real(idx, g, rows)
-
-    prows.row_scatter_add = spy
-    try:
-        fn()
-    finally:
-        prows.row_scatter_add = real
-    return calls
+    rows, gathers = [], []
+    table = capture(brdf, "table_scatter_add", lambda: rows.extend(capture(
+        prows, "row_scatter_add", lambda: gathers.extend(capture(
+            gather, "row_gather", lambda: bench.loss_and_grads(ws))))))
+    return table, rows, gathers
 
 
 def row_inputs(ws, calls) -> dict:
-    """One step's row scatters (`capture_rows`) with the shape of its
-    winner rows: pulses, rays a pulse and return levels."""
+    """One step's row scatters (`capture`) with the shape of its winner
+    rows: pulses, rays a pulse and return levels."""
     return dict(calls=calls, pulses=ws.rays.num_pulses,
                 rays=ws.rays.rays_per_pulse, levels=ws.cfg.max_returns)
 
@@ -2698,19 +2736,54 @@ def row_scatters(ws, grads: str) -> int:
                        ws.cfg.max_returns) - ("brdf_table" in names)
 
 
+def k7_per_chunk(scene, pulses: int, levels: int, water: bool = False
+                 ) -> int:
+    """K7 launches of one chunk's return extraction
+    (`physics/returns.py::simulate_returns`), one a row gather: where the
+    faces are packed (`returns.packs_faces`), the pack's vertex, uv and
+    ks/ns rows.  Water-free: at each level the winner rays, then the pack's
+    rows or the face, corner vertex and ks/ns rows, the merge's neighbour
+    rows (packed, with a neighbour table) or every ray's and the winners'
+    face rows, and the noise rows; over the record slots the winner rays,
+    the pack's rows or the face, vertex, uv and ks/ns rows, noise and
+    outlier noise.  With ``water`` (or bathymetric): at each level the
+    four ray-state rows, the pack's rows or the face and vertex rows, the
+    neighbour rows or every ray's face rows (and the winners', packed),
+    noise, unpacked the ks/ns and uv rows, outlier noise; then the final
+    winner origins for the shading."""
+    from lidar_brdf_tpu_torch.physics.returns import packs_faces
+    packed = packs_faces(scene.num_faces, pulses, levels)
+    neighbours = scene.face_neighbors is not None
+    if water:
+        merge = 1 if neighbours else 1 + packed
+        level = 4 + (1 if packed else 2) + merge + 1 + (0 if packed else 2)
+        return 3 * packed + levels * (level + 1) + 1
+    merge = 1 if packed and neighbours else 2
+    if packed:
+        return 3 + levels * (3 + merge) + 4
+    return levels * (5 + merge) + 7
+
+
 def step_kernels(by: dict) -> dict:
     """Device ms of one profiled step (`device_ms_by_kernel`): all of it,
-    K6's, and autograd's index backwards' (ms, launches); Nones in a CPU
-    rehearsal."""
+    K6's, K7's, autograd's index backwards' and PyTorch's vectorized
+    gathers' (ms, launches); Nones in a CPU rehearsal."""
     if not by:
-        return dict(device_ms=None, k6_ms=None, index_backward_ms=None,
-                    index_backward_launches=None)
-    ib = {k: v for k, v in by.items() if "indexing_backward" in k}
-    return dict(device_ms=device_ms(by),
-                k6_ms=device_ms(by, "table_scatter_kernel"),
-                index_backward_ms=device_ms(ib) if ib else 0.0,
-                index_backward_launches=sum(round(v["launches"])
-                                            for v in ib.values()))
+        return dict(device_ms=None, k6_ms=None, k7_ms=None,
+                    device_launches=None, index_backward_ms=None, index_backward_launches=None,
+                    vectorized_gather_ms=None,
+                    vectorized_gather_launches=None)
+    out = dict(device_ms=device_ms(by),
+               k6_ms=device_ms(by, "table_scatter_kernel"),
+               k7_ms=device_ms(by, "row_gather_kernel"),
+               device_launches=sum(round(v["launches"]) for v in by.values()))
+    for key, name in (("index_backward", "indexing_backward"),
+                      ("vectorized_gather", "vectorized_gather")):
+        mine = {k: v for k, v in by.items() if name in k}
+        out[f"{key}_ms"] = device_ms(mine) if mine else 0.0
+        out[f"{key}_launches"] = sum(round(v["launches"])
+                                     for v in mine.values())
+    return out
 
 
 def phase_fwd_bwd(name, ws, kernel):
@@ -2718,24 +2791,28 @@ def phase_fwd_bwd(name, ws, kernel):
     setting, launch counts set to 0 just before its timed steps and read
     just after (``kernel`` once a step, the other traversal kernel not, K6
     once a step for the table but under ``none`` and `row_scatters` times
-    more); gradient check; BENCH_GRADS split; device ms by kernel of a
-    profiled ``table`` and ``full`` step (neither launches an index
-    backward).  Returns (the ``full`` steps' launches, results, one step's
-    table scatter, its row scatters)."""
+    more, K7 `k7_per_chunk` times whatever the setting); gradient check;
+    BENCH_GRADS split; device ms by kernel of a profiled ``table`` and
+    ``full`` step (neither launches an index backward nor PyTorch's
+    `vectorized_gather_kernel`).  Returns (the ``full`` steps' launches,
+    results, one step's table scatter, its row scatters)."""
     from lidar_brdf_tpu_torch import bench
+    from lidar_brdf_tpu_torch.kernels import gather
     from lidar_brdf_tpu_torch.kernels import pulse as pp
     from lidar_brdf_tpu_torch.kernels import scatter
     from lidar_brdf_tpu_torch.kernels import traverse as tr
     loss, gmax = check_grads(name, ws)
-    row_calls = []
-    calls = capture_k6(lambda: row_calls.extend(capture_rows(
-        lambda: bench.loss_and_grads(ws))))
+    calls, row_calls, gathers = capture_step(ws)
     if len(row_calls) != row_scatters(ws, "full"):
         fail(f"one {name} step scattered {len(row_calls)} row gradients, "
              f"not {row_scatters(ws, 'full')}")
     if len(calls) != 1:
         fail(f"one {name} step scattered the table gradient {len(calls)} "
              f"times, not once")
+    k7 = k7_per_chunk(ws.scene, ws.rays.num_pulses, ws.cfg.max_returns)
+    if len(gathers) != k7:
+        fail(f"one {name} step made {len(gathers)} row gathers, not {k7}")
+    del gathers
     split, launches, kernels = {}, {}, {}
     syncs = prof = None
     other = "K2" if kernel == "K1" else "K1"
@@ -2746,15 +2823,16 @@ def phase_fwd_bwd(name, ws, kernel):
         if grads == "full":
             syncs = count_syncs(step)
         tr.KERNEL.launches = pp.KERNEL.launches = 0
-        scatter.KERNEL.launches = 0
+        scatter.KERNEL.launches = gather.KERNEL.launches = 0
         t = bench.time_steps(step, DEVICE, STEP_ITERS, warm=1)
         n = launches[grads] = dict(K1=tr.KERNEL.launches,
                                    K2=pp.KERNEL.launches,
-                                   K6=scatter.KERNEL.launches)
+                                   K6=scatter.KERNEL.launches,
+                                   K7=gather.KERNEL.launches)
         want = {kernel: STEP_ITERS + 1, other: 0,
                 "K6": k6_per_step(bench.GRADS[grads], ws.scene.num_faces,
                                   ws.rays.num_pulses, ws.cfg.max_returns)
-                * (STEP_ITERS + 1)}
+                * (STEP_ITERS + 1), "K7": k7 * (STEP_ITERS + 1)}
         if DEVICE == "cuda" and n != want:
             fail(f"the {name} fwd+bwd steps ({grads}) launched {n}: "
                  f"expected {want} ({STEP_ITERS + 1} steps)")
@@ -2770,6 +2848,10 @@ def phase_fwd_bwd(name, ws, kernel):
                  f"{k['index_backward_launches']} index backwards: the "
                  f"table's reads and the record pass's row gathers must "
                  f"have none")
+        if DEVICE == "cuda" and k["vectorized_gather_launches"]:
+            fail(f"the {name} {grads} step launched "
+                 f"{k['vectorized_gather_launches']} vectorized_gather "
+                 f"kernels: the return extraction's row gathers are K7")
     full = split["full"]
     log(f"[fwd+bwd] {name}: {ws.rays.num_pulses} pulses x "
         f"{ws.rays.rays_per_pulse} rays, {ws.scene.num_faces} faces, L = "
@@ -2784,8 +2866,11 @@ def phase_fwd_bwd(name, ws, kernel):
         log(f"[fwd+bwd] {name} profiled {grads} step: device "
             f"{fmt_ms(k['device_ms'])} ms, K6 {fmt_ms(k['k6_ms'])} ms "
             f"(share {'not measured' if share is None else f'{share:.4f}'}"
-            f"), index backwards {fmt_ms(k['index_backward_ms'])} ms in "
-            f"{k['index_backward_launches']} launches")
+            f"), K7 {fmt_ms(k['k7_ms'])} ms, index backwards "
+            f"{fmt_ms(k['index_backward_ms'])} ms in "
+            f"{k['index_backward_launches']} launches, vectorized_gather "
+            f"{fmt_ms(k['vectorized_gather_ms'])} ms in "
+            f"{k['vectorized_gather_launches']} launches")
     if prof is not None:
         prof["busy"] = prof["device_s"] / full["step_s"]
         log(f"[fwd+bwd] {name} profiled full step: device "
@@ -3486,6 +3571,7 @@ def runtime_examples():
     import importlib
     import numpy as np
     from lidar_brdf_tpu_torch.examples import adam_fit
+    from lidar_brdf_tpu_torch.physics import rows as prows
     out = {}
     for name in ("fit_brdf", "fit_pose", "fit_geometry"):
         mod = importlib.import_module(
@@ -3493,7 +3579,8 @@ def runtime_examples():
         steps = EXAMPLE_STEPS or mod.STEPS
         loss_fn, x0 = mod.build_problem(DEVICE)
         res = {}
-        rows, launches = launch_counts(lambda: capture_rows(
+        rows, launches = launch_counts(lambda: capture(
+            prows, "row_scatter_add",
             lambda: res.update(adam_fit(loss_fn, x0, mod.LR, steps))))
         # K6 for the table's reads (`fit_brdf`) and for each row scatter
         # (the origin rows of `fit_pose`, the vertex rows of `fit_geometry`)
@@ -4524,16 +4611,195 @@ def phase_rows(steps: dict) -> dict:
             for k, r in res.items()}
 
 
-def row_chunk() -> dict:
-    """The row scatters of the fit cells' steps: the `alphaprime` city
-    frame (1,310,400 pulses, L = 2, face pack) and the 1,048,576-pulse
-    `als` step (L = 2, corner vertices), each culled once as the bench
-    does; one step's row scatters captured and run through phase 16, one
-    full step profiled by kernel (K6 and index backwards), and full steps
-    timed."""
+# phase 17: K7, the forward row gathers, against the plain version
+GATHER_ROWS = 1 << 20      # gathered rows of the synthetic timed cases
+GATHER_SOURCE = 4_999_122  # source rows of the synthetic cases: the terrain
+GATHER_COLS = (1, 2, 3, 4, 6, 16, 23)
+GATHER_TIMED = ("faces 16 B", "noise 64 B", "face pack 92 B")
+
+
+def gather_cases() -> dict:
+    """{name: (src (rows, C), idx int64)} on `DEVICE`: f32 and int32
+    sources of every width in `GATHER_COLS`, a 1-D and a 2-D index (each
+    holding the last row) and an empty one; a source view whose address
+    is not 16-byte aligned; then, at the terrain step's shapes, 16-byte
+    face rows, 64-byte noise rows and 92-byte face-pack rows gathered at
+    random."""
+    import torch
+    gen = torch.Generator().manual_seed(17)
+    cases = {}
+    for dtype in (torch.float32, torch.int32):
+        for c in GATHER_COLS:
+            rows = 1000 + c
+            src = (torch.randn((rows, c), generator=gen) if dtype is
+                   torch.float32 else torch.randint(
+                       -2 ** 31, 2 ** 31 - 1, (rows, c), generator=gen,
+                       dtype=torch.int32))
+            one = torch.randint(0, rows, (4099,), generator=gen)
+            one[-1] = rows - 1
+            two = torch.randint(0, rows, (333, 3), generator=gen)
+            two[0, 0] = rows - 1
+            name = f"{str(dtype)[6:]} x {c}"
+            cases[f"{name}, 1-D"] = (src, one)
+            cases[f"{name}, 2-D"] = (src, two)
+            cases[f"{name}, empty"] = (src, one[:0])
+    flat = torch.randn(4 * 5000 + 1, generator=gen)
+    cases["unaligned view x 4"] = (flat[1:].view(5000, 4),
+                                   torch.randint(0, 5000, (777,),
+                                                 generator=gen))
+    n, f = GATHER_ROWS, GATHER_SOURCE
+    cases["faces 16 B"] = (
+        torch.randint(0, f, (f, 4), generator=gen, dtype=torch.int32),
+        torch.randint(0, f, (n, 10), generator=gen))
+    cases["noise 64 B"] = (torch.rand((5_000_000 // 16, 16), generator=gen),
+                           torch.randint(0, 5_000_000 // 16, (n,),
+                                         generator=gen))
+    cases["face pack 92 B"] = (torch.randn((39_992, 23), generator=gen),
+                               torch.randint(0, 39_992, (n,), generator=gen))
+    return {k: (s.to(DEVICE), i.to(DEVICE)) for k, (s, i) in cases.items()}
+
+
+def gather_bound(n: int, cols: int, distinct: int) -> float:
+    """K7's least ms for ``n`` rows of ``cols`` 4-byte values, ``distinct``
+    of them different source rows: each row's 8-byte index and the row
+    written, and each distinct row's 32-byte sectors at the least (read at
+    random: a row read again may come from L2), at 3.35 TB/s."""
+    row = 4 * cols
+    return (n * (8 + row) + distinct * 32 * math.ceil(row / 32)) \
+        / H100_BYTES_PER_S * 1e3
+
+
+def gather_check(name, src, idx) -> dict:
+    """K7 against ``src[idx]`` on one input: bit-equal, one launch (none
+    for an empty index)."""
+    import torch
+    from lidar_brdf_tpu_torch.kernels import gather
+    before = gather.KERNEL.launches
+    got = gather.row_gather(src, idx)
+    sync()
+    n = gather.KERNEL.launches - before
+    if DEVICE == "cuda" and n != (gather.LAUNCHES if idx.numel() else 0):
+        fail(f"K7 {name}: {n} launches in one call")
+    want = gather.row_gather_plain(src, idx)
+    if got.shape != want.shape or not torch.equal(
+            got.view(torch.int32), want.view(torch.int32)):
+        fail(f"K7 {name}: not bit-equal to src[idx]")
+    distinct = int(torch.unique(idx).numel())
+    return dict(rows=idx.numel(), cols=src.shape[1], source_rows=src.shape[0],
+                distinct_rows=distinct, dtype=str(src.dtype)[6:],
+                max_abs_err=0.0,
+                bound_ms=gather_bound(idx.numel(), src.shape[1], distinct))
+
+
+def phase_gathers(steps: dict) -> dict:
+    """Phase 17: K7 (`kernels/gather.py::row_gather`) against ``src[idx]``
+    on every case of `gather_cases` and on each gather of ``steps`` ({step
+    name: its (src, idx) list, `capture_step`}), bit for bit; the large cases and the
+    steps' gathers timed by CUDA events on a queue, in turns, beside
+    ``src[idx]`` (the port's path before) and `torch.index_select`, which
+    the port never calls.  Returns K7's record for the kernels line and,
+    for each step, the sums over its gathers."""
+    import torch
+    from lidar_brdf_tpu_torch.kernels import gather
+    t0 = time.perf_counter()
+    cases = dict(gather_cases())
+    for step, calls in steps.items():
+        for i, (src, idx) in enumerate(calls):
+            cases[f"{step} {i:02d} {str(src.dtype)[6:]} x {src.shape[1]}, "
+                  f"{idx.numel()} rows"] = (src, idx)
+    res = {}
+    for name, (src, idx) in cases.items():
+        r = res[name] = gather_check(name, src, idx)
+        if name in GATHER_TIMED or name.split(" ")[0] in steps:
+            flat = idx.reshape(-1)
+            fns = dict(k7=lambda: gather.row_gather(src, idx),
+                       index=lambda: src[idx],
+                       index_select=lambda: torch.index_select(src, 0, flat))
+            runs = {k: [] for k in fns}
+            for k in [*fns, *reversed(fns)]:
+                runs[k].append(k6_ms(fns[k]))
+            r.update({f"{k}_ms": min(v) for k, v in runs.items()})
+            log(f"[K7] {name}: {r['rows']} rows of {r['cols']} {r['dtype']} "
+                f"from {r['source_rows']} ({r['distinct_rows']} distinct); "
+                f"bit-equal; bound "
+                f"{r['bound_ms']:.5f} ms; CUDA events K7 {r['k7_ms']:.5f} "
+                f"({runs['k7']}), src[idx] {r['index_ms']:.5f} "
+                f"({runs['index']}), index_select {r['index_select_ms']:.5f} "
+                f"({runs['index_select']}); K7 at "
+                f"{r['k7_ms'] / r['bound_ms']:.1f}x its bound")
+    log(f"[K7] {len(res)} cases bit-equal to src[idx]")
+    sums = {}
+    for step in steps:
+        mine = [r for k, r in res.items() if k.split(" ")[0] == step]
+        sums[step] = {k: sum(r[k] for r in mine)
+                      for k in ("rows", "bound_ms", "k7_ms", "index_ms",
+                                "index_select_ms")}
+        sums[step]["calls"] = len(mine)
+        log(f"[K7] {step} step: {len(mine)} gathers, {sums[step]['rows']} "
+            f"rows; K7 {sums[step]['k7_ms']:.4f} ms, src[idx] "
+            f"{sums[step]['index_ms']:.4f}, index_select "
+            f"{sums[step]['index_select_ms']:.4f}, bound "
+            f"{sums[step]['bound_ms']:.4f}")
+    main = res["faces 16 B"]
+    log(f"[K7] phase 17 took {time.perf_counter() - t0:.1f} s")
+    return dict(
+        name="row_gather", route="cuda",
+        source="lidar_brdf_tpu_torch/kernels/csrc/row_gather.cu",
+        replaces=None, launches=None, max_abs_err=0.0, ms=main["k7_ms"],
+        plain_ms=main["index_ms"], bound_ms=main["bound_ms"],
+        bound_by="bytes", library_ms=main["index_select_ms"], steps=sums,
+        cases=res)
+
+
+def step_enqueue(step, reps: int = 3) -> dict:
+    """The host's side of a step, recorded (`runtime/metrics.recording`),
+    the median of ``reps`` steps each way: ``synced``, a step started
+    after a synchronize (ms for ``step()`` to return, ms to the next
+    synchronize, and its `lbt.forward` and `lbt.backward` spans); ``held``,
+    the same with the card first held busy by `torch.cuda._sleep` for
+    longer than the step takes, so that ``host_ms`` is the enqueue alone
+    unless a full launch queue holds the host (``synced`` alone in a CPU
+    rehearsal)."""
+    import torch
+    from lidar_brdf_tpu_torch.runtime import metrics
+    out = {}
+    for mode in ("synced", "held") if DEVICE == "cuda" else ("synced",):
+        rows = []
+        for _ in range(reps):
+            metrics.clear()
+            sync()
+            if mode == "held":
+                torch.cuda._sleep(400_000_000)      # ~0.2 s at ~2 GHz
+            t0 = time.perf_counter()
+            with metrics.recording():
+                step()
+            host = time.perf_counter() - t0
+            sync()
+            spans = {sp.name: (sp.end_ns - sp.start_ns) * 1e-6
+                     for sp in metrics.recorded()["spans"]}
+            rows.append(dict(host_ms=host * 1e3,
+                             synced_ms=(time.perf_counter() - t0) * 1e3,
+                             forward_ms=spans.get("lbt.forward"),
+                             backward_ms=spans.get("lbt.backward")))
+        out[mode] = sorted(rows, key=lambda r: r["host_ms"])[len(rows) // 2]
+    metrics.clear()
+    return out
+
+
+def step_chunk() -> dict:
+    """The fit cells' steps: the `alphaprime` city frame (1,310,400 pulses,
+    L = 2, face pack) and the 1,048,576-pulse `als` terrain step (L = 2,
+    corner vertices), each built and culled once as the bench does; one
+    step's row scatters and row gathers captured (`capture_step`), one
+    full step profiled by kernel (K6, K7, index backwards, PyTorch's
+    vectorized gathers), its K7 launches and gathered rows counted, its
+    host enqueue read (`step_enqueue`), and full steps timed; then phase 16
+    on the row scatters and phase 17 on the gathers."""
     from lidar_brdf_tpu_torch import bench
-    out, steps = {}, {}
-    for name in ("alphaprime", "als"):
+    from lidar_brdf_tpu_torch.kernels import gather
+    from lidar_brdf_tpu_torch.runtime import metrics
+    out, rows, gathers = {}, {}, {}
+    for name in ("als", "alphaprime"):
         spec = bench.CONFIGS[name]
         t0 = time.perf_counter()
         scene, bvh, cfg, rays, mats = bench.build_workload(
@@ -4542,21 +4808,41 @@ def row_chunk() -> dict:
         ws = bench.cull(scene, bvh, cfg, rays, mats, spec["traverser"],
                         DEVICE)
         setup = time.perf_counter() - t0
-        calls = capture_rows(lambda: bench.loss_and_grads(ws))
-        steps[name] = row_inputs(ws, calls)
+        _, row_calls, gathers[name] = capture_step(ws)
+        rows[name] = row_inputs(ws, row_calls)
         step, _ = bench.make_step(ws, "full")
         kern = step_kernels(device_ms_by_kernel(step, 1))
+        before = gather.KERNEL.launches
+        with metrics.recording():
+            step()
+        launches = gather.KERNEL.launches - before
+        counted = metrics.recorded()["counts"].get("row_gather_rows")
+        metrics.clear()
+        enqueue = step_enqueue(step)
         t = bench.time_steps(step, DEVICE, 5, warm=1)
         out[name] = dict(setup_s=setup, step_ms=t["step_s"] * 1e3,
-                         kernels=kern, scatters=len(calls))
-        log(f"[row chunk] {name}: set-up {setup:.1f} s, step "
+                         kernels=kern, scatters=len(row_calls),
+                         gathers=len(gathers[name]), k7_launches=launches,
+                         row_gather_rows=counted, enqueue=enqueue)
+        log(f"[step chunk] {name}: set-up {setup:.1f} s, step "
             f"{t['step_s'] * 1e3:.3f} ms, profiled step device "
-            f"{fmt_ms(kern['device_ms'])} ms, K6 {fmt_ms(kern['k6_ms'])} "
-            f"ms, index backwards {fmt_ms(kern['index_backward_ms'])} ms in "
-            f"{kern['index_backward_launches']} launches, {len(calls)} row "
-            f"scatters a step")
+            f"{fmt_ms(kern['device_ms'])} ms in {kern['device_launches']} "
+            f"device operations: K6 {fmt_ms(kern['k6_ms'])} ms, K7 "
+            f"{fmt_ms(kern['k7_ms'])} ms, index backwards "
+            f"{fmt_ms(kern['index_backward_ms'])} ms in "
+            f"{kern['index_backward_launches']} launches, vectorized_gather "
+            f"{fmt_ms(kern['vectorized_gather_ms'])} ms in "
+            f"{kern['vectorized_gather_launches']} launches; "
+            f"{len(row_calls)} row scatters and {len(gathers[name])} row "
+            f"gathers a step, K7 {launches} launches ({counted} rows "
+            f"counted); host " + "; ".join(
+                f"{k}: returns after {v['host_ms']:.3f} ms of "
+                f"{v['synced_ms']:.3f} (forward {v['forward_ms']}, "
+                f"backward {v['backward_ms']})" for k, v in enqueue.items()))
         del ws, step
-    out["phase16"] = phase_rows(steps)
+    out["phase16"] = phase_rows(rows)
+    del rows
+    out["phase17"] = phase_gathers(gathers)
     return out
 
 
@@ -4586,13 +4872,13 @@ def main() -> int:
         phase_card_and_build()
         log(json.dumps({"k5_chunk": k5_chunk()}))
         return 0
-    if sys.argv[1:] == ["--row-chunk"]:
+    if sys.argv[1:] == ["--step-chunk"]:
         phase_card_and_build()
-        log(json.dumps({"row_chunk": row_chunk()}))
+        log(json.dumps({"step_chunk": step_chunk()}, default=str))
         return 0
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]} (only --k1-chunk, "
-             f"--k2-chunk, --k4-chunk, --k5-chunk, --row-chunk or "
+             f"--k2-chunk, --k4-chunk, --k5-chunk, --step-chunk or "
              f"--water-scan)")
     t_start = time.perf_counter()
     card = phase_card_and_build()
@@ -4645,6 +4931,11 @@ def main() -> int:
                                  training.items()})
     k6["rows"] = phase_rows(row_steps)
     del row_steps
+    k7 = phase_gathers({})
+    k7.update(launches=tls_fwd["k7_launches"],
+              launches_als=als_fwd["k7_launches"],
+              launches_water=water_fwd["k7_launches"],
+              launches_fwd_bwd=dict(tls=tls_steps["K7"], als=als_steps["K7"]))
     files = phase_files(tls)
     runtime = phase_runtime(tls, als)
     forward_culled = bench_cold_scan(runtime["forward_bench"])
@@ -4728,7 +5019,7 @@ def main() -> int:
                     "entry_points": entry, "no_cull": no_cull,
                     "points": points, "scaling": scaling,
                     "seconds": time.perf_counter() - t_start}))
-    log(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6]}))
+    log(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6, k7]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

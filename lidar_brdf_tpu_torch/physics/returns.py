@@ -123,9 +123,8 @@ def build_face_pack(scene: TriangleScene, materials: MaterialTable,
     fl = torch.float32
     return torch.cat([
         gather_rows(scene.vertices, f).reshape(-1, 9),
-        scene.vertex_uv[f[:, 0]], scene.vertex_uv[f[:, 1]],
-        scene.vertex_uv[f[:, 2]],
-        vert_ksns[f[:, 0]], mrow, comp_rand[:, None].to(fl),
+        gather_rows(scene.vertex_uv, f).reshape(-1, 6),
+        gather_rows(vert_ksns, f[:, 0]), mrow, comp_rand[:, None].to(fl),
         fc[:, None].to(fl), crow.to(fl),
     ], dim=1)
 
@@ -268,8 +267,9 @@ def _returns_retraverse(scene: TriangleScene, materials: MaterialTable,
     rows), as in the JAX package's scan; level 0 takes ``hits0``.  Every
     record field stays differentiable where the JAX package's is: through
     the ray state (origins move to refracted water hits), the winner rows
-    and the face rows; the traversals are forward-only.  Gathers of rows
-    that carry a gradient are `gather_rows` (see `_returns_noretraverse`).
+    and the face rows; the traversals are forward-only.  The row gathers
+    are `gather_rows`, on K7 on the card, but for the component and
+    material tables' (see `_returns_noretraverse`).
     With ``bounce_masked`` (the bounce traverser is the packet walk) each
     bounce level hands ``bounce_fn`` the rays still active and only those
     walk: the records read a ray's hit only where it is active
@@ -326,7 +326,7 @@ def _returns_retraverse(scene: TriangleScene, materials: MaterialTable,
             mat_w = frow[:, 21].to(torch.int32)
             surface_w = frow[:, 22].to(torch.int32)
         else:
-            rows_w = faces_aug[safe_fw]                         # (P, 4)
+            rows_w = gather_rows(faces_aug, safe_fw)            # (P, 4)
             verts_w = rows_w[:, 0:3].long()
             v0, v1, v2 = gather_rows(scene.vertices, verts_w).unbind(1)
             comp_w = rows_w[:, 3]
@@ -353,13 +353,14 @@ def _returns_retraverse(scene: TriangleScene, materials: MaterialTable,
         d_to_winner = safe_norm(point_i2.reshape(P, R, 3)
                                 - point_w[:, None, :])
         if scene.face_neighbors is not None:
-            cont_w = scene.face_neighbors[safe_fw]
+            cont_w = gather_rows(scene.face_neighbors, safe_fw)
             contiguous = (faces_pr[:, :, None]
                           == cont_w[:, None, :]).any(dim=-1)
         else:
-            rows_i = faces_aug[torch.clamp(faces_pr, min=0).long()]
+            rows_i = gather_rows(faces_aug,
+                                 torch.clamp(faces_pr, min=0).long())
             if verts_w is None:
-                verts_w = faces_aug[safe_fw][:, 0:3]
+                verts_w = gather_rows(faces_aug, safe_fw)[:, 0:3]
             contiguous = _faces_contiguous(
                 rows_i[..., 0:3], verts_w[:, None, :],
                 rows_i[..., 3], comp_w[:, None])
@@ -388,7 +389,7 @@ def _returns_retraverse(scene: TriangleScene, materials: MaterialTable,
         if face_pack is not None:
             ksns, mrow = frow[:, 15:17], frow[:, 17:19]
         else:
-            ksns = vert_ksns[verts_w[:, 0]]
+            ksns = gather_rows(vert_ksns, verts_w[:, 0])
             mrow = mat_aug[mat_w.long()]
         shininess = clip(torch.pow(maximum(ksns[:, 0], 0.0), ksns[:, 1])
                          * mrow[:, 1], 0.0, 1.0)
@@ -413,7 +414,7 @@ def _returns_retraverse(scene: TriangleScene, materials: MaterialTable,
         if face_pack is not None:
             uv0, uv1, uv2 = frow[:, 9:11], frow[:, 11:13], frow[:, 13:15]
         else:
-            uvs = scene.vertex_uv[verts_w]                      # (P, 3, 2)
+            uvs = gather_rows(scene.vertex_uv, verts_w)         # (P, 3, 2)
             uv0, uv1, uv2 = uvs[:, 0], uvs[:, 1], uvs[:, 2]
         uv_rec = (uv0 * (1.0 - u_w - v_w)[:, None]
                   + uv1 * u_w[:, None]
@@ -551,17 +552,24 @@ def _returns_noretraverse(scene: TriangleScene, materials: MaterialTable,
     it gathers its corner vertices, uvs, ks/ns and material rows from the
     scene arrays, as the JAX package's unpacked branch does.
 
-    The gathers of rows that carry a gradient (the winner rays' origin and
-    direction, the face pack's rows, the unpacked corner vertices) are
-    `physics/rows.py::gather_rows`: their backward adds each gathered row's
-    cotangent into its source row in one pass with no sort (K6 over the
-    flat cells ``row * C + col`` on the card, `index_add_` on the CPU),
-    summing the levels where a ray wins at several.  Autograd's own
-    backward of plain indexing sorts the indices and adds each run of equal
-    rows serially.  The JAX package's custom VJPs around the same gathers
-    (`_winner_rows`, `_winner_rows_pr`, `_winner_verts_union`) give the
-    same sums; the other gathers (ints, uvs, material rows) are plain
-    indexing.
+    The row gathers are `physics/rows.py::gather_rows`, whose forward is
+    K7 on the card (`kernels/gather.py::row_gather`): the face rows
+    ``faces_aug`` [v0, v1, v2, comp] of the winners and of every ray's
+    hit, the face neighbour lists, the winner rays' origin and direction,
+    the face pack's rows, the corner vertices, uvs and ks/ns, in the level
+    loop and in the record pass; the noise streams' rows
+    (`utils/noise.py::stream_rows`) are K7 too.  The component and material
+    tables' rows (a few rows, read by id) stay plain indexing.  Of these,
+    the gathers of rows that carry a gradient (the winner rays' origin and
+    direction, the face pack's rows, the unpacked corner vertices) have a
+    backward that adds each gathered row's cotangent into its source row in
+    one pass with no sort (K6 over the flat cells ``row * C + col`` on the
+    card, `index_add_` on the CPU), summing the levels where a ray wins at
+    several.  Autograd's own backward of plain indexing sorts the indices
+    and adds each run of equal rows serially.  The JAX package's custom
+    VJPs around the same gathers (`_winner_rows`, `_winner_rows_pr`,
+    `_winner_verts_union`) give the same sums; the others have no autograd
+    node.
     """
     P, R = rays.num_pulses, rays.rays_per_pulse
     N = P * R
@@ -575,6 +583,7 @@ def _returns_noretraverse(scene: TriangleScene, materials: MaterialTable,
 
     # ---- detached world for the discrete loop ----------------------------
     o2_sg, d2_sg = origin2.detach(), dir2.detach()
+    cat6_sg = cat6.detach()
     t2_sg = hits0.t.reshape(N).detach()
     face2 = hits0.face.reshape(N)
     t_pr_sg = t2_sg.reshape(P, R)
@@ -600,18 +609,17 @@ def _returns_noretraverse(scene: TriangleScene, materials: MaterialTable,
         fp_sg = face_pack.detach()
 
     def winner_static(flat_w, face_w, has_winner):
-        o_w, d_w = o2_sg[flat_w], d2_sg[flat_w]
+        od_w = gather_rows(cat6_sg, flat_w)                    # (P, 6)
+        o_w, d_w = od_w[:, 0:3], od_w[:, 3:6]
         safe_w = torch.clamp(face_w, min=0).long()
         if face_pack is not None:
-            frow = fp_sg[safe_w]
+            frow = gather_rows(fp_sg, safe_w)                  # (P, 23)
             v0, v1, v2 = frow[:, 0:3], frow[:, 3:6], frow[:, 6:9]
             ksns, mrow = frow[:, 15:17], frow[:, 17:19]
         else:
-            rows_w = faces_aug[safe_w].long()                  # (P, 4)
-            v0 = verts_sg[rows_w[:, 0]]
-            v1 = verts_sg[rows_w[:, 1]]
-            v2 = verts_sg[rows_w[:, 2]]
-            ksns = vksns_sg[rows_w[:, 0]]
+            rows_w = gather_rows(faces_aug, safe_w).long()     # (P, 4)
+            v0, v1, v2 = gather_rows(verts_sg, rows_w[:, 0:3]).unbind(1)
+            ksns = gather_rows(vksns_sg, rows_w[:, 0])
             mrow = mat_aug_sg[comp_aug[rows_w[:, 3]][:, 0].long()]
         _, point_w, _, _ = refine_hit_verts(o_w, d_w, v0, v1, v2, face_w)
         point_w = torch.where(has_winner[:, None], point_w, o_w)
@@ -645,12 +653,13 @@ def _returns_noretraverse(scene: TriangleScene, materials: MaterialTable,
                                 - point_w[:, None, :])
         safe_fw = torch.clamp(face_w, min=0).long()
         if faces_aug is None:
-            cont_w = scene.face_neighbors[safe_fw]
+            cont_w = gather_rows(scene.face_neighbors, safe_fw)
             contiguous = (faces_pr[:, :, None]
                           == cont_w[:, None, :]).any(dim=-1)
         else:
-            rows_i = faces_aug[torch.clamp(faces_pr, min=0).long()]
-            rows_wf = faces_aug[safe_fw]
+            rows_i = gather_rows(faces_aug,
+                                 torch.clamp(faces_pr, min=0).long())
+            rows_wf = gather_rows(faces_aug, safe_fw)
             contiguous = _faces_contiguous(
                 rows_i[..., 0:3], rows_wf[:, None, 0:3],
                 rows_i[..., 3], rows_wf[:, 3][:, None])
@@ -714,13 +723,13 @@ def _returns_noretraverse(scene: TriangleScene, materials: MaterialTable,
         mat_w = frow[:, 21].to(torch.int32)
         surface_w = frow[:, 22].to(torch.int32)
     else:
-        rows_w = faces_aug[safe_face]                           # (K, 4)
+        rows_w = gather_rows(faces_aug, safe_face)              # (K, 4)
         vidx = rows_w[:, 0:3].long()
         verts3 = gather_rows(scene.vertices, vidx)              # (K, 3, 3)
         v0, v1, v2 = verts3[:, 0], verts3[:, 1], verts3[:, 2]
-        uvs = scene.vertex_uv[vidx]                             # (K, 3, 2)
+        uvs = gather_rows(scene.vertex_uv, vidx)                # (K, 3, 2)
         uv0, uv1, uv2 = uvs[:, 0], uvs[:, 1], uvs[:, 2]
-        ksns = vert_ksns[vidx[:, 0]]
+        ksns = gather_rows(vert_ksns, vidx[:, 0])
         comp_w = rows_w[:, 3]
         crow_w = comp_aug[comp_w.long()]
         mat_w, surface_w = crow_w[:, 0], crow_w[:, 1]

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from ..kernels.gather import take_rows
+
 # Stream offsets, named after their reference uses.
 DISTANCE_NOISE_OFFSET = 0x456823
 LOSS_NOISE_OFFSET = 0x45632
@@ -90,9 +92,11 @@ def _stream_view(buffer: torch.Tensor) -> torch.Tensor:
 
 
 def stream_rows(buffer: torch.Tensor, index) -> torch.Tensor:
-    """(index.shape, NUM_STREAMS): every stream of each index."""
+    """(index.shape, NUM_STREAMS): every stream of each index, one 64-byte
+    row each (`kernels/gather.py::take_rows`: K7 on the card for an f32
+    buffer)."""
     view = _stream_view(buffer)
-    return view[_u32(index) % view.shape[0]]
+    return take_rows(view, _u32(index) % view.shape[0])
 
 
 def stream_sample(buffer: torch.Tensor, index, stream: int) -> torch.Tensor:

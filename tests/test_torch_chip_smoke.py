@@ -370,7 +370,7 @@ def test_chip_smoke_training_phases_on_cpu(monkeypatch, capsys):
         assert r["loss"] > 0 and min(r["grad_max"].values()) > 0
         assert set(r["kernels"]) == {"table", "full"}
         assert set(r["launches"]) == set(r["split"])
-    assert set(tls_n) == set(als_n) == {"K1", "K2", "K6"}
+    assert set(tls_n) == set(als_n) == {"K1", "K2", "K6", "K7"}
     # one step's row scatters: the winner rows and the face pack's build
     # and rows (`tls`: 2,000 faces, 4,096 pulses) or the corner vertices
     # (`als`: no pack)
@@ -433,8 +433,9 @@ def test_chip_smoke_rows_phase_on_cpu(monkeypatch, capsys):
     """Phase 16 at a small size, the plain version on both sides: every
     row case checked on its flat cells against the scatter bound, the
     large ones and the steps' timed (the winner rows beside the dense
-    compare-select too); then `--row-chunk` on small `alphaprime` and
-    `als` steps."""
+    compare-select too); then `--step-chunk` on small `alphaprime` and
+    `als` steps: their row scatters through phase 16, their row gathers
+    through phase 17, counted."""
     from lidar_brdf_tpu_torch import bench
     monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
     monkeypatch.setattr(chip_smoke, "ROW_ROWS", 4096)
@@ -467,10 +468,104 @@ def test_chip_smoke_rows_phase_on_cpu(monkeypatch, capsys):
                            scene="city", num_tris=2000, traverser="tile"),
         "als": dict(pulses=512, rays_pulse=10, max_returns=2,
                     scene="terrain", num_tris=2000, traverser="pulse")})
-    chunk = chip_smoke.row_chunk()
+    chunk = chip_smoke.step_chunk()
     assert chunk["alphaprime"]["scatters"] == 3
     assert chunk["als"]["scatters"] == 2
     assert "alphaprime face rows" in chunk["phase16"]
+    # unpacked terrain: 7 gathers a level, 7 over the record slots; packed
+    # city: the face pack's 3, 4 a level, 4 over the record slots
+    assert chunk["als"]["gathers"] == 2 * 7 + 7
+    assert chunk["alphaprime"]["gathers"] == 3 + 2 * 4 + 4
+    assert chunk["als"]["row_gather_rows"] == 2 * 512 * 18 + 11 * 1024
+    steps = chunk["phase17"]["steps"]
+    assert steps["als"]["rows"] == chunk["als"]["row_gather_rows"]
+    assert steps["alphaprime"]["calls"] == chunk["alphaprime"]["gathers"]
+    assert chunk["als"]["enqueue"]["synced"]["host_ms"] > 0
+
+
+def test_chip_smoke_gathers_phase_on_cpu(monkeypatch, capsys):
+    """Phase 17 at a small size, the plain version on both sides: every
+    case bit-equal, the large ones timed; then the gathers of small `als`
+    and `alphaprime` steps, captured (`capture_step`), as many as
+    `k7_per_chunk` says, checked and timed."""
+    from lidar_brdf_tpu_torch import bench
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "GATHER_ROWS", 4096)
+    monkeypatch.setattr(chip_smoke, "GATHER_SOURCE", 20_000)
+    monkeypatch.setattr(chip_smoke, "K6_MS_BUDGET", 1.0)
+    k7 = chip_smoke.phase_gathers({})
+    for key in ("name", "route", "source", "replaces", "max_abs_err", "ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms"):
+        assert key in k7
+    assert k7["bound_by"] == "bytes" and k7["replaces"] is None
+    cases = k7["cases"]
+    assert len(cases) == 2 * 7 * 3 + 1 + len(chip_smoke.GATHER_TIMED)
+    assert cases["faces 16 B"]["rows"] == 4096 * 10
+    assert cases["int32 x 23, empty"]["rows"] == 0
+    for name in chip_smoke.GATHER_TIMED:
+        assert cases[name]["k7_ms"] > 0 and cases[name]["index_ms"] > 0
+    out = capsys.readouterr().out
+    assert "[K7] noise 64 B" in out and "bit-equal to src[idx]" in out
+    monkeypatch.setattr(bench, "CONFIGS", {
+        "alphaprime": dict(pulses=1024, rays_pulse=10, max_returns=2,
+                           scene="city", num_tris=2000, traverser="tile"),
+        "als": dict(pulses=512, rays_pulse=10, max_returns=2,
+                    scene="terrain", num_tris=2000, traverser="pulse")})
+    steps = {}
+    for name, spec in bench.CONFIGS.items():
+        scene, bvh, cfg, rays, mats = bench.build_workload(
+            name, spec["pulses"], spec["rays_pulse"], spec["max_returns"],
+            spec["scene"], spec["num_tris"])
+        ws = bench.cull(scene, bvh, cfg, rays, mats, spec["traverser"],
+                        "cpu")
+        _, _, steps[name] = chip_smoke.capture_step(ws)
+        assert len(steps[name]) == chip_smoke.k7_per_chunk(
+            ws.scene, ws.rays.num_pulses, ws.cfg.max_returns)
+    sums = chip_smoke.phase_gathers(steps)["steps"]
+    assert sums["als"]["calls"] == 2 * 7 + 7
+    assert sums["alphaprime"]["calls"] == 3 + 2 * 4 + 4
+    assert sums["als"]["rows"] == 2 * 512 * 18 + 11 * 1024
+    assert sums["alphaprime"]["k7_ms"] > 0
+    assert "[K7] als 00 float32 x 6, 512 rows" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("kind", ["tls", "als", "water"])
+def test_k7_per_chunk_is_a_scans_row_gathers(monkeypatch, kind):
+    """`chip_smoke.k7_per_chunk`, the K7 launches a chunk that the forward
+    scans are held to on the card, is the number of `row_gather` calls a
+    scan makes a chunk on the CPU: the `tls` city (face pack, neighbour
+    table), the `als` terrain (no pack) and the topo-bathymetric scan
+    (water, bounce levels, L = 3)."""
+    from lidar_brdf_tpu_torch.kernels import gather
+    from lidar_brdf_tpu_torch.runtime import metrics, simulate
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "TLS_PULSES", 2048)
+    monkeypatch.setattr(chip_smoke, "TLS_TRIS", 2000)
+    monkeypatch.setattr(chip_smoke, "ALS_PULSES", 2048)
+    monkeypatch.setattr(chip_smoke, "ALS_TRIS", 20_000)
+    monkeypatch.setattr(chip_smoke, "WATER_PULSES", 2048)
+    monkeypatch.setattr(chip_smoke, "WATER_CELLS", 8)
+    monkeypatch.setattr(simulate, "PULSE_MIN_FACES", 10_000)
+    if kind == "tls":
+        workload = chip_smoke.tls_workload("cpu")
+    else:
+        workload = chip_smoke.als_workload("cpu")
+        if kind == "water":
+            workload = chip_smoke.water_workload(workload)
+    scene, bvh, cfg, mats, rays = workload
+    sim = simulate.Simulator(scene=scene, bvh=bvh, materials=mats, cfg=cfg,
+                             device="cpu")
+    metrics.clear()
+    with metrics.recording():
+        calls = chip_smoke.capture(gather, "row_gather",
+                                   lambda: sim.run(rays))
+    chunks = metrics.recorded()["counts"]["chunks"]
+    metrics.clear()
+    water = sim.scene_has_water or bool(cfg.bathymetric)
+    assert water == (kind == "water") and chunks >= 1
+    assert len(calls) == chunks * chip_smoke.k7_per_chunk(
+        sim.scene, min(cfg.chunk_pulses, rays.num_pulses), cfg.max_returns,
+        water)
 
 
 def test_chip_smoke_runtime_phase_on_cpu(monkeypatch, capsys):

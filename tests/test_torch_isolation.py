@@ -25,7 +25,7 @@ def _modules():
 def test_importing_the_port_loads_no_jax():
     mods = _modules()
     for m in ("kernels.traverse", "kernels.pulse", "kernels.cuda_build",
-              "kernels.cull",
+              "kernels.cull", "kernels.gather",
               "kernels.packet", "geom.packet", "physics.intensity",
               "sensors.als", "sensors.paths", "cli", "viz", "io.obj",
               "io.ply", "io.png", "io.rgl_bsdf", "runtime.metrics",

@@ -3,7 +3,8 @@ is kept and no profiler range is made with recording off; the span tree of
 `api.simulate`, `api.simulate_tls_path` and the fit step (parents and
 request ids); spans handed to a worker thread under `torch.profiler`; the
 spans on the profiler's clock; the cache counters of a repeat run, with
-`run(stats=)`'s keys unchanged; `PipelineMetrics.stage` as a span.
+`run(stats=)`'s keys unchanged; the row scatters' and row gathers' rows
+counted; `PipelineMetrics.stage` as a span.
 """
 
 import threading
@@ -277,6 +278,33 @@ def test_row_scatters_are_counted_in_a_fit_step_and_not_in_a_scan(tmp_path):
     _simulate(tmp_path)
     counts = metrics.recorded()["counts"]
     assert counts["chunks"] > 0 and "row_scatter_rows" not in counts
+
+
+def _gather_rows(pulses: int, rays: int, levels: int) -> int:
+    """Rows the unpacked return extraction gathers through `row_gather`
+    (`physics/returns.py::_returns_noretraverse`): at each level the
+    winner rays (P), their face rows (P), corner vertices (3 P) and ks/ns
+    (P), every ray's face rows (P R) and the winners' again for the merge
+    (P), and the winners' noise rows (P); then over the K = L P record
+    slots the winner rays (K), their face rows (K), corner vertices (3 K),
+    uvs (3 K), ks/ns (K), noise rows (K) and outlier noise rows (K)."""
+    K = levels * pulses
+    return levels * pulses * (rays + 8) + 11 * K
+
+
+def test_row_gathers_are_counted_in_a_fit_step_and_a_scan(tmp_path):
+    """Each `row_gather` call adds its rows to ``row_gather_rows``: two
+    recorded fit steps (L = 2, 512 pulses of 10 rays, no face pack) and a
+    recorded scan (3 chunks of 64 pulses of 2 rays, L = 1) count the rows
+    their call sites gather."""
+    _step(tmp_path)
+    assert metrics.recorded()["counts"]["row_gather_rows"] == \
+        2 * _gather_rows(512, 10, 2)
+    metrics.clear()
+    _simulate(tmp_path)
+    counts = metrics.recorded()["counts"]
+    assert counts["chunks"] == 3
+    assert counts["row_gather_rows"] == 3 * _gather_rows(64, 2, 1)
 
 
 def test_a_pipeline_stage_is_a_span():
